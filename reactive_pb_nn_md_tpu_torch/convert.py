@@ -1,0 +1,96 @@
+"""State and parameters carried across from the JAX package's formats.
+
+``from_numpy_tree`` takes the system as nested dicts of numpy arrays keyed
+by container and field name -- the layout ``topology.build_numpy_tree``
+produces, and the one a test gets by flattening the JAX package's
+``System`` / ``Topology`` -- so this module never imports jax.
+``load_equilibrated_npz`` reads the flattened ``(State, Topology)`` pytree
+files under ``benchdata/``.
+"""
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .topology import (ForceField, MolTypeTable, EvbParams, Topology,
+                       System, State)
+
+
+def _tensor(v, device, dtype):
+    """numpy leaf -> tensor: floats in `dtype`, ints as int64, bools kept."""
+    a = np.asarray(v)
+    if a.dtype == np.bool_:
+        return torch.tensor(a, device=device)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.tensor(a.astype(np.int64), device=device)
+    return torch.tensor(a, dtype=dtype, device=device)
+
+
+def _container(cls, leaves, device, dtype):
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = leaves.get(f.name)
+        if f.name in ("atype_names", "mtype_names"):
+            kw[f.name] = tuple(v or ())
+        else:
+            kw[f.name] = None if v is None else _tensor(v, device, dtype)
+    return cls(**kw)
+
+
+def from_numpy_tree(tree, device="cpu", dtype=torch.float64):
+    """(System, Topology) on `device` from the nested numpy layout:
+    ``{"ff": {...}, "mt": {...}, "evb": {...} or None, "system": {mass,
+    static config...}, "topo": {...}}``.  Keys the port has no field for
+    are ignored."""
+    device = torch.device(device)
+    ff = _container(ForceField, tree["ff"], device, dtype)
+    mt = _container(MolTypeTable, tree["mt"], device, dtype)
+    evb = (None if tree.get("evb") is None
+           else _container(EvbParams, tree["evb"], device, dtype))
+    s = tree["system"]
+    static = {f.name: s[f.name] for f in dataclasses.fields(System)
+              if f.name not in ("ff", "mt", "evb", "mass", "device")
+              and f.name in s}
+    static["rs_cells"] = tuple(int(c) for c in static.get("rs_cells", ()))
+    system = System(ff=ff, mt=mt, evb=evb,
+                    mass=_tensor(s["mass"], device, dtype), device=device,
+                    **static)
+    topo = _container(Topology, tree["topo"], device, dtype)
+    return system, topo
+
+
+# leaf order of the flattened (State, Topology) pytree in benchdata/*.npz
+_STATE_LEAVES = ("x", "v", "box", "key", "step")
+_TOPO_LEAVES = ("mol_mtype", "mol_natom", "mol_atoms", "atom_mol",
+                "atom_slot", "atom_type", "charge", "hydronium_mol")
+
+
+def load_equilibrated_npz(path, device="cpu", dtype=torch.float64):
+    """(State, Topology, meta) from an equilibrated-state file.
+
+    Leaves l0..l4 are the State (x, v, box, PRNG key, step; the key is not
+    used: NVE), l5..l12 the Topology; ``meta`` holds the saved capacities
+    (``capacity``, ``react_cap``, ``rs_cells``, ...)."""
+    data = np.load(path)
+    n = len(_STATE_LEAVES) + len(_TOPO_LEAVES)
+    if len([k for k in data.files if k.startswith("l")]) != n:
+        raise ValueError(f"{path}: expected {n} (State, Topology) leaves")
+    leaf = {name: data[f"l{i}"]
+            for i, name in enumerate(_STATE_LEAVES + _TOPO_LEAVES)}
+    device = torch.device(device)
+    state = State(x=_tensor(leaf["x"], device, dtype),
+                  v=_tensor(leaf["v"], device, dtype),
+                  box=_tensor(leaf["box"], device, dtype),
+                  step=int(leaf["step"]))
+    topo = Topology(**{k: _tensor(leaf[k], device, dtype)
+                       for k in _TOPO_LEAVES})
+    meta = {k[len("meta_"):]: data[k] for k in data.files
+            if k.startswith("meta_")}
+    for k in ("capacity", "react_cap", "pme_scap"):
+        if k in meta:
+            meta[k] = int(meta[k])
+    for k in ("cells", "react_cells", "rs_cells"):
+        if k in meta:
+            meta[k] = tuple(int(c) for c in meta[k])
+    return state, topo, meta

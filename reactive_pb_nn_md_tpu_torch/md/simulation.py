@@ -1,0 +1,174 @@
+"""Simulation loop, NVE (counterpart of reactive_pb_nn_md_tpu/md/simulation.py;
+main_ms_evb.f90:15-122, print_step general_routines.f90:870-945).
+
+File contract of the reference CLI: in.gro ff.pmt top sim.pmt -> trajectory
+(.gro frames), log, hop file, A file.  Not ported yet: NVT/NPT, restart
+and checkpoints, capacity regrow, and the debug >= 2 A-file stream (the A
+file is created and left empty).
+"""
+
+import time
+
+import numpy as np
+import torch
+
+from reactive_pb_nn_md_tpu.io.gro import read_gro, format_gro_frame
+from reactive_pb_nn_md_tpu.io.ffpmt import read_ffpmt
+from reactive_pb_nn_md_tpu.io.topfile import read_top
+from reactive_pb_nn_md_tpu.io.simpmt import read_sim_params
+from ..topology import build_system, State
+from ..models import pme
+from ..ops import neighbors
+from ..utils import pbc
+from ..utils.dtypes import float_dtype
+from . import integrators, velocities
+
+
+def load_deck(gro_file, ff_file, top_file, sim_file, device,
+              precision=None):
+    """(cfg, frame, system, topo) of a deck's four input files on `device`;
+    `precision` ("fp64" | "fp32"), when given, replaces the deck's key."""
+    cfg = read_sim_params(sim_file)
+    if precision is not None:
+        cfg.precision = precision
+    frame = read_gro(gro_file)
+    system, topo = build_system(frame, read_ffpmt(ff_file),
+                                read_top(top_file), cfg,
+                                device=torch.device(device))
+    return cfg, frame, system, topo
+
+
+class Simulation:
+    """Owns the host loop around md_step."""
+
+    def __init__(self, gro_file, ff_file, top_file, sim_file, traj_file,
+                 log_file, hop_file, a_file, device):
+        self.device = torch.device(device)
+        self.cfg, frame, self.system, topo = load_deck(
+            gro_file, ff_file, top_file, sim_file, self.device)
+        cfg = self.cfg
+        if cfg.ensemble != "NVE":
+            raise ValueError(f"ensemble {cfg.ensemble} is not ported yet "
+                             f"(NVE only)")
+        self.files = dict(traj=traj_file, log=log_file, hop=hop_file,
+                          a=a_file)
+        f = float_dtype(cfg.precision)
+        box = torch.as_tensor(frame.box, dtype=f, device=self.device)
+        if frame.velocities is not None:
+            v = torch.as_tensor(frame.velocities, dtype=f, device=self.device)
+        else:
+            gen = torch.Generator().manual_seed(cfg.seed)
+            v = velocities.sample_velocities(
+                gen, self.system.mass, cfg.initial_temp,
+                velocities.freeze_mask(self.system, topo))
+        state = State(x=torch.as_tensor(frame.xyz, dtype=f,
+                                        device=self.device), v=v, box=box)
+        self.cbw = pme.cb_half(box, self.system.pme_grid,
+                               self.system.spline_order,
+                               self.system.alpha_sqrt, dtype=f)
+        capacity = neighbors.suggest_capacity(
+            self.system.n_atoms, float(pbc.box_volume(box)),
+            self.system.verlet_cutoff)
+        self.ms = integrators.initial_md_state(state, topo, self.system,
+                                               self.cbw, capacity)
+
+    def _write_frame(self, step):
+        topo = self.ms.topo
+        names = [self.system.mt.mtype_names[t]
+                 for t in topo.mol_mtype.tolist()]
+        ma = topo.mol_atoms.cpu().numpy().ravel()
+        order = ma[ma >= 0]
+        anames = np.asarray(self.system.ff.atype_names)[
+            topo.atom_type.cpu().numpy()[order]].tolist()
+        self.traj_f.write(format_gro_frame(
+            f"step {step}", names, topo.mol_natom.cpu().numpy(), anames,
+            self.ms.state.x.cpu().numpy()[order],
+            self.ms.state.box.cpu().numpy()))
+        self.traj_f.flush()
+
+    def _log_header(self):
+        cfg, s = self.cfg, self.system
+        name = (torch.cuda.get_device_name(self.device)
+                if self.device.type == "cuda" else "cpu")
+        self.log_f.write("\n".join([
+            "reactive_pb_nn_md_tpu_torch simulation",
+            f" ensemble {cfg.ensemble}  steps {cfg.n_step}  "
+            f"dt(ps) {cfg.delta_t}  T(K) {cfg.temperature}",
+            f" atoms {s.n_atoms}  molecules {s.n_mole}  "
+            f"molecule types {len(s.mt.mtype_names)}",
+            f" real_space_cutoff {s.real_space_cutoff}  "
+            f"verlet_cutoff {s.verlet_cutoff}  alpha_sqrt {s.alpha_sqrt}",
+            f" pme_grid {s.pme_grid}^3  spline_order {s.spline_order}  "
+            f"n_exclusions {s.n_exclusions}",
+            f" ms_evb {s.ms_evb}  evb_max_states {s.evb_max_states}  "
+            f"evb_max_chain {s.evb_max_chain}",
+            f" lj_comb_rule {cfg.lj_comb_rule}  precision {cfg.precision}  "
+            f"device {self.device} ({name})", ""]))
+        self.log_f.flush()
+
+    def _log_step(self, step):
+        ms = self.ms
+        bd = ms.breakdown
+        ke, pe = float(ms.kinetic), float(ms.potential)
+        line = (f"step {step:10d} time(ps) {step * self.cfg.delta_t:12.4f}\n"
+                f" KE {ke:14.6f} PE {pe:14.6f} Etot {ke + pe:14.6f}\n"
+                f" Eelec {float(bd.elec):14.6f} Evdw {float(bd.vdw):14.6f}"
+                f" Ebond {float(bd.bond):12.6f} Eangle {float(bd.angle):12.6f}"
+                f" Edihedral {float(bd.dihedral):12.6f}\n")
+        if self.system.ms_evb and self.cfg.print_ms_evb_data:
+            c = ms.eigenvector.cpu().numpy()
+            n = int(ms.n_states)
+            hyd = ms.hydronium_of.cpu().numpy()
+            shell = ms.n_hops_of.cpu().numpy()
+            line += (f" diabats {n} max_ci2 {float(np.max(c ** 2)):8.5f} "
+                     f"hydronium_mol {int(ms.topo.hydronium_mol) + 1}\n")
+            # per-diabat block (print_evb_trajectory_data)
+            line += f" i_step {step} number of diabats {n}\n"
+            for s in range(n):
+                line += (f"  diabat {s + 1:3d} hydronium_molecule "
+                         f"{int(hyd[s]) + 1:6d} ci^2 {float(c[s] ** 2):10.6f}"
+                         f" solvation_shell {int(shell[s]):2d}\n")
+            line += "\n"
+        self.log_f.write(line)
+        self.log_f.flush()
+
+    def run(self, n_steps=None):
+        """Run n_steps NVE steps; returns the wall seconds of the loop."""
+        cfg = self.cfg
+        n_steps = cfg.n_step if n_steps is None else n_steps
+        with open(self.files["traj"], "w") as self.traj_f, \
+                open(self.files["log"], "w") as self.log_f, \
+                open(self.files["hop"], "w") as hop_f, \
+                open(self.files["a"], "w"):
+            self._log_header()
+            self._log_step(0)
+            self._write_frame(0)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t0 = time.perf_counter()
+            step = 0
+            while step < n_steps:
+                prev_h = int(self.ms.topo.hydronium_mol) \
+                    if self.system.ms_evb else -1
+                self.ms = integrators.md_step(self.ms, self.system, self.cbw,
+                                              cfg.delta_t)
+                step += 1
+                if self.ms.hopped:
+                    hop_f.write(f"step  {step}\n proton hop from "
+                                f"{prev_h + 1} to "
+                                f"{int(self.ms.topo.hydronium_mol) + 1}\n")
+                    hop_f.flush()
+                if self.ms.force_overflow:
+                    self.log_f.write(f"step {step}: force magnitude exceeded "
+                                     f"1e4 kJ/mol/A -- aborting (reference "
+                                     f"behavior, md_integration.f90:523-526)\n")
+                    break
+                if step % cfg.n_output == 0:
+                    self._log_step(step)
+                    self._write_frame(step)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            elapsed = time.perf_counter() - t0
+            self.log_f.write(f"completed {step} steps in {elapsed:.2f} s "
+                             f"({step / max(elapsed, 1e-9):.2f} steps/s)\n")
+        return elapsed

@@ -1,0 +1,133 @@
+"""Build and load the hand-written Hopper kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` into ONE shared library
+with a plain C interface (no PyTorch headers, so the build takes seconds)
+and loaded with ``ctypes``.  The build happens on first use, into
+``build/kernels/<hash of sources and flags>/`` beside the package, and is
+redone when a source changes.  Each C entry point launches on the stream
+it is given, allocates nothing, does not synchronize, and returns
+``cudaGetLastError()``; ``check`` raises on anything but 0.
+
+``launches`` counts kernel launches by kernel name (A, B1, B2, C1, C2);
+each wrapper adds one where it launches its kernel, and nowhere else.
+"""
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import time
+from collections import Counter
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--expt-relaxed-constexpr"]
+
+launches = Counter()
+build_info = {}            # seconds, path, nvcc output of the last build
+_lib = None
+_functions = {}
+
+
+def _nvcc():
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (nvcc) to build the "
+                           "kernels in csrc/")
+    return str(Path(CUDA_HOME) / "bin" / "nvcc")
+
+
+def _sources():
+    srcs = sorted(CSRC.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return srcs
+
+
+def library():
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        _lib = _load()
+    return _lib
+
+
+def _load():
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in srcs + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    out_dir = BUILD_ROOT / h.hexdigest()[:16]
+    so = out_dir / "libkernels.so"
+    t0 = time.perf_counter()
+    log = ""
+    if not so.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + [str(s) for s in srcs]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log = res.stdout + res.stderr
+        if res.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+        os.replace(tmp, so)             # atomic: concurrent builds agree
+    lib = ctypes.CDLL(str(so))
+    lib.kernels_error_string.argtypes = [ctypes.c_int]
+    lib.kernels_error_string.restype = ctypes.c_char_p
+    build_info.update(seconds=time.perf_counter() - t0, path=str(so),
+                      log=log)
+    return lib
+
+
+def function(name, n_ptr, n_int=0, n_float=0):
+    """The C entry point `name`: n_ptr pointers (the stream last among
+    them), then n_int ints, then n_float doubles."""
+    if name not in _functions:
+        f = getattr(library(), name)
+        f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                      + [ctypes.c_double] * n_float)
+        f.restype = ctypes.c_int
+        _functions[name] = f
+    return _functions[name]
+
+
+def check(err, name):
+    if err != 0:
+        msg = library().kernels_error_string(err).decode()
+        raise RuntimeError(f"kernel {name} failed to launch: CUDA error "
+                           f"{err} ({msg})")
+
+
+def stream_ptr(t):
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def suffix(dtype):
+    """C entry-point suffix of a float dtype."""
+    import torch
+    if dtype == torch.float32:
+        return "f32"
+    if dtype == torch.float64:
+        return "f64"
+    raise TypeError(f"kernels take float32 or float64, not {dtype}")
+
+
+def require(t, dtype, shape=None, name="tensor"):
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` (and shape)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")

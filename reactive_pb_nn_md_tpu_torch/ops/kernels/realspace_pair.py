@@ -1,0 +1,245 @@
+"""Kernel A: the fused inter-molecular real-space pair sweep.
+
+Replaces reactive_pb_nn_md_tpu/ops/pallas/realspace_pair.py:_forward ->
+_kernel / _pair_math (full 27-stencil path), source
+``csrc/realspace_pair.cu``.
+
+Atoms are binned into a static (nc1, nc2, nc3) grid sized by the
+real-space cutoff (``System.rs_cells``), in torch: cell id, stable sort,
+rank in cell -> slot, and an overflow flag.  The cell-packed array
+(n_cells*ccap, 8) [x y z q type mol 0 0] goes to ``pair_rows``, which
+returns per-slot [dE_el/dx, dE_vdw/dx, e_el/2, e_vdw/2] -- the gradients
+come out of the forward sweep, so the autograd backward only scales the
+stored gradients (as the TPU kernel's custom VJP does).
+
+What bounds it on the H100 and what the design does about it: see the
+source.  ``pair_rows`` runs the CUDA kernel for a CUDA tensor and the plain
+torch sweep below for a CPU tensor; nothing else selects between them.
+The kernel assumes an orthorhombic box (L = diag(box)), as the reference
+kernel does; ``suggest_rs_cells`` returns () for any other box.
+"""
+
+import torch
+
+from reactive_pb_nn_md_tpu.utils.constants import CONV_E2A_KJMOL, SQRT_PI
+from . import _build
+
+SENTINEL = 1.0e6            # empty-slot position: far outside any cutoff
+# cells per pass of the plain sweep: bounds its (chunk, ccap, 27 ccap)
+# pair temporaries to a few MB at the flagship's ccap of 24
+_CELL_CHUNK = 16
+
+
+def build_tabs(system, dtype):
+    """(n_tab, T, T) tables: vdw_type, C12, C6 [, A, B, C8, C10, C12]."""
+    ff = system.ff
+    p = ff.vdw_params.to(dtype)
+    is_lj = ff.vdw_type == 0
+    zero = torch.zeros_like(p[..., 0])
+    tabs = [ff.vdw_type.to(dtype), torch.where(is_lj, p[..., 0], zero),
+            torch.where(is_lj, p[..., 1], p[..., 2])]
+    if system.has_sapt:
+        tabs += [p[..., 0], p[..., 1], p[..., 3], p[..., 4], p[..., 5]]
+    return torch.stack(tabs).contiguous()
+
+
+def bin_atoms(x, box, cells, cutoff):
+    """(slot (N,), overflow ()): the packed row of every atom; overflow
+    when a cell holds more than ccap atoms or a cell is narrower than the
+    cutoff."""
+    nc1, nc2, nc3, ccap = cells
+    N = x.shape[0]
+    ncv = torch.tensor([nc1, nc2, nc3], device=x.device)
+    L = torch.diagonal(box)
+    frac = x / L
+    frac = frac - torch.floor(frac)
+    ci = torch.minimum((frac * ncv).to(torch.int64), ncv - 1).clamp(min=0)
+    cell_id = (ci[:, 0] * nc2 + ci[:, 1]) * nc3 + ci[:, 2]
+    order = torch.argsort(cell_id, stable=True)
+    sorted_id = cell_id[order]
+    ar = torch.arange(N, device=x.device)
+    first = torch.ones(N, dtype=torch.bool, device=x.device)
+    first[1:] = sorted_id[1:] != sorted_id[:-1]
+    run_start = torch.cummax(torch.where(first, ar, torch.zeros_like(ar)),
+                             0).values
+    rank = ar - run_start
+    C8 = nc1 * nc2 * nc3 * ccap
+    slot_sorted = torch.where(rank < ccap, sorted_id * ccap + rank,
+                              torch.full_like(rank, C8))
+    slot = torch.empty_like(slot_sorted)
+    slot[order] = slot_sorted
+    overflow = (rank >= ccap).any() | (L / ncv < cutoff).any()
+    return slot, overflow
+
+
+def pack_cells(x, charge, atype, mol, slot, cells):
+    """(n_cells*ccap, 8) [x y z q type mol 0 0]; empty slots get the
+    sentinel position and mol = -1."""
+    nc1, nc2, nc3, ccap = cells
+    C8 = nc1 * nc2 * nc3 * ccap
+    f = x.dtype
+    base = torch.zeros((C8 + 1, 8), dtype=f, device=x.device)
+    base[:, 0:3] = SENTINEL
+    base[:, 5] = -1.0
+    vals = torch.cat([x, charge[:, None].to(f), atype[:, None].to(f),
+                      mol[:, None].to(f),
+                      torch.zeros((x.shape[0], 2), dtype=f, device=x.device)],
+                     dim=1)
+    base[slot] = vals
+    return base[:C8].contiguous()
+
+
+def _stencil(cells, device):
+    """(n_cells, 27) neighbor cell ids, offsets in lexicographic order."""
+    nc1, nc2, nc3, _ = cells
+    c = torch.arange(nc1 * nc2 * nc3, device=device)
+    c1, c2, c3 = c // (nc2 * nc3), (c // nc3) % nc2, c % nc3
+    o = torch.tensor([(i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1)
+                      for k in (-1, 0, 1)], device=device)
+    return ((((c1[:, None] + o[:, 0]) % nc1) * nc2
+             + (c2[:, None] + o[:, 1]) % nc2) * nc3
+            + (c3[:, None] + o[:, 2]) % nc3)
+
+
+def pair_rows_plain(cm, tabs, cells, L, rcut, alpha, has_sapt):
+    """Plain torch version of the kernel: same inputs, same output."""
+    nc1, nc2, nc3, ccap = cells
+    n_cells = nc1 * nc2 * nc3
+    T = tabs.shape[-1]
+    cmr = cm.view(n_cells, ccap, 8)
+    nb = _stencil(cells, cm.device)
+    conv = CONV_E2A_KJMOL
+    out = []
+    for c0 in range(0, n_cells, _CELL_CHUNK):
+        cs = torch.arange(c0, min(c0 + _CELL_CHUNK, n_cells),
+                          device=cm.device)
+        own = cmr[cs][:, :, None, :]                           # (n, ccap, 1, 8)
+        cand = cmr[nb[cs]].reshape(len(cs), 1, 27 * ccap, 8)   # (n, 1, J, 8)
+        gid_i = (cs[:, None] * ccap
+                 + torch.arange(ccap, device=cm.device))[:, :, None]
+        gid_j = (nb[cs][:, :, None] * ccap
+                 + torch.arange(ccap, device=cm.device)).reshape(len(cs),
+                                                                1, -1)
+        d = own[..., 0:3] - cand[..., 0:3]
+        d = d - L * torch.round(d * (1.0 / L))
+        r2 = (d * d).sum(-1)
+        moli, molj = own[..., 5], cand[..., 5]
+        within = ((r2 < rcut * rcut) & (moli != molj) & (moli >= 0)
+                  & (molj >= 0) & (gid_i != gid_j))
+        one = torch.ones_like(r2)
+        r2s = torch.where(within, r2, one)
+        inv_r2 = 1.0 / r2s
+        r = torch.sqrt(r2s)
+        inv_r = 1.0 / r
+        qq = own[..., 3] * cand[..., 3] * conv
+        ar_ = alpha * r
+        erfc_ar = torch.erfc(ar_)
+        e_el = qq * erfc_ar * inv_r
+        s_el = qq * (erfc_ar * inv_r + 2.0 * alpha / SQRT_PI
+                     * torch.exp(-ar_ * ar_)) * inv_r2
+        p = (torch.round(own[..., 4]).long() * T
+             + torch.round(cand[..., 4]).long())
+        tab = tabs.reshape(tabs.shape[0], T * T)[:, p]        # (n_tab, ...)
+        vt, c12, c6 = tab[0], tab[1], tab[2]
+        inv_r6 = inv_r2 * inv_r2 * inv_r2
+        inv_r12 = inv_r6 * inv_r6
+        zero = torch.zeros_like(r2)
+        is_lj = vt == 0
+        e_v = torch.where(is_lj, c12 * inv_r12 - c6 * inv_r6, zero)
+        s_v = torch.where(is_lj, (12.0 * c12 * inv_r12 - 6.0 * c6 * inv_r6)
+                          * inv_r2, zero)
+        if has_sapt:
+            A, B = tab[3], tab[4]
+            Cs = [c6, tab[5], tab[6], tab[7]]
+            x_tt = torch.clamp(B * r, max=40.0)
+            ex = torch.exp(-x_tt)
+            e_s = A * ex
+            s_s = A * B * ex * inv_r
+            term = torch.ones_like(x_tt)
+            ssum = torch.ones_like(x_tt)
+            inv_rn = inv_r6
+            fact = 1.0
+            for n in range(1, 13):
+                fact = fact * n
+                term = term * x_tt
+                ssum = ssum + term / fact
+                if n in (6, 8, 10, 12):
+                    fn = 1.0 - ssum * ex
+                    dfn = ex * term / fact
+                    Cn = Cs[(n - 6) // 2]
+                    e_s = e_s - fn * Cn * inv_rn
+                    s_s = s_s + (B * dfn * Cn * inv_rn
+                                 - n * fn * Cn * inv_rn * inv_r) * inv_r
+                    inv_rn = inv_rn * inv_r2
+            e_v = torch.where(vt == 1, e_s, e_v)
+            s_v = torch.where(vt == 1, s_s, s_v)
+        e_el = torch.where(within, e_el, zero)
+        e_v = torch.where(within, e_v, zero)
+        d = torch.where(within[..., None], d, torch.zeros_like(d))
+        s_el = torch.where(within, s_el, zero)[..., None]
+        s_v = torch.where(within, s_v, zero)[..., None]
+        out.append(torch.cat([-(s_el * d).sum(2), -(s_v * d).sum(2),
+                              0.5 * e_el.sum(2, keepdim=True),
+                              0.5 * e_v.sum(2, keepdim=True)], dim=-1))
+    return torch.cat(out).reshape(n_cells * ccap, 8)
+
+
+def pair_rows_cuda(cm, tabs, cells, box, rcut, alpha, has_sapt):
+    """Launch kernel A (box: (3, 3), orthorhombic)."""
+    nc1, nc2, nc3, ccap = cells
+    C8 = nc1 * nc2 * nc3 * ccap
+    f = cm.dtype
+    _build.require(cm, f, (C8, 8), "cm")
+    _build.require(tabs, f, None, "tabs")
+    _build.require(box, f, (3, 3), "box")
+    n_tab, T = tabs.shape[0], tabs.shape[-1]
+    if n_tab * T * T * cm.element_size() > 48 * 1024:
+        raise ValueError("parameter tables exceed 48 KB of shared memory")
+    if min(nc1, nc2, nc3) < 3:
+        raise ValueError("kernel A needs >= 3 cells along every axis")
+    out = torch.empty((C8, 8), dtype=f, device=cm.device)
+    fn = _build.function("rs_pair_" + _build.suffix(f), 5, 7, 3)
+    _build.check(fn(cm.data_ptr(), tabs.data_ptr(), box.data_ptr(),
+                    out.data_ptr(), _build.stream_ptr(cm), nc1, nc2, nc3,
+                    ccap, T, n_tab, int(bool(has_sapt)), float(rcut) ** 2,
+                    float(alpha), CONV_E2A_KJMOL), "A")
+    _build.launches["A"] += 1
+    return out
+
+
+def pair_rows(cm, tabs, cells, box, rcut, alpha, has_sapt):
+    """Per-slot [dE_el/dx (3), dE_vdw/dx (3), e_el/2, e_vdw/2]: the CUDA
+    kernel for a CUDA tensor, the plain sweep for a CPU tensor."""
+    if cm.is_cuda:
+        return pair_rows_cuda(cm, tabs, cells, box.contiguous(), rcut, alpha,
+                              has_sapt)
+    return pair_rows_plain(cm, tabs, cells, torch.diagonal(box), rcut,
+                           alpha, has_sapt)
+
+
+class RealspaceInterCells(torch.autograd.Function):
+    """(e_elec, e_vdw, overflow) over all inter-molecular pairs within the
+    cutoff; differentiable in x only (the stored analytic gradients)."""
+
+    @staticmethod
+    def forward(ctx, x, charge, atype, mol, box, tabs, cells, rcut, alpha,
+                has_sapt):
+        slot, overflow = bin_atoms(x, box, cells, rcut)
+        cm = pack_cells(x, charge, atype, mol, slot, cells)
+        f = pair_rows(cm, tabs, cells, box, rcut, alpha, has_sapt)
+        g = torch.cat([f, torch.zeros_like(f[:1])])[slot]
+        ctx.save_for_backward(g[:, 0:3], g[:, 3:6])
+        ctx.mark_non_differentiable(overflow)
+        return f[:, 6].sum(), f[:, 7].sum(), overflow
+
+    @staticmethod
+    def backward(ctx, ge, gv, _):
+        g_el, g_vdw = ctx.saved_tensors
+        return (ge * g_el + gv * g_vdw,) + (None,) * 9
+
+
+def realspace_inter_cells(x, charge, atype, mol, box, tabs, cells, rcut,
+                          alpha, has_sapt):
+    return RealspaceInterCells.apply(x, charge, atype, mol, box, tabs,
+                                     cells, float(rcut), float(alpha),
+                                     bool(has_sapt))

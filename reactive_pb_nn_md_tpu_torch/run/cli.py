@@ -1,0 +1,52 @@
+"""Command-line entry point, the reference's 8-positional-file contract:
+
+    python -m reactive_pb_nn_md_tpu_torch.run.cli \\
+        in.gro ff.pmt topology.top sim.pmt traj.out log.out hop.out A.out \\
+        [--device cuda|cpu] [--steps N]
+
+``--device`` defaults to ``cuda`` and fails when CUDA is absent; the CPU
+runs only when asked for.  The deck's ``precision fp64|fp32`` key picks
+the tensor dtype.
+"""
+
+import argparse
+
+import torch
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(
+        prog="reactive_pb_nn_md_tpu_torch",
+        description="Reactive MS-EVB molecular dynamics on PyTorch + CUDA")
+    for name, doc in (("gro", "input coordinates (.gro, nm)"),
+                      ("ffpmt", "force-field parameter file (.pmt)"),
+                      ("top", "topology file (.top)"),
+                      ("simpmt", "simulation parameter file (.pmt)"),
+                      ("traj", "output trajectory (.gro frames)"),
+                      ("log", "output log file"),
+                      ("hop", "output proton-hop event file"),
+                      ("afile", "output A-factor file")):
+        p.add_argument(name, help=doc)
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs only when "
+                        "asked for)")
+    p.add_argument("--steps", type=int, default=None,
+                   help="override n_step from the parameter file")
+    args = p.parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("CUDA is not available; pass --device cpu to run "
+                         "on the CPU")
+
+    from ..md.simulation import Simulation
+    sim = Simulation(args.gro, args.ffpmt, args.top, args.simpmt, args.traj,
+                     args.log, args.hop, args.afile, device)
+    n = args.steps if args.steps is not None else sim.cfg.n_step
+    elapsed = sim.run(n)
+    print(f"completed {n} steps in {elapsed:.2f} s "
+          f"({n / max(elapsed, 1e-9):.2f} steps/s)")
+    return sim
+
+
+if __name__ == "__main__":
+    main()

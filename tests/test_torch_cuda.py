@@ -1,0 +1,123 @@
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+CUDA force evaluation against the CPU one.  Needs an NVIDIA card: every
+test is marked `cuda` and skips without one.  This file imports no jax, so
+it runs on the card's machine (which has none) with
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
+
+Tolerances: fp64 1e-10 relative to the largest reference value; fp32 as
+chip_smoke.py states them (the Pallas tests' own, or a loosening for the
+other summation order of atomics and tiles)."""
+
+import numpy as np
+import pytest
+import torch
+
+from torch_bridge import fixture_deck
+from reactive_pb_nn_md_tpu_torch.topology import build_system, State
+from reactive_pb_nn_md_tpu_torch.models import pme
+from reactive_pb_nn_md_tpu_torch.ops.kernels import (
+    pme_spread, realspace_pair as rsp, recip_perstate)
+from reactive_pb_nn_md_tpu_torch.md import integrators
+from reactive_pb_nn_md_tpu_torch.utils import pbc
+
+pytestmark = pytest.mark.cuda
+DTYPES = [(torch.float64, 1e-10, 1e-10), (torch.float32, 1e-5, 2e-3)]
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+
+
+def _close(got, ref, rtol):
+    ref = ref.detach().double().cpu().numpy()
+    np.testing.assert_allclose(got.detach().double().cpu().numpy(), ref,
+                               rtol=rtol, atol=rtol * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("ff", ["lj", "sapt"])
+def test_pair_kernel_matches_plain(tmp_path, ff):
+    _need_card()
+    frame, ffr, topr, cfg = fixture_deck(tmp_path, 63, seed=4, cutoff=3.0,
+                                         verlet_cutoff=4.0,
+                                         sapt=ff == "sapt")
+    tsys, topo = build_system(frame, ffr, topr, cfg, device="cuda")
+    for f, rtol, _ in DTYPES:
+        x = torch.tensor(frame.xyz, dtype=f, device="cuda")
+        box = torch.tensor(frame.box, dtype=f, device="cuda")
+        slot, over = rsp.bin_atoms(x, box, tsys.rs_cells, 3.0)
+        assert not bool(over)
+        cm = rsp.pack_cells(x, topo.charge.to(f), topo.atom_type,
+                            topo.atom_mol, slot, tsys.rs_cells)
+        tabs = rsp.build_tabs(tsys, f)
+        args = (cm, tabs, tsys.rs_cells)
+        kw = dict(rcut=3.0, alpha=tsys.alpha_sqrt, has_sapt=tsys.has_sapt)
+        got = rsp.pair_rows_cuda(*args, box, **kw)
+        ref = rsp.pair_rows_plain(*args, torch.diagonal(box), **kw)
+        torch.cuda.synchronize()
+        _close(got, ref, rtol)
+
+
+def test_spread_and_gather_kernels_match_plain():
+    _need_card()
+    rng = np.random.default_rng(1)
+    x0, q0 = rng.uniform(0, 18.0, (200, 3)), rng.uniform(-1, 1, 200)
+    K, order = 16, 6
+    gQ0 = rng.standard_normal(K ** 3)
+    for f, rtol, grtol in DTYPES:
+        x = torch.tensor(x0, dtype=f, device="cuda")
+        q = torch.tensor(q0, dtype=f, device="cuda")
+        box = torch.eye(3, dtype=f, device="cuda") * 18.0
+        w, dw, nearpt = pme_spread.spline_setup(x, box, K, order)
+        _close(pme_spread.spread_cuda(w, nearpt, q, K),
+               pme_spread.spread_plain(w, nearpt, q, K), rtol)
+        args = (torch.tensor(gQ0, dtype=f, device="cuda"), w, dw, nearpt, q,
+                pbc.recip_vectors(box).contiguous(), K)
+        for a, b in zip(pme_spread.gather_cuda(*args),
+                        pme_spread.gather_plain(*args)):
+            _close(a, b, grtol)
+
+
+@pytest.mark.parametrize("S", [8, 48])
+def test_perstate_kernels_match_plain(S):
+    _need_card()
+    rng = np.random.default_rng(S)
+    U, K = 4 * S, 16
+    Mh = K * (K // 2 + 1)
+    vals = [rng.standard_normal(s) for s in ((S, U), (K, U), (K, U), (U, Mh),
+                                             (U, Mh), (K, Mh), (K, Mh))]
+    vals.append(rng.uniform(0, 1, (K, Mh)))
+    gbar0 = rng.standard_normal(S)
+    for f, rtol, grtol in DTYPES:
+        ins = [torch.tensor(v, dtype=f, device="cuda") for v in vals]
+        gbar = torch.tensor(gbar0, dtype=f, device="cuda")
+        _close(recip_perstate.perstate_fwd_cuda(*ins),
+               recip_perstate.perstate_plain(*ins), rtol * 5)
+        leaves = [t.clone().requires_grad_(i < 7) for i, t in enumerate(ins)]
+        ref = torch.autograd.grad(
+            (recip_perstate.perstate_plain(*leaves) * gbar).sum(),
+            leaves[:7])
+        for a, b in zip(recip_perstate.perstate_bwd_cuda(gbar, *ins), ref):
+            _close(a, b, grtol)
+
+
+def test_force_evaluation_cuda_matches_cpu(tmp_path):
+    _need_card()
+    frame, ffr, topr, cfg = fixture_deck(tmp_path, 26, seed=0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        tsys, topo = build_system(frame, ffr, topr, cfg, device=dev)
+        box = torch.tensor(frame.box, device=dev)
+        ms = integrators.initial_md_state(
+            State(x=torch.tensor(frame.xyz, device=dev),
+                  v=torch.zeros((tsys.n_atoms, 3), dtype=torch.float64,
+                                device=dev), box=box),
+            topo, tsys, pme.cb_half(box, tsys.pme_grid, tsys.spline_order,
+                                    tsys.alpha_sqrt), tsys.n_atoms - 1)
+        out[dev] = ms
+    g, c = out["cuda"], out["cpu"]
+    assert int(g.n_states) == int(c.n_states)
+    np.testing.assert_allclose(float(g.potential), float(c.potential),
+                               rtol=1e-10)
+    _close(g.force, c.force, 1e-9)

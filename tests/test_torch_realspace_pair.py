@@ -1,0 +1,131 @@
+"""Kernel A's plain version (the cell-binned torch sweep) against the JAX
+package on the 63-water, cutoff-3.0 setup of tests/test_pallas_realspace.py:
+the XLA half-list path at 1e-10 relative, and the Pallas kernel in
+interpret mode at that file's tolerances (its erfc is A&S 7.1.26)."""
+
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_bridge import fixture_deck
+from reactive_pb_nn_md_tpu.topology import build_system as jax_build
+from reactive_pb_nn_md_tpu.models import total as jax_total
+from reactive_pb_nn_md_tpu.ops import neighbors as jax_nb
+from reactive_pb_nn_md_tpu.ops.pallas import realspace_pair as jax_rsp
+from reactive_pb_nn_md_tpu_torch.topology import build_system
+from reactive_pb_nn_md_tpu_torch.models import total
+from reactive_pb_nn_md_tpu_torch.md import integrators
+from reactive_pb_nn_md_tpu_torch.ops.kernels import realspace_pair as rsp
+
+
+def _setup(tmp_path, ff):
+    frame, ffr, topr, cfg = fixture_deck(tmp_path, 63, seed=4, cutoff=3.0,
+                                         verlet_cutoff=4.0,
+                                         sapt=ff == "sapt")
+    jsys, jtopo = jax_build(frame, ffr, topr, cfg)
+    tsys, ttopo = build_system(frame, ffr, topr, cfg)
+    assert tsys.rs_cells and tsys.has_sapt == (ff == "sapt")
+    return frame, jsys, jtopo, tsys, ttopo
+
+
+def _port(tsys, ttopo, x, box):
+    """(e_el, e_vdw, dE_el/dx + 0.37 dE_vdw/dx) of the plain cell sweep."""
+    xt = torch.tensor(x, requires_grad=True)
+    e_el, e_vdw, over = total.realspace_inter(xt, torch.tensor(box), ttopo,
+                                              tsys, None)
+    assert not bool(over)
+    g, = torch.autograd.grad(e_el + 0.37 * e_vdw, xt)
+    return float(e_el.detach()), float(e_vdw.detach()), g.numpy()
+
+
+def _jax(fn, x):
+    def e(xx):
+        a, b = fn(xx)
+        return a + 0.37 * b, (a, b)
+    (_, (a, b)), g = jax.jit(jax.value_and_grad(e, has_aux=True))(
+        jnp.asarray(x))
+    return float(a), float(b), np.asarray(g)
+
+
+@pytest.mark.parametrize("ff", ["lj", "sapt"])
+def test_cell_sweep_matches_half_list(tmp_path, ff):
+    frame, jsys, jtopo, tsys, ttopo = _setup(tmp_path, ff)
+    x, box = frame.xyz, frame.box
+    jbox = jnp.asarray(box)
+    cap = jax_nb.suggest_capacity(jsys.n_atoms, float(np.prod(np.diag(box))),
+                                  jsys.verlet_cutoff, safety=2.0)
+    nl = jax_nb.build_neighbor_list(jnp.asarray(x), jbox,
+                                    jsys.verlet_cutoff, cap)
+    pairs = jax_nb.neighbor_pairs(nl)
+    ref = _jax(lambda xx: jax_total._realspace_inter_xla(
+        xx, jbox, jtopo, jsys, pairs), x)
+    got = _port(tsys, ttopo, x, box)
+    np.testing.assert_allclose(got[0], ref[0], rtol=1e-10)
+    np.testing.assert_allclose(got[1], ref[1], rtol=1e-10)
+    np.testing.assert_allclose(got[2], ref[2], rtol=1e-10,
+                               atol=1e-10 * np.abs(ref[2]).max())
+
+
+@pytest.mark.parametrize("ff", ["lj", "sapt"])
+def test_cell_sweep_matches_pallas_interpret(tmp_path, ff):
+    frame, jsys, jtopo, tsys, ttopo = _setup(tmp_path, ff)
+    x, box = frame.xyz, frame.box
+    jbox = jnp.asarray(box)
+    f = jnp.float64
+    tabs = jax_rsp._build_tabs(jsys, f)
+    consts = (float(jsys.real_space_cutoff), float(jsys.alpha_sqrt),
+              bool(jsys.has_sapt), int(jsys.ff.vdw_type.shape[0]))
+    ref = _jax(lambda xx: jax_rsp.realspace_inter_cells(
+        xx, jtopo.charge.astype(f), jtopo.atom_type.astype(f),
+        jtopo.atom_mol.astype(f), jbox, tabs, jsys.rs_cells, consts), x)
+    got = _port(tsys, ttopo, x, box)
+    # tolerances of tests/test_pallas_realspace.py: e_el carries the A&S
+    # erfc (1.5e-7 absolute per pair); vdW shares no approximation
+    np.testing.assert_allclose(got[0], ref[0], rtol=1e-6, atol=5e-3)
+    np.testing.assert_allclose(got[1], ref[1], rtol=1e-9)
+    np.testing.assert_allclose(got[2], ref[2], rtol=1e-5, atol=1e-4)
+
+
+def test_bin_atoms_overflow(tmp_path):
+    frame, _, _, tsys, _ = _setup(tmp_path, "lj")
+    x = torch.tensor(frame.xyz)
+    box = torch.tensor(frame.box)
+    cells, rc = tsys.rs_cells, tsys.real_space_cutoff
+    slot, over = rsp.bin_atoms(x, box, cells, rc)
+    assert not bool(over)
+    assert len(set(slot.tolist())) == x.shape[0]
+    assert bool(rsp.bin_atoms(torch.zeros_like(x) + 0.1, box, cells, rc)[1])
+    assert bool(rsp.bin_atoms(x * 0.5, box * 0.5, cells, rc)[1])
+    # the JAX package's probe agrees on all three
+    for xx, bb in ((x, box), (torch.zeros_like(x) + 0.1, box),
+                   (x * 0.5, box * 0.5)):
+        assert bool(jax_rsp.rs_cell_overflow(
+            jnp.asarray(xx.numpy()), jnp.asarray(bb.numpy()), cells, rc)) \
+            == bool(rsp.bin_atoms(xx, bb, cells, rc)[1])
+
+
+def test_cell_overflow_reaches_the_step_flags(tmp_path):
+    """The forward's own binning reports the overflow, and the step's flag
+    sync raises on it."""
+    frame, _, _, tsys, ttopo = _setup(tmp_path, "lj")
+    box = torch.tensor(frame.box)
+    flags = []
+    for x in (torch.tensor(frame.xyz),
+              torch.zeros((tsys.n_atoms, 3), dtype=torch.float64) + 0.1):
+        *_, over = total.realspace_inter(x, box, ttopo, tsys, None)
+        flags.append(bool(over))
+        no = torch.zeros((), dtype=torch.bool)
+        fe = SimpleNamespace(breakdown=SimpleNamespace(rs_overflow=over),
+                             evb_overflow=no, force=torch.zeros_like(x))
+        args = (SimpleNamespace(overflow=no), fe, no)
+        if bool(over):
+            with pytest.raises(integrators.CapacityOverflow,
+                               match="kernel A cell capacity"):
+                integrators._sync_flags(*args)
+        else:
+            assert integrators._sync_flags(*args) == (False, False)
+    assert flags == [False, True]
