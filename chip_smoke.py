@@ -6,18 +6,43 @@
 Phases, in order, one line each (any failure raises, exit code != 0):
   1. device: the card's name and nvidia-smi's name / power limit; no CUDA
      device -> exit 1 before anything else;
-  2. build: every kernel under reactive_pb_nn_md_tpu_torch/csrc/ with nvcc;
-  3. kernels A, B1, B2, C1, C2 against their plain PyTorch versions at the
-     flagship shapes (the 649-atom equilibrated state, K = 32, order 6,
-     S = 48 and 80, U = 4 S), in fp64 and fp32, with CUDA-event times;
-  4. one full force evaluation in fp64, CUDA (kernels) against CPU (plain);
-  5. the CLI on examples/water_msevb/ for 50 steps in fp64 (the deck as
-     shipped) and fp32 -- the main path; every kernel must launch;
-  6. NVE from the equilibrated state, 200 steps in fp64 (|Etot(200) -
-     Etot(0)| <= 5 kJ/mol) and in fp32 (finite; drift reported, not
-     bounded); the largest excursion is reported for both.
+  2. build: every kernel under reactive_pb_nn_md_tpu_torch/csrc/ with nvcc
+     (one nvcc per source, all at once);
+  3. kernels against their plain PyTorch versions, in fp64 and fp32, with
+     CUDA-event times: A, B1, B2, C1, C2 at the flagship shapes (the
+     649-atom equilibrated state, K = 32, order 6, S = 48 and 80,
+     U = 4 S); A, A', A'', B1, B2, D1, D2, C1, C2 at the 10,000-atom
+     shapes (the lattice of examples/water_10k/, cells (10, 10, 10, 24),
+     K = 64, scap 280, S = 32), A' under set_stencil_impl("half"), B
+     beside D on the same atoms;
+  4. full force evaluations in fp64, CUDA (kernels) against CPU (plain):
+     the flagship and the 10k lattice;
+  5. the main paths through the CLI, each with the launch counts set to 0
+     just before it and read just after:
+     a. examples/water_msevb/, 30 steps fp64 and fp32: A, B1, B2, C1, C2;
+     b. examples/water_10k/, 20 steps fp32 (the deck as shipped) and fp64:
+        A'', D1, D2, C1, C2 launch, and A, B1, B2 do not;
+     c. examples/water_10k/ under set_stencil_impl("half"), 3 steps fp32:
+        A' launches;
+  6. NVE from the equilibrated flagship state, 200 steps in fp64
+     (|Etot(200) - Etot(0)| <= 5 kJ/mol) and in fp32 (finite; drift
+     reported, not bounded); the largest excursion is reported for both.
 The line before the last is nvidia-smi's name and power limit, the one
-before it the per-kernel JSON; the last line is the result JSON.
+before it the per-kernel JSON (times, errors and bounds in fp64; fp32 in
+the fp32_ keys); the last line is the result JSON.
+
+bound_ms is the least time the card could take for a kernel's work: the
+larger of the bytes its function must move (inputs read once, outputs
+written once) over 3.35 TB/s and its operations over the card's peak
+for their type: the pair, spread and interpolation kernels at the fp64
+(34 TFLOP/s) or fp32 (67 TFLOP/s) rate without tensor cores; C1 and C2,
+whose work is complex GEMMs, at the fp64 tensor-core (DMMA) rate of 67
+TFLOP/s in fp64 and at 67 TFLOP/s in fp32 (the tensor cores' fp32-input
+mode is TF32, another type).  Operations are counted from these inputs:
+for the pair kernels FLOP_PAIR per inter-molecular pair within the cutoff
+(each unordered pair once); for the spreads 4 per atom and brick element;
+for the interpolations 16; for C1 the complex product W @ BC (8 per
+complex multiply-add) and for C2 three of them.
 """
 
 import json
@@ -31,11 +56,16 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 DECK = ROOT / "examples" / "water_msevb"
+DECK_10K = ROOT / "examples" / "water_10k"
 EQ_STATE = ROOT / "benchdata" / "eq_flagship_s80.npz"
 
 KERNELS = {   # name -> (source, TPU kernel it replaces)
     "A": ("reactive_pb_nn_md_tpu_torch/csrc/realspace_pair.cu",
           "reactive_pb_nn_md_tpu/ops/pallas/realspace_pair.py:601"),
+    "A'": ("reactive_pb_nn_md_tpu_torch/csrc/realspace_pair.cu",
+           "reactive_pb_nn_md_tpu/ops/pallas/realspace_pair.py:601"),
+    "A''": ("reactive_pb_nn_md_tpu_torch/csrc/realspace_pair.cu",
+            "reactive_pb_nn_md_tpu/ops/pallas/realspace_pair.py:657"),
     "B1": ("reactive_pb_nn_md_tpu_torch/csrc/pme_spread.cu",
            "reactive_pb_nn_md_tpu/ops/pallas/pme_spread.py:121"),
     "B2": ("reactive_pb_nn_md_tpu_torch/csrc/pme_spread.cu",
@@ -44,7 +74,21 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
            "reactive_pb_nn_md_tpu/ops/pallas/recip_perstate.py:239"),
     "C2": ("reactive_pb_nn_md_tpu_torch/csrc/recip_perstate.cu",
            "reactive_pb_nn_md_tpu/ops/pallas/recip_perstate.py:272"),
+    "D1": ("reactive_pb_nn_md_tpu_torch/csrc/pme_slab.cu",
+           "reactive_pb_nn_md_tpu/ops/pallas/pme_slab.py:268"),
+    "D2": ("reactive_pb_nn_md_tpu_torch/csrc/pme_slab.cu",
+           "reactive_pb_nn_md_tpu/ops/pallas/pme_slab.py:291"),
 }
+# the shapes each kernel's JSON numbers are taken at (its main path's)
+AT_10K = ("A'", "A''", "D1", "D2")
+HBM_BPS = 3.35e12                           # H100 SXM device memory
+# H100 SXM peaks: fp64 / fp32 outside the tensor cores, and GEMM-shaped
+# work, whose fp64 runs on the tensor cores (DMMA)
+PEAK_FLOPS = {"fp64": 34e12, "fp32": 67e12}
+PEAK_GEMM_FLOPS = {"fp64": 67e12, "fp32": 67e12}
+# operations per inter-molecular pair within the cutoff: erfc (~20), exp
+# (~10), sqrt and the divides (~10), LJ (~10), force factors (~10)
+FLOP_PAIR = 60
 
 # Tolerances (|got - ref| <= atol + rtol |ref|, atol relative to max|ref|):
 #  fp64: 1e-10 relative for every kernel.
@@ -56,6 +100,11 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
 #  rows, dG contractions), rtol 2e-3 with atol 2e-5 of their scale -- that
 #  file's gradient bound.
 TOL64 = dict(rtol=1e-10, scale_atol=1e-10)
+TOL32 = {"pair_e": dict(rtol=1e-6, atol=5e-3), "pair_g": dict(rtol=1e-5,
+                                                              atol=1e-4),
+         "spread": dict(rtol=1e-5, scale_atol=1e-6),
+         "gather": dict(rtol=2e-3, scale_atol=2e-5),
+         "C1": dict(rtol=5e-5, scale_atol=5e-5)}
 
 
 def log(msg):
@@ -107,6 +156,42 @@ def nvidia_smi():
     return r.stdout.strip().splitlines()[0]
 
 
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(n_bytes, flops, tag, gemm=False):
+    """(bound_ms, bound_by) of a kernel's work on the H100."""
+    t_b = n_bytes / HBM_BPS
+    t_o = flops / (PEAK_GEMM_FLOPS if gemm else PEAK_FLOPS)[tag]
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def pairs_within(x, box, mol, rc):
+    """Inter-molecular atom pairs within rc (each unordered pair once)."""
+    import torch
+    L = torch.diagonal(box)
+    n = 0
+    for i0 in range(0, x.shape[0], 1024):
+        d = x[i0:i0 + 1024, None, :] - x[None, :, :]
+        d = d - L * torch.round(d / L)
+        m = ((d * d).sum(-1) < rc * rc) & (mol[i0:i0 + 1024, None]
+                                           != mol[None, :])
+        n += int(m.sum())
+    return n // 2
+
+
+def record(out, name, err, ok, fn, plain, n_bytes, flops, tag, lib=None,
+           gemm=False):
+    """One kernel's entry: error, kernel / plain / library ms, bound."""
+    b_ms, b_by = bound(n_bytes, flops, tag, gemm)
+    out[name] = dict(max_abs_err=err[0], max_rel_err=err[1], ok=ok,
+                     ms=cuda_ms(fn), plain_ms=plain if isinstance(
+                         plain, float) else cuda_ms(plain),
+                     bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None if lib is None else cuda_ms(lib))
+
+
 def flagship(device, dtype):
     """(system, state, topo, meta, cbw, cfg) of the equilibrated flagship
     box: the deck's system with the state and capacities of the npz."""
@@ -124,14 +209,162 @@ def flagship(device, dtype):
     return system, state, topo, meta, cbw, cfg
 
 
+def lattice_10k(device, dtype):
+    """(system, x, box, topo, cfg) of examples/water_10k/ at step 0."""
+    import torch
+    from reactive_pb_nn_md_tpu_torch.md.simulation import load_deck
+    cfg, frame, system, topo = load_deck(
+        DECK_10K / "in.gro", DECK_10K / "ff.pmt", DECK_10K / "top.top",
+        DECK_10K / "sim.pmt", device,
+        precision="fp64" if dtype == torch.float64 else "fp32")
+    x = torch.as_tensor(frame.xyz, dtype=dtype, device=device)
+    box = torch.as_tensor(frame.box, dtype=dtype, device=device)
+    return system, x, box, topo, cfg
+
+
+def pair_kernels(out, tag, system, x, box, topo, names):
+    """Pair kernels of the stencils in `names` ("full" A, "half" A',
+    "column" A'' -> the entry's name) against the plain sweep on one
+    state, at the function level: per-slot
+    gradients and the energy sums (A' and A'' put each pair's energy on
+    one row)."""
+    import torch
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import realspace_pair as rsp
+    fp64 = tag == "fp64"
+    cells = system.rs_cells
+    slot, over = rsp.bin_atoms(x, box, cells, system.real_space_cutoff)
+    check(not bool(over), "kernel A cell capacity overflows")
+    cm = rsp.pack_cells(x, topo.charge, topo.atom_type, topo.atom_mol,
+                        slot, cells)
+    tabs = rsp.build_tabs(system, x.dtype)
+    kw = dict(rcut=system.real_space_cutoff, alpha=system.alpha_sqrt,
+              has_sapt=system.has_sapt)
+    ref = rsp.pair_rows_plain(cm, tabs, cells, torch.diagonal(box), **kw)
+    plain = cuda_ms(lambda: rsp.pair_rows_plain(cm, tabs, cells,
+                                                torch.diagonal(box), **kw))
+    n_pairs = pairs_within(x, box, topo.atom_mol, system.real_space_cutoff)
+    for impl, name in names.items():
+        rsp.set_stencil_impl(impl)
+        try:
+            def fn():
+                return rsp.pair_rows(cm, tabs, cells, box, impl=impl, **kw)
+            got = fn()
+            if fp64:
+                e1, r1, ok1 = close(got[:, :6], ref[:, :6], **TOL64)
+                e2, r2, ok2 = close(got[:, 6:].sum(0), ref[:, 6:].sum(0),
+                                    **TOL64)
+            else:
+                e1, r1, ok1 = close(got[:, :6], ref[:, :6], **TOL32["pair_g"])
+                e2, r2, ok2 = close(got[:, 6:].double().sum(0),
+                                    ref[:, 6:].double().sum(0),
+                                    **TOL32["pair_e"])
+            record(out, name, (max(e1, e2), max(r1, r2)),
+                   ok1 and ok2, fn, plain, nbytes(cm, tabs, box) + nbytes(cm),
+                   FLOP_PAIR * n_pairs, tag)
+        finally:
+            rsp.set_stencil_impl("auto")
+
+
+def perstate_kernels(out, tag, x, box, topo, system, cbw, S, rng, key):
+    """C1 / C2 at S states, U = 4 S, on the real spectra of `x`."""
+    import torch
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import recip_perstate as rp
+    from reactive_pb_nn_md_tpu_torch.models import pme
+    fp64 = tag == "fp64"
+    dtype, dev = x.dtype, x.device
+    K, order = system.pme_grid, system.spline_order
+    Q0, _ = pme.charge_grid(x, topo.charge.contiguous(), box, K, order,
+                            scap=system.pme_scap)
+    F0 = torch.fft.rfftn(Q0)
+    Mh = K * (K // 2 + 1)
+    U = 4 * S
+    (Ar, Ai), (Br, Bi), (Cr, Ci) = pme.structure_axis_factors(
+        x[:U], box, K, order)
+    BCr = (Br[:, :, None] * Cr[:, None, :]
+           - Bi[:, :, None] * Ci[:, None, :]).reshape(U, Mh)
+    BCi = (Br[:, :, None] * Ci[:, None, :]
+           + Bi[:, :, None] * Cr[:, None, :]).reshape(U, Mh)
+    dq = torch.tensor(rng.standard_normal((S, U)) * 0.3, dtype=dtype,
+                      device=dev)
+    ins = [t.contiguous() for t in (
+        dq, Ar.T, Ai.T, BCr, BCi, F0.real.reshape(K, Mh),
+        F0.imag.reshape(K, Mh), cbw.reshape(K, Mh))]
+    gbar = torch.tensor(rng.standard_normal(S), dtype=dtype, device=dev)
+    e_k = rp.perstate_fwd_cuda(*ins)
+    e_p = rp.perstate_plain(*ins)
+    err = close(e_k, e_p, **(TOL64 if fp64 else TOL32["C1"]))
+    g_k = rp.perstate_bwd_cuda(gbar, *ins)
+    leaves = [t.clone().requires_grad_(i < 7) for i, t in enumerate(ins)]
+    g_p = torch.autograd.grad((rp.perstate_plain(*leaves) * gbar).sum(),
+                              leaves[:7])
+    errs = [close(a, b, **(TOL64 if fp64 else TOL32["gather"]))
+            for a, b in zip(g_k, g_p)]
+
+    def plain_fb():
+        lv = [t.clone().requires_grad_(i < 7) for i, t in enumerate(ins)]
+        torch.autograd.grad((rp.perstate_plain(*lv) * gbar).sum(), lv[:7])
+
+    # the one PyTorch call of the plain formulation: the complex W @ BC
+    # (C1) and dG @ BC^H (C2)
+    W = (dq[:, None, :] * torch.complex(ins[1], ins[2])[None]).reshape(
+        S * K, U)
+    BC = torch.complex(BCr, BCi)
+    dG = torch.complex(torch.randn(S * K, Mh, dtype=dtype, device=dev),
+                       torch.randn(S * K, Mh, dtype=dtype, device=dev))
+    gemm = 8.0 * S * K * U * Mh
+    c1_plain = cuda_ms(lambda: rp.perstate_plain(*ins))
+    record(out, "C1" + key, err[:2], err[2],
+           lambda: rp.perstate_fwd_cuda(*ins), c1_plain,
+           nbytes(*ins) + S * dq.element_size(), gemm, tag,
+           lib=lambda: torch.matmul(W, BC), gemm=True)
+    record(out, "C2" + key, (max(e for e, _, _ in errs),
+                             max(r for _, r, _ in errs)),
+           all(o for _, _, o in errs),
+           lambda: rp.perstate_bwd_cuda(gbar, *ins),
+           cuda_ms(plain_fb) - c1_plain,
+           nbytes(gbar, *ins) + nbytes(*ins[:7]), 3 * gemm, tag,
+           lib=lambda: torch.matmul(dG, BC.mH), gemm=True)
+
+
+def spread_kernels(out, tag, x, box, topo, K, order, rng, key):
+    """B1 / B2 (the per-atom spread and gather) on the atoms of `x`."""
+    import torch
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import pme_spread as sp
+    from reactive_pb_nn_md_tpu_torch.utils import pbc
+    fp64 = tag == "fp64"
+    w, dw, nearpt = sp.spline_setup(x, box, K, order)
+    q = topo.charge.contiguous()
+    n = x.shape[0]
+    err = close(sp.spread_cuda(w, nearpt, q, K),
+                sp.spread_plain(w, nearpt, q, K),
+                **(TOL64 if fp64 else TOL32["spread"]))
+    record(out, "B1" + key, err[:2], err[2],
+           lambda: sp.spread_cuda(w, nearpt, q, K),
+           lambda: sp.spread_plain(w, nearpt, q, K),
+           nbytes(w, nearpt, q) + K ** 3 * w.element_size(),
+           4 * n * order ** 3, tag)
+    gQ = torch.tensor(rng.standard_normal(K ** 3), dtype=x.dtype,
+                      device=x.device)
+    recip = pbc.recip_vectors(box).contiguous()
+    gargs = (gQ, w, dw, nearpt, q, recip, K)
+    got = torch.cat([t.reshape(-1) for t in sp.gather_cuda(*gargs)])
+    ref = torch.cat([t.reshape(-1) for t in sp.gather_plain(*gargs)])
+    err = close(got, ref, **(TOL64 if fp64 else TOL32["gather"]))
+    record(out, "B2" + key, err[:2], err[2], lambda: sp.gather_cuda(*gargs),
+           lambda: sp.gather_plain(*gargs),
+           nbytes(*gargs[:-1]) + 4 * n * w.element_size(),
+           16 * n * order ** 3, tag)
+
+
 def phase_kernels(results):
-    """Phase 3: every kernel against its plain version at flagship shapes."""
+    """Phase 3: every kernel against its plain version, at the flagship
+    shapes (A, B, C) and at the 10,000-atom shapes (A, A', A'', B, D,
+    C)."""
     import numpy as np
     import torch
     from reactive_pb_nn_md_tpu_torch.ops.kernels import (
-        realspace_pair as rsp, pme_spread as sp, recip_perstate as rp)
+        pme_spread as sp, pme_slab as sl)
     from reactive_pb_nn_md_tpu_torch.models import pme
-    from reactive_pb_nn_md_tpu_torch.utils import pbc
     dev = torch.device("cuda")
     rng = np.random.default_rng(2024)
     for dtype in (torch.float64, torch.float32):
@@ -142,170 +375,177 @@ def phase_kernels(results):
         K, order = system.pme_grid, system.spline_order
         out = results.setdefault(tag, {})
 
-        # ---- A: pair rows (energies + analytic gradients)
-        cells = system.rs_cells
-        slot, over = rsp.bin_atoms(x, box, cells, system.real_space_cutoff)
-        check(not bool(over), "kernel A cell capacity overflows")
-        cm = rsp.pack_cells(x, topo.charge, topo.atom_type, topo.atom_mol,
-                            slot, cells)
-        tabs = rsp.build_tabs(system, dtype)
-        args = (cm, tabs, cells)
-        kw = dict(rcut=system.real_space_cutoff, alpha=system.alpha_sqrt,
-                  has_sapt=system.has_sapt)
-        got = rsp.pair_rows_cuda(*args, box, **kw)
-        ref = rsp.pair_rows_plain(*args, torch.diagonal(box), **kw)
-        if fp64:
-            err, rel, ok = close(got, ref, **TOL64)
-        else:
-            e1, r1, ok1 = close(got[:, 6:].sum(0), ref[:, 6:].sum(0), 1e-6,
-                                5e-3)
-            e2, r2, ok2 = close(got[:, :6], ref[:, :6], 1e-5, 1e-4)
-            err, rel, ok = max(e1, e2), max(r1, r2), ok1 and ok2
-        out["A"] = dict(max_abs_err=err, max_rel_err=rel, ok=ok,
-                        ms=cuda_ms(lambda: rsp.pair_rows_cuda(*args, box,
-                                                              **kw)),
-                        plain_ms=cuda_ms(lambda: rsp.pair_rows_plain(
-                            *args, torch.diagonal(box), **kw)))
+        # ---- A at the flagship shapes
+        pair_kernels(out, tag, system, x, box, topo, {"full": "A"})
 
         # ---- B1 / B2: spread and gather
+        spread_kernels(out, tag, x, box, topo, K, order, rng, "")
+
+        # ---- C1 / C2 at S = 48 and 80
+        for S in (48, 80):
+            perstate_kernels(out, tag, x, box, topo, system, cbw, S, rng,
+                             "" if S == 80 else f"_S{S}")
+
+        # ---- the 10,000-atom lattice: A, A', A'' on one state; D; C
+        system, x, box, topo, _ = lattice_10k(dev, dtype)
+        K, order, scap = system.pme_grid, system.spline_order, system.pme_scap
+        pair_kernels(out, tag, system, x, box, topo,
+                     {"full": "A@10k", "half": "A'", "column": "A''"})
+        spread_kernels(out, tag, x, box, topo, K, order, rng, "@10k")
         w, dw, nearpt = sp.spline_setup(x, box, K, order)
         q = topo.charge.contiguous()
-        got = sp.spread_cuda(w, nearpt, q, K)
-        ref = sp.spread_plain(w, nearpt, q, K)
-        err, rel, ok = close(got, ref, **(TOL64 if fp64 else
-                                          dict(rtol=1e-5, scale_atol=1e-6)))
-        out["B1"] = dict(max_abs_err=err, max_rel_err=rel, ok=ok,
-                         ms=cuda_ms(lambda: sp.spread_cuda(w, nearpt, q, K)),
-                         plain_ms=cuda_ms(lambda: sp.spread_plain(
-                             w, nearpt, q, K)))
+        n = x.shape[0]
+        slot, rows, over = sl.slab_bins(nearpt, K, order, scap)
+        check(not bool(over), "the 10k lattice overflows the slab cap")
+        err = close(sl.spread_slab_cuda(w, nearpt, q, rows, K, scap),
+                    sl.spread_slab_plain(w, nearpt, q, rows, K),
+                    **(TOL64 if fp64 else TOL32["spread"]))
+        record(out, "D1", err[:2], err[2],
+               lambda: sl.spread_slab_cuda(w, nearpt, q, rows, K, scap),
+               lambda: sl.spread_slab_plain(w, nearpt, q, rows, K),
+               nbytes(w, nearpt, q, rows) + K ** 3 * w.element_size(),
+               4 * n * order ** 3, tag)
         gQ = torch.tensor(rng.standard_normal(K ** 3), dtype=dtype,
                           device=dev)
-        recip = pbc.recip_vectors(box).contiguous()
-        gargs = (gQ, w, dw, nearpt, q, recip, K)
-        got = torch.cat([t.reshape(-1) for t in sp.gather_cuda(*gargs)])
-        ref = torch.cat([t.reshape(-1) for t in sp.gather_plain(*gargs)])
-        err, rel, ok = close(got, ref, **(TOL64 if fp64 else
-                                          dict(rtol=2e-3, scale_atol=2e-5)))
-        out["B2"] = dict(max_abs_err=err, max_rel_err=rel, ok=ok,
-                         ms=cuda_ms(lambda: sp.gather_cuda(*gargs)),
-                         plain_ms=cuda_ms(lambda: sp.gather_plain(*gargs)))
-
-        # ---- C1 / C2 at S = 48 and 80, U = 4 S, on the real spectra
-        Q0 = pme.charge_grid(x, q, box, K, order)
-        F0 = torch.fft.rfftn(Q0)
-        Mh = K * (K // 2 + 1)
-        for S in (48, 80):
-            U = 4 * S
-            (Ar, Ai), (Br, Bi), (Cr, Ci) = pme.structure_axis_factors(
-                x[:U], box, K, order)
-            BCr = (Br[:, :, None] * Cr[:, None, :]
-                   - Bi[:, :, None] * Ci[:, None, :]).reshape(U, Mh)
-            BCi = (Br[:, :, None] * Ci[:, None, :]
-                   + Bi[:, :, None] * Cr[:, None, :]).reshape(U, Mh)
-            dq = torch.tensor(rng.standard_normal((S, U)) * 0.3,
-                              dtype=dtype, device=dev)
-            ins = [t.contiguous() for t in (
-                dq, Ar.T, Ai.T, BCr, BCi, F0.real.reshape(K, Mh),
-                F0.imag.reshape(K, Mh), cbw.reshape(K, Mh))]
-            gbar = torch.tensor(rng.standard_normal(S), dtype=dtype,
-                                device=dev)
-            e_k = rp.perstate_fwd_cuda(*ins)
-            e_p = rp.perstate_plain(*ins)
-            err, rel, ok = close(e_k, e_p, **(TOL64 if fp64 else
-                                              dict(rtol=5e-5,
-                                                   scale_atol=5e-5)))
-            g_k = rp.perstate_bwd_cuda(gbar, *ins)
-            leaves = [t.clone().requires_grad_(i < 7)
-                      for i, t in enumerate(ins)]
-            g_p = torch.autograd.grad(
-                (rp.perstate_plain(*leaves) * gbar).sum(), leaves[:7])
-            errs = [close(a, b, **(TOL64 if fp64 else
-                                   dict(rtol=2e-3, scale_atol=2e-5)))
-                    for a, b in zip(g_k, g_p)]
-
-            def plain_fb():
-                lv = [t.clone().requires_grad_(i < 7)
-                      for i, t in enumerate(ins)]
-                torch.autograd.grad((rp.perstate_plain(*lv) * gbar).sum(),
-                                    lv[:7])
-
-            c1_plain = cuda_ms(lambda: rp.perstate_plain(*ins))
-            key = "" if S == 80 else f"_S{S}"
-            out["C1" + key] = dict(
-                max_abs_err=err, max_rel_err=rel, ok=ok,
-                ms=cuda_ms(lambda: rp.perstate_fwd_cuda(*ins)),
-                plain_ms=c1_plain)
-            out["C2" + key] = dict(
-                max_abs_err=max(e for e, _, _ in errs),
-                max_rel_err=max(r for _, r, _ in errs),
-                ok=all(o for _, _, o in errs),
-                ms=cuda_ms(lambda: rp.perstate_bwd_cuda(gbar, *ins)),
-                plain_ms=cuda_ms(plain_fb) - c1_plain)
+        dargs = (gQ, w, dw, nearpt, rows, K)
+        err = close(sl.interp_slab_cuda(*dargs, scap),
+                    sl.interp_slab_plain(*dargs),
+                    **(TOL64 if fp64 else TOL32["gather"]))
+        record(out, "D2", err[:2], err[2],
+               lambda: sl.interp_slab_cuda(*dargs, scap),
+               lambda: sl.interp_slab_plain(*dargs),
+               nbytes(gQ, w, dw, nearpt, rows)
+               + K * scap * 4 * w.element_size(), 16 * n * order ** 3, tag)
+        cbw = pme.cb_half(box, K, order, system.alpha_sqrt, dtype=dtype)
+        perstate_kernels(out, tag, x, box, topo, system, cbw,
+                         system.evb_max_states, rng, "@10k")
         torch.cuda.synchronize()
+        a, a1, a2 = out["A@10k"], out["A'"], out["A''"]
+        log(f"  {tag}: on the 10k lattice A {a['ms']:.4f} ms, A' "
+            f"{a1['ms']:.4f} ms, A'' {a2['ms']:.4f} ms; B1 "
+            f"{out['B1@10k']['ms']:.4f} ms, D1 {out['D1']['ms']:.4f} ms; B2 "
+            f"{out['B2@10k']['ms']:.4f} ms, D2 {out['D2']['ms']:.4f} ms")
         for name, r in out.items():
+            lib = ("" if r["library_ms"] is None
+                   else f"  library {r['library_ms']:.4f} ms")
             log(f"  {tag} {name:7s} max_abs_err {r['max_abs_err']:.3e} "
                 f"max_rel_err {r['max_rel_err']:.3e} ok {r['ok']}  kernel "
-                f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms")
+                f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}){lib}")
             check(r["ok"], f"kernel {name} ({tag}) disagrees with its plain "
                            f"version: max abs error {r['max_abs_err']:.3e}")
 
 
-def phase_forces():
-    """Phase 4: evaluate_forces fp64, CUDA (kernels) vs CPU (plain)."""
+def forces_cuda_vs_cpu(name, build):
+    """evaluate_forces fp64 on the card (kernels) and on the CPU (plain)
+    from `build(device)` -> (system, state, topo, cbw, nlist kwargs)."""
     import torch
     from reactive_pb_nn_md_tpu_torch.ops import neighbors
     from reactive_pb_nn_md_tpu_torch.md import integrators
     res = {}
     for dev in ("cuda", "cpu"):
-        system, state, topo, meta, cbw, _ = flagship(torch.device(dev),
-                                                     torch.float64)
-        nl = neighbors.build_neighbor_list(
-            state.x, state.box, system.verlet_cutoff, meta["capacity"],
-            react_cutoff=system.evb_reactive_pair_distance
-            + system.verlet_cutoff - system.real_space_cutoff,
-            react_cap=meta["react_cap"], build_half=False)
-        check(not bool(nl.overflow), "neighbor-list capacity overflows")
+        system, state, topo, cbw, kw = build(torch.device(dev))
+        nl = neighbors.build_neighbors(state.x, state.box, **kw)
+        check(not bool(nl.overflow), f"{name}: neighbor capacity overflows")
+        t0 = time.perf_counter()
         fe = integrators.evaluate_forces(state.x, state.box, topo, system,
                                          nl, cbw)
-        res[dev] = fe
-    g, c = res["cuda"], res["cpu"]
-    check(int(g.n_states) == int(c.n_states), "state counts differ")
+        over, _, _ = integrators._sync_flags(nl, fe, torch.zeros(
+            (), dtype=torch.bool, device=state.x.device))
+        check(not over, f"{name}: {over} overflow")
+        res[dev] = (fe, time.perf_counter() - t0)
+    (g, tg), (c, tc) = res["cuda"], res["cpu"]
+    check(int(g.n_states) == int(c.n_states), f"{name}: state counts differ")
     dE = abs(float(g.potential) - float(c.potential))
     ev_g, ev_c = g.eigenvector.cpu(), c.eigenvector
     dc = min(float((ev_g - ev_c).abs().max()),
              float((ev_g + ev_c).abs().max()))
     fmax = float(c.force.abs().max())
     dF = float((g.force.cpu() - c.force).abs().max())
-    log(f"  n_states {int(c.n_states)}  |dE| {dE:.3e} kJ/mol  |dc| {dc:.3e}"
-        f"  max|dF| {dF:.3e} (max|F| {fmax:.1f})")
+    log(f"  {name}: n_states {int(c.n_states)}  |dE| {dE:.3e} kJ/mol  "
+        f"|dc| {dc:.3e}  max|dF| {dF:.3e} (max|F| {fmax:.1f}); cuda "
+        f"{tg:.2f} s, cpu {tc:.2f} s")
     check(dE <= 1e-8 * abs(float(c.potential)) and dc <= 1e-8
-          and dF <= 1e-8 * fmax, "CUDA and CPU force evaluations disagree")
+          and dF <= 1e-8 * fmax, f"{name}: CUDA and CPU forces disagree")
 
 
-def phase_cli(tmp):
-    """Phase 5: the CLI on the flagship deck, fp64 then fp32, 50 steps."""
+def phase_forces():
+    """Phase 4: evaluate_forces fp64, CUDA (kernels) vs CPU (plain), on
+    the flagship and the 10k lattice."""
+    import torch
+    from reactive_pb_nn_md_tpu_torch.md import integrators
+    from reactive_pb_nn_md_tpu_torch.models import pme
+    from reactive_pb_nn_md_tpu_torch.ops import neighbors
+    from reactive_pb_nn_md_tpu_torch.topology import State
+
+    def flag(dev):
+        system, state, topo, meta, cbw, _ = flagship(dev, torch.float64)
+        kw = integrators.neighbor_plan(system, state.box, meta["capacity"],
+                                       react_cap=meta["react_cap"])
+        return system, state, topo, cbw, kw
+
+    def lattice(dev):
+        system, x, box, topo, _ = lattice_10k(dev, torch.float64)
+        cbw = pme.cb_half(box, system.pme_grid, system.spline_order,
+                          system.alpha_sqrt, dtype=torch.float64)
+        cap = neighbors.suggest_capacity(system.n_atoms,
+                                         float(torch.det(box)),
+                                         system.verlet_cutoff)
+        return (system, State(x=x, v=torch.zeros_like(x), box=box), topo,
+                cbw, integrators.neighbor_plan(system, box, cap))
+
+    forces_cuda_vs_cpu("flagship", flag)
+    forces_cuda_vs_cpu("10k lattice", lattice)
+
+
+def run_cli(tmp, deck, prec, steps, n_frames):
+    """The CLI on a copy of `deck` in precision `prec`; returns (steps/s,
+    regrow lines)."""
     from reactive_pb_nn_md_tpu_torch.run import cli
-    for prec in ("fp64", "fp32"):
-        d = tmp / prec
-        shutil.copytree(DECK, d)
-        sim = d / "sim.pmt"
-        sim.write_text(sim.read_text().replace("precision          fp64",
-                                               f"precision          {prec}"))
-        files = [str(d / n) for n in ("in.gro", "ff.pmt", "top.top",
-                                      "sim.pmt", "traj.gro", "run.log",
-                                      "hops.log", "A.log")]
-        cli.main(files + ["--device", "cuda", "--steps", "50"])
-        text = (d / "run.log").read_text()
-        check(f"precision {prec}" in text, f"the log does not say {prec}")
-        etot = [float(ln.split()[5]) for ln in text.splitlines()
-                if ln.startswith(" KE")]
-        check(len(etot) == 6 and all(math.isfinite(e) for e in etot),
-              f"{prec}: log energies {etot}")
-        frames = (d / "traj.gro").read_text().count("step ")
-        check(frames == 6, f"{prec}: {frames} trajectory frames, not 6")
-        rate = float(text.strip().splitlines()[-1].split("(")[1].split()[0])
-        log(f"  {prec}: 50 steps, {rate:.2f} steps/s, Etot {etot[0]:.3f} "
-            f"-> {etot[-1]:.3f}, {frames} frames")
+    d = tmp / f"{deck.name}_{prec}"
+    shutil.copytree(deck, d)
+    sim = d / "sim.pmt"
+    text = sim.read_text()
+    for p in ("fp64", "fp32"):
+        text = text.replace(f"precision          {p}",
+                            f"precision          {prec}")
+    sim.write_text(text)
+    files = [str(d / n) for n in ("in.gro", "ff.pmt", "top.top", "sim.pmt",
+                                  "traj.gro", "run.log", "hops.log",
+                                  "A.log")]
+    cli.main(files + ["--device", "cuda", "--steps", str(steps)])
+    text = (d / "run.log").read_text()
+    check(f"precision {prec}" in text, f"the log does not say {prec}")
+    etot = [float(ln.split()[5]) for ln in text.splitlines()
+            if ln.startswith(" KE")]
+    check(len(etot) == n_frames and all(math.isfinite(e) for e in etot),
+          f"{deck.name} {prec}: log energies {etot}")
+    frames = (d / "traj.gro").read_text().count("step ")
+    check(frames == n_frames, f"{deck.name} {prec}: {frames} trajectory "
+                              f"frames, not {n_frames}")
+    regrows = [ln for ln in text.splitlines() if "regrow" in ln]
+    rate = float(text.strip().splitlines()[-1].split("(")[1].split()[0])
+    log(f"  {deck.name} {prec}: {steps} steps, {rate:.2f} steps/s, Etot "
+        f"{etot[0]:.3f} -> {etot[-1]:.3f}, {frames} frames, "
+        f"{len(regrows)} regrows")
+    for ln in regrows:
+        log("    " + ln)
+    return rate
+
+
+def main_path(name, fn, launched, absent=()):
+    """Run one main path with the launch counts set to 0 just before it;
+    every kernel of `launched` must launch, none of `absent`."""
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import _build
+    _build.launches.clear()
+    fn()
+    counts = dict(_build.launches)
+    log(f"  {name} launches {counts}")
+    missing = [k for k in launched if counts.get(k, 0) == 0]
+    check(not missing, f"{name}: kernels not launched: {missing}")
+    stray = [k for k in absent if counts.get(k, 0)]
+    check(not stray, f"{name}: kernels of another path launched: {stray}")
+    return counts
 
 
 def phase_nve():
@@ -318,13 +558,16 @@ def phase_nve():
         system, state, topo, meta, cbw, cfg = flagship(torch.device("cuda"),
                                                        dtype)
         ms = integrators.initial_md_state(state, topo, system, cbw,
-                                          meta["capacity"], meta["react_cap"])
+                                          meta["capacity"],
+                                          react_cap=meta["react_cap"])
+        check(not ms.overflow, f"{tag}: {ms.overflow} overflow")
         etot = [float(ms.kinetic + ms.potential)]
         hops = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(200):
             ms = integrators.md_step(ms, system, cbw, cfg.delta_t)
+            check(not ms.overflow, f"{tag}: {ms.overflow} overflow")
             hops += ms.hopped
             etot.append(float(ms.kinetic + ms.potential))
         torch.cuda.synchronize()
@@ -358,39 +601,73 @@ def main():
         f"cuda {torch.version.cuda}")
 
     from reactive_pb_nn_md_tpu_torch.ops.kernels import _build
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import realspace_pair as rsp
     _build.library()
     log(f"[2 build] {len(list(_build.CSRC.glob('*.cu')))} sources built in "
         f"{_build.build_info['seconds']:.1f} s -> {_build.build_info['path']}")
     for ln in _build.build_info["log"].splitlines():
-        if "registers" in ln or "spill" in ln:
+        if "registers" in ln or "spill" in ln or ln.startswith("=="):
             log("  " + ln.strip())
 
-    log("[3 kernels] kernel vs plain at flagship shapes")
+    log("[3 kernels] kernel vs plain at flagship and 10k shapes")
     measured = {}
     phase_kernels(measured)
 
     log("[4 forces] evaluate_forces fp64, CUDA vs CPU")
     phase_forces()
 
-    log("[5 cli] examples/water_msevb, --device cuda --steps 50")
-    _build.launches.clear()                     # main path starts here
+    log("[5 cli] the main paths, launch counts from 0 each")
+    launches = {}
     with tempfile.TemporaryDirectory() as tmp:
-        phase_cli(pathlib.Path(tmp))
-    launches = dict(_build.launches)
-    log(f"  launches {launches}")
-    missing = [k for k in KERNELS if launches.get(k, 0) == 0]
-    check(not missing, f"kernels not launched on the main path: {missing}")
+        tmp = pathlib.Path(tmp)
+        flag = main_path(
+            "5a water_msevb",
+            lambda: [run_cli(tmp, DECK, p, 30, 4) for p in ("fp64", "fp32")],
+            ("A", "B1", "B2", "C1", "C2"), ("A'", "A''", "D1", "D2"))
+        big = main_path(
+            "5b water_10k",
+            lambda: [run_cli(tmp, DECK_10K, p, 20, 3)
+                     for p in ("fp32", "fp64")],
+            ("A''", "D1", "D2", "C1", "C2"), ("A", "A'", "B1", "B2"))
+
+        def half():
+            rsp.set_stencil_impl("half")
+            try:
+                run_cli(tmp / "half", DECK_10K, "fp32", 3, 1)
+            finally:
+                rsp.set_stencil_impl("auto")
+
+        (tmp / "half").mkdir()
+        half_counts = main_path("5c water_10k half stencil", half, ("A'",),
+                                ("A", "A''"))
+    for k in ("A", "B1", "B2", "C1", "C2"):
+        launches[k] = flag[k]
+    for k in ("A''", "D1", "D2"):
+        launches[k] = big[k]
+    launches["A'"] = half_counts["A'"]
 
     log("[6 nve] 200 steps from benchdata/eq_flagship_s80.npz")
     phase_nve()
 
     k64, k32 = measured["fp64"], measured["fp32"]
-    kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
-                    launches=launches[k], max_abs_err=k64[k]["max_abs_err"],
-                    ms=k64[k]["ms"], plain_ms=k64[k]["plain_ms"],
-                    fp32_max_abs_err=k32[k]["max_abs_err"],
-                    fp32_ms=k32[k]["ms"], fp32_plain_ms=k32[k]["plain_ms"])
-               for k, (src, rep) in KERNELS.items()]
+    kernels = []
+    for k, (src, rep) in KERNELS.items():
+        m64, m32 = k64[k], k32[k]
+        kernels.append(dict(
+            name=k, route="cuda", source=src, replaces=rep,
+            launches=launches[k], max_abs_err=m64["max_abs_err"],
+            ms=m64["ms"], plain_ms=m64["plain_ms"],
+            bound_ms=m64["bound_ms"], bound_by=m64["bound_by"],
+            library_ms=m64["library_ms"],
+            shapes="water_10k" if k in AT_10K else "flagship",
+            fp32_max_abs_err=m32["max_abs_err"], fp32_ms=m32["ms"],
+            fp32_plain_ms=m32["plain_ms"], fp32_bound_ms=m32["bound_ms"],
+            fp32_library_ms=m32["library_ms"]))
+    extra = {f"{tag}_{k}": {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
+                                               "library_ms")}
+             for tag, res in measured.items() for k, r in res.items()
+             if k not in KERNELS}
+    log(f"  other shapes: {json.dumps(extra)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -6,6 +6,9 @@ produces, and the one a test gets by flattening the JAX package's
 ``System`` / ``Topology`` -- so this module never imports jax.
 ``load_equilibrated_npz`` reads the flattened ``(State, Topology)`` pytree
 files under ``benchdata/``.
+
+Every entry point places its tensors on the card unless the caller asks
+for another device; without a card, ``device="cuda"`` raises.
 """
 
 import dataclasses
@@ -15,6 +18,15 @@ import torch
 
 from .topology import (ForceField, MolTypeTable, EvbParams, Topology,
                        System, State)
+
+
+def resolve_device(device):
+    """torch.device of `device`; a CUDA device must exist."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "on the CPU")
+    return device
 
 
 def _tensor(v, device, dtype):
@@ -38,12 +50,12 @@ def _container(cls, leaves, device, dtype):
     return cls(**kw)
 
 
-def from_numpy_tree(tree, device="cpu", dtype=torch.float64):
+def from_numpy_tree(tree, device="cuda", dtype=torch.float64):
     """(System, Topology) on `device` from the nested numpy layout:
     ``{"ff": {...}, "mt": {...}, "evb": {...} or None, "system": {mass,
     static config...}, "topo": {...}}``.  Keys the port has no field for
     are ignored."""
-    device = torch.device(device)
+    device = resolve_device(device)
     ff = _container(ForceField, tree["ff"], device, dtype)
     mt = _container(MolTypeTable, tree["mt"], device, dtype)
     evb = (None if tree.get("evb") is None
@@ -53,6 +65,7 @@ def from_numpy_tree(tree, device="cpu", dtype=torch.float64):
               if f.name not in ("ff", "mt", "evb", "mass", "device")
               and f.name in s}
     static["rs_cells"] = tuple(int(c) for c in static.get("rs_cells", ()))
+    static["pme_scap"] = int(static.get("pme_scap", 0))
     system = System(ff=ff, mt=mt, evb=evb,
                     mass=_tensor(s["mass"], device, dtype), device=device,
                     **static)
@@ -66,7 +79,7 @@ _TOPO_LEAVES = ("mol_mtype", "mol_natom", "mol_atoms", "atom_mol",
                 "atom_slot", "atom_type", "charge", "hydronium_mol")
 
 
-def load_equilibrated_npz(path, device="cpu", dtype=torch.float64):
+def load_equilibrated_npz(path, device="cuda", dtype=torch.float64):
     """(State, Topology, meta) from an equilibrated-state file.
 
     Leaves l0..l4 are the State (x, v, box, PRNG key, step; the key is not
@@ -78,7 +91,7 @@ def load_equilibrated_npz(path, device="cpu", dtype=torch.float64):
         raise ValueError(f"{path}: expected {n} (State, Topology) leaves")
     leaf = {name: data[f"l{i}"]
             for i, name in enumerate(_STATE_LEAVES + _TOPO_LEAVES)}
-    device = torch.device(device)
+    device = resolve_device(device)
     state = State(x=_tensor(leaf["x"], device, dtype),
                   v=_tensor(leaf["v"], device, dtype),
                   box=_tensor(leaf["box"], device, dtype),

@@ -16,6 +16,12 @@ __device__ __forceinline__ float t_sqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double t_sqrt(double x) { return sqrt(x); }
 __device__ __forceinline__ float t_erfc(float x) { return erfcf(x); }
 __device__ __forceinline__ double t_erfc(double x) { return erfc(x); }
+__device__ __forceinline__ float t_fma(float a, float b, float c) {
+    return fmaf(a, b, c);
+}
+__device__ __forceinline__ double t_fma(double a, double b, double c) {
+    return fma(a, b, c);
+}
 // round half to even, like torch.round
 __device__ __forceinline__ float t_rint(float x) { return rintf(x); }
 __device__ __forceinline__ double t_rint(double x) { return rint(x); }
@@ -24,4 +30,11 @@ template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
     return v;
+}
+
+// Dynamic shared memory above 48 KB must be allowed per kernel first.
+static inline int allow_smem(const void* kernel, size_t bytes) {
+    if (bytes <= 48 * 1024) return 0;
+    return (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }

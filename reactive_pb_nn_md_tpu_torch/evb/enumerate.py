@@ -20,7 +20,7 @@ from dataclasses import dataclass
 import torch
 
 from ..utils import pbc
-from ..ops.neighbors import first_true_columns
+from ..ops.neighbors import CellTable, first_true_columns, rows_on_demand
 
 
 @dataclass
@@ -31,6 +31,10 @@ class DiabatSet:
     parent: torch.Tensor         # (S,), -1 for state 0
     hydronium_of: torch.Tensor   # (S,) acid molecule of each diabat
     overflow: torch.Tensor       # () bool: more states than the cap
+    # () bool: an on-demand adjacency row exceeded its capacity (cell
+    # path); the simulation loop regrows the neighbor capacities, not the
+    # state cap
+    row_overflow: torch.Tensor = None
 
 
 def molecule_com(x, mol_atoms, mass, box=None):
@@ -51,14 +55,18 @@ def enumerate_diabats(x, box, topo, system, full_idx=None, com=None):
     """Level-synchronous BFS over proton-hop chains at cap
     system.evb_max_states.  `full_idx` (N, K) restricts each proton's
     candidate search to its adjacency row (ascending j, so the discovered
-    state order is that of the dense search)."""
+    state order is that of the dense search); a CellTable gives the same
+    rows on demand for just the expanded protons."""
     x = x.detach()
     dev = x.device
     S = system.evb_max_states
     C = system.evb_max_chain
     N = x.shape[0]
     Anb = min(system.evb_max_neighbors, system.n_atoms)
-    if full_idx is not None:
+    on_demand = isinstance(full_idx, CellTable)
+    if on_demand:
+        Anb = min(Anb, full_idx.row_cap)
+    elif full_idx is not None:
         Anb = min(Anb, full_idx.shape[1])
     mt = system.mt
     if com is None:
@@ -80,6 +88,7 @@ def enumerate_diabats(x, box, topo, system, full_idx=None, com=None):
     meta[:, 3] = 0
     meta[0, 2] = principle_h
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    row_overflow = torch.zeros((), dtype=torch.bool, device=dev)
     lvl_begin = torch.zeros((), dtype=torch.int64, device=dev)
     lvl_end = torch.ones((), dtype=torch.int64, device=dev)
     P = mt.proton_slots.shape[1]
@@ -108,7 +117,15 @@ def enumerate_diabats(x, box, topo, system, full_idx=None, com=None):
             jg = torch.arange(N, device=dev).expand(SL, P, N)
             row_ok = torch.ones_like(jg, dtype=torch.bool)
         else:
-            rows = full_idx[g_p]                                 # (SL, P, K)
+            if on_demand:
+                rows, over_r = rows_on_demand(full_idx, x, box,
+                                              g_p.reshape(-1))
+                rows = rows.reshape(SL, P, -1)                   # (SL, P, Kr)
+                row_overflow = row_overflow | (
+                    over_r.reshape(SL, P) & proton_ok
+                    & at_level[:, None]).any()
+            else:
+                rows = full_idx[g_p]                             # (SL, P, K)
             row_ok = rows >= 0
             jg = rows.clamp(min=0)
         jmol = topo.atom_mol[jg]
@@ -158,4 +175,4 @@ def enumerate_diabats(x, box, topo, system, full_idx=None, com=None):
 
     return DiabatSet(n_states=lvl_end, hop_log=hop_log, n_hops=meta[:, 0],
                      parent=meta[:, 1], hydronium_of=meta[:, 2],
-                     overflow=overflow)
+                     overflow=overflow, row_overflow=row_overflow)

@@ -19,11 +19,11 @@ from dataclasses import dataclass, replace
 
 import torch
 
-from reactive_pb_nn_md_tpu.utils.constants import (CONV_E2A_KJMOL,
-                                                   SQRT_PI)
+from ..utils.constants import CONV_E2A_KJMOL, SQRT_PI
 from ..models import total as total_mod
 from ..models import bonded, coupling, nonbonded, pme, repulsion
 from ..ops.ground_state import ground_state_eigh
+from ..ops.neighbors import CellTable, rows_on_demand
 from ..topology import Topology
 from ..utils import pbc
 from .enumerate import DiabatSet, enumerate_diabats, molecule_com
@@ -55,11 +55,12 @@ def _rows_of(t, idx):
 
 
 def _chain_mol_deltas(x, box, batch: DiabatBatch, system, base_charge,
-                      topo0, order_m, umol_ok):
+                      topo0, order_m, umol_ok, skip_repulsion=False):
     """Per-state deltas of the molecule-local terms (intra nonbonded,
     bonded, Ewald self) over the hop-chain molecules, and each state's
-    EVB repulsion + reference energy.  The principle side is evaluated
-    once per superset molecule."""
+    EVB reference energy plus, unless skip_repulsion (the candidate-row
+    sweep takes it), the dense EVB repulsion.  The principle side is
+    evaluated once per superset molecule."""
     tb = batch.topo
     xa0 = total_mod.mol_sites_packed(x, base_charge, topo0.mol_atoms[order_m])
     mt0 = topo0.mol_mtype[order_m]
@@ -86,8 +87,9 @@ def _chain_mol_deltas(x, box, batch: DiabatBatch, system, base_charge,
     dself = -system.alpha_sqrt / SQRT_PI * CONV_E2A_KJMOL * torch.where(
         batch.changed_mask, q_d * q_d - q_0 * q_0,
         torch.zeros_like(q_d)).sum(1)
-    e_ref = (repulsion.reference_energy(tb, system)
-             + repulsion.ms_evb_repulsion(x, box, tb, system))
+    e_ref = repulsion.reference_energy(tb, system)
+    if not skip_repulsion:
+        e_ref = e_ref + repulsion.ms_evb_repulsion(x, box, tb, system)
     return e_d - e_0 + dself, e_ref
 
 
@@ -108,8 +110,10 @@ def diabat_diagonal_energies(x, box, batch: DiabatBatch, system, pairs, cbw,
     every state and stays inter-molecular, so the real-space delta of
     state s is sum_u (q_s[u] - q_0[u]) Phi_el[u] (+ the vdW analog over
     each atom's type options) with the potentials computed once; pairs
-    inside U x U are summed per state.  Returns (diag (S,), principle
-    breakdown, e_recip (S,))."""
+    inside U x U are summed per state.  full_idx is the (N, Kf) full
+    adjacency or, on the on-demand cell path, a CellTable whose rows are
+    extracted for U only.  Returns (diag (S,), principle breakdown with
+    the base grid's slab overflow, e_recip (S,), row overflow ())."""
     dset = batch.dset
     S = system.evb_max_states
     M, N = system.n_mole, system.n_atoms
@@ -139,7 +143,13 @@ def diabat_diagonal_energies(x, box, batch: DiabatBatch, system, pairs, cbw,
     pos_in_U = pos_in_U[:N]
 
     # ---------------- state-independent pair data over U's neighbor rows
-    rows = full_idx[ua]                                         # (U, Kf)
+    on_demand = isinstance(full_idx, CellTable)
+    if on_demand:
+        rows, over_r = rows_on_demand(full_idx, x, box, ua)      # (U, Kf)
+        row_over = (over_r & ua_mask).any()
+    else:
+        rows = full_idx[ua]                                     # (U, Kf)
+        row_over = torch.zeros((), dtype=torch.bool, device=dev)
     rmask = ua_mask[:, None] & (rows >= 0)
     j = rows.clamp(min=0)
     xu = x[ua]
@@ -204,19 +214,26 @@ def diabat_diagonal_energies(x, box, batch: DiabatBatch, system, pairs, cbw,
                  + (e_vdw_uu_d - e_vdw_uu_0))
 
     # ---------------- molecule-local deltas + EVB repulsion / reference
+    use_domain_rep = repulsion.domain_repulsion_active(system, on_demand)
     deltas_mol, extra = _chain_mol_deltas(x, box, batch, system, base_charge,
-                                          topo0, order_m, umol_ok)
+                                          topo0, order_m, umol_ok,
+                                          skip_repulsion=use_domain_rep)
+    if use_domain_rep:
+        extra = extra + repulsion.ms_evb_repulsion_batched_domain(
+            x, box, tb, system, xu, pos_in_U, j, rmask, topo0.atom_type)
 
     # ---------------- reciprocal space per state: one base grid + one FFT
     # + the per-state spectrum contraction
     K = system.pme_grid
-    Q0 = pme.charge_grid(x, base_charge, box, K, system.spline_order)
+    Q0, slab_over = pme.charge_grid(x, base_charge, box, K,
+                                    system.spline_order,
+                                    scap=system.pme_scap)
     F0 = torch.fft.rfftn(Q0)
     e0 = 0.5 * CONV_E2A_KJMOL * (cbw * (F0.real ** 2 + F0.imag ** 2)).sum()
     e_recip = e0 + pme.recip_delta_perstate(xu, ua_mask, masked_q, box, K,
                                             system.spline_order, cbw, F0)
     diag = bd0.total + deltas_rs + deltas_mol + extra + e_recip
-    return diag, bd0, e_recip
+    return diag, replace(bd0, slab_overflow=slab_over), e_recip, row_over
 
 
 def coupling_elements(x, box, batch: DiabatBatch, system, com0, xa_pc0,
@@ -245,7 +262,7 @@ def assemble_hamiltonian(x, box, batch: DiabatBatch, system, pairs, cbw,
     sidx = torch.arange(S, device=x.device)
     active = sidx < dset.n_states
     xa_pc0 = total_mod.mol_sites_packed(x, topo0.charge, topo0.mol_atoms)
-    diag, bd0, e_recip = diabat_diagonal_energies(
+    diag, bd0, e_recip, row_over = diabat_diagonal_energies(
         x, box, batch, system, pairs, cbw, base_charge, topo0, full_idx,
         xa_pc0=xa_pc0)
     # the principle diabat's reported decomposition includes its recip
@@ -260,7 +277,7 @@ def assemble_hamiltonian(x, box, batch: DiabatBatch, system, pairs, cbw,
     H = torch.diag_embed(diag)
     H = H.index_put((par, sidx), val, accumulate=True)
     H = H.index_put((sidx, par), val, accumulate=True)
-    return H, bds, e_recip
+    return H, bds, e_recip, row_over
 
 
 @dataclass
@@ -276,6 +293,9 @@ class EvbResult:
     hydronium_of: torch.Tensor     # (S,)
     n_hops_of: torch.Tensor        # (S,)
     principle_topo: Topology       # the principle diabat's topology
+    # () bool: an on-demand adjacency row exceeded its capacity (cell
+    # path), in the Hamiltonian's rows or the enumeration's
+    row_overflow: torch.Tensor = None
 
 
 def _eval_at_cap(x, box, topo, system, pairs, cbw, full_idx, com,
@@ -285,8 +305,9 @@ def _eval_at_cap(x, box, topo, system, pairs, cbw, full_idx, com,
     batch = build_diabat_topologies(topo, dset, system)
     xg = x.detach().requires_grad_(True)
     with torch.enable_grad():
-        H, bds, _ = assemble_hamiltonian(xg, box, batch, system, pairs, cbw,
-                                         topo.charge, topo, full_idx, com)
+        H, bds, _, row_over = assemble_hamiltonian(
+            xg, box, batch, system, pairs, cbw, topo.charge, topo, full_idx,
+            com)
         _, c = ground_state_eigh(H)
         c = c.detach()
         energy = c @ H @ c
@@ -301,7 +322,8 @@ def _eval_at_cap(x, box, topo, system, pairs, cbw, full_idx, com,
                     n_states=dset.n_states, principle=principle,
                     hamiltonian=H.detach(), breakdown=bds,
                     overflow=dset.overflow, hydronium_of=dset.hydronium_of,
-                    n_hops_of=dset.n_hops, principle_topo=ptopo)
+                    n_hops_of=dset.n_hops, principle_topo=ptopo,
+                    row_overflow=row_over | dset.row_overflow)
     return res, batch
 
 
@@ -361,8 +383,9 @@ def adiabatic_energy_force(x, box, topo, system, pairs, cbw, full_idx,
     """Full MS-EVB energy/force evaluation -> (EvbResult, DiabatBatch).
 
     full_idx: the (N, K) full adjacency; react_idx: the short-cutoff rows
-    for the hop search (full_idx if None); com: per-molecule COM of
-    (x, topo), used only where gradients are cut.
+    for the hop search (full_idx if None); on the on-demand cell path both
+    are CellTables.  com: per-molecule COM of (x, topo), used only where
+    gradients are cut.
 
     Two-tier: the pipeline runs at the small cap and falls back to the
     full cap only when the small enumeration overflows (one host sync);

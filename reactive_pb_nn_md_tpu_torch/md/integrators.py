@@ -5,15 +5,21 @@ md_integration.f90:438-541).
 One step = kick, drift, wrap whole molecules, neighbor rebuild when the
 displacements exceed the skin, force evaluation (the MS-EVB adiabatic
 surface in reactive mode, which also switches the principle topology on
-a hop), kick, COM-momentum removal.  The rebuild and the overflow checks
-are Python branches, one host sync each; overflow raises (no regrow yet).
+a hop), kick, COM-momentum removal.  The rebuild check and the step's
+flags are Python branches, one host sync each.  A capacity that did not
+hold (neighbor rows, cells, on-demand rows, kernel A's cells, the PME
+slab cap) is reported in MDState.overflow: the step's result is then not
+valid, and the simulation loop (md/simulation.py) regrows the capacities
+and redoes the step.  An overflow of the EVB state cap raises (its regrow
+is not ported).
 """
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
 
-from reactive_pb_nn_md_tpu.utils.constants import CONV_KJMOL_A2PS2GMOL
+from ..utils.constants import CONV_KJMOL_A2PS2GMOL
 from ..models import total as total_mod
 from ..ops import neighbors
 from ..evb import hamiltonian as ham
@@ -24,8 +30,15 @@ from . import velocities
 
 
 class CapacityOverflow(RuntimeError):
-    """A fixed capacity (neighbor rows, kernel A cells, EVB state cap) was
-    exceeded; regrowing is not ported yet."""
+    """A fixed capacity could not be regrown to hold (the EVB state cap,
+    or a capacity still overflowing after the regrow rounds of
+    md/simulation.py)."""
+
+
+# the capacity flags of a step, in the order _sync_flags reads them
+CAPACITIES = ("neighbor-list capacity", "on-demand row capacity",
+              "kernel A cell capacity", "PME slab capacity")
+NEIGHBOR_CAP, ROW_CAP, RS_CELL_CAP, SLAB_CAP = CAPACITIES
 
 
 @dataclass
@@ -39,6 +52,7 @@ class ForceEval:
     evb_overflow: torch.Tensor
     hydronium_of: torch.Tensor
     n_hops_of: torch.Tensor
+    row_overflow: torch.Tensor     # () bool: an on-demand row overflowed
 
 
 @dataclass
@@ -56,6 +70,7 @@ class MDState:
     n_hops_of: torch.Tensor
     hopped: bool = False           # hydronium changed this step
     force_overflow: bool = False   # |F| > 1e4: the reference aborts
+    overflow: tuple = ()           # CAPACITIES that did not hold: not valid
 
 
 def wrap_molecules(x, box, topo, mass):
@@ -70,74 +85,115 @@ def evaluate_forces(x, box, topo, system, nlist, cbw, com=None):
     """Reactive (MS-EVB) or plain force evaluation."""
     pairs = neighbors.neighbor_pairs(nlist)
     S = system.evb_max_states
+    dev = x.device
     if system.ms_evb:
+        # on-demand cell path: the EVB layer reads rows from the cell
+        # tables instead of materialized (N, K) adjacencies
+        full_src = (nlist.celltab if nlist.celltab is not None
+                    else nlist.full_idx)
+        react_src = (nlist.react_tab if nlist.react_tab is not None
+                     else nlist.react_idx)
         res, _ = ham.adiabatic_energy_force(
-            x, box, topo, system, pairs, cbw, nlist.full_idx,
-            react_idx=nlist.react_idx, com=com)
+            x, box, topo, system, pairs, cbw, full_src, react_idx=react_src,
+            com=com)
         return ForceEval(potential=res.energy, breakdown=res.breakdown,
                          force=res.force, topo=res.principle_topo,
                          n_states=res.n_states, eigenvector=res.eigenvector,
                          evb_overflow=res.overflow,
                          hydronium_of=res.hydronium_of,
-                         n_hops_of=res.n_hops_of)
+                         n_hops_of=res.n_hops_of,
+                         row_overflow=res.row_overflow)
     xg = x.detach().requires_grad_(True)
     with torch.enable_grad():
         bd = total_mod.total_energy(xg, box, topo, system, pairs, cbw)
         grad, = torch.autograd.grad(bd.total, xg)
-    dev = x.device
-    return ForceEval(potential=bd.total.detach(), breakdown=bd, force=-grad,
+    bd = dataclasses.replace(bd, **{k: getattr(bd, k).detach() for k in (
+        "total", "elec", "vdw", "bond", "angle", "dihedral")})
+    return ForceEval(potential=bd.total, breakdown=bd, force=-grad,
                      topo=topo, n_states=torch.ones((), dtype=torch.int64,
                                                     device=dev),
                      eigenvector=torch.zeros(S, dtype=x.dtype, device=dev),
                      evb_overflow=torch.zeros((), dtype=torch.bool,
                                               device=dev),
                      hydronium_of=torch.full((S,), -1, device=dev),
-                     n_hops_of=torch.zeros(S, dtype=torch.int64, device=dev))
+                     n_hops_of=torch.zeros(S, dtype=torch.int64, device=dev),
+                     row_overflow=torch.zeros((), dtype=torch.bool,
+                                              device=dev))
 
 
 def _sync_flags(nlist, fe, hopped):
-    """One host sync for the step's flags: raise on any overflow, return
-    (hopped, |F| > 1e4) as Python bools."""
-    flags = torch.stack([nlist.overflow, fe.breakdown.rs_overflow,
-                         fe.evb_overflow, hopped,
+    """One host sync for the step's flags: (the CAPACITIES that did not
+    hold, hopped, |F| > 1e4).  Raises on an EVB state-cap overflow.  The
+    slab flag comes from the forward's own slab binning, kernel A's from
+    its own cell binning: no second binning."""
+    bd = fe.breakdown
+    flags = torch.stack([nlist.overflow, fe.row_overflow, bd.rs_overflow,
+                         bd.slab_overflow, fe.evb_overflow, hopped,
                          (fe.force.abs() > 1.0e4).any()]).tolist()
-    for name, bad in zip(("neighbor-list capacity", "kernel A cell capacity",
-                          "EVB state cap (evb_max_states)"), flags[:3]):
-        if bad:
-            raise CapacityOverflow(f"{name} exceeded; regrowing is not "
-                                   f"ported yet")
-    return flags[3], flags[4]
+    if flags[4]:
+        raise CapacityOverflow("EVB state cap (evb_max_states) exceeded; "
+                               "regrowing the state cap is not ported")
+    over = tuple(n for n, bad in zip(CAPACITIES, flags[:4]) if bad)
+    return over, flags[5], flags[6]
 
 
-def initial_md_state(state: State, topo, system, cbw, capacity,
-                     react_cap=None) -> MDState:
+def neighbor_plan(system, box, capacity, cells=None, react_cap=None,
+                  react_cells=None):
+    """The neighbor-list configuration initial_md_state builds, as the
+    keyword arguments of neighbors.build_neighbors.
+
+    cells: the cell-list grid (None: suggest_cells' choice, () forces the
+    dense build); with cells on an MS-EVB system the adjacency rows come
+    on demand from the cell tables, with a finer react-cutoff grid
+    (react_cells, None: suggested).  Kernel A bins atoms itself, so the
+    half list is built only without it.  The JAX package's choices
+    (md/integrators.py:314-355)."""
+    box_np = box.detach().cpu().numpy()
+    if cells is None:
+        cells = neighbors.suggest_cells(system.n_atoms, box_np,
+                                        system.verlet_cutoff)
     react_cutoff = 0.0
     if system.ms_evb:
         skin = system.verlet_cutoff - system.real_space_cutoff
         react_cutoff = float(system.evb_reactive_pair_distance + skin)
         if react_cap is None:
-            vol = float(pbc.box_volume(state.box))
+            vol = float(pbc.box_volume(box))
             react_cap = neighbors.suggest_capacity(
                 system.n_atoms, vol, react_cutoff, safety=1.4)
     else:
         react_cap = 0
-    # kernel A bins atoms itself: the half list is built only without it
-    nlist = neighbors.build_neighbor_list(
-        state.x, state.box, system.verlet_cutoff, capacity,
-        react_cutoff=react_cutoff, react_cap=react_cap,
-        build_half=not system.rs_cells)
+    on_demand = bool(cells) and system.ms_evb
+    if on_demand and react_cap and react_cells is None:
+        react_cells = neighbors.suggest_cells(system.n_atoms, box_np,
+                                              react_cutoff, min_atoms=0)
+    return dict(cutoff=system.verlet_cutoff, capacity=capacity, cells=cells,
+                react_cutoff=react_cutoff, react_cap=react_cap,
+                build_half=not system.rs_cells, on_demand=on_demand,
+                react_cells=react_cells or ())
+
+
+def initial_md_state(state: State, topo, system, cbw, capacity, cells=None,
+                     react_cap=None, react_cells=None) -> MDState:
+    """The state before the first step: neighbor lists (neighbor_plan's
+    configuration) and forces.  MDState.overflow lists the capacities
+    that did not hold."""
+    nlist = neighbors.build_neighbors(
+        state.x, state.box, **neighbor_plan(system, state.box, capacity,
+                                            cells, react_cap, react_cells))
     fe = evaluate_forces(state.x, state.box, topo, system, nlist, cbw)
-    _sync_flags(nlist, fe, torch.zeros((), dtype=torch.bool,
-                                       device=state.x.device))
+    over, _, _ = _sync_flags(nlist, fe, torch.zeros(
+        (), dtype=torch.bool, device=state.x.device))
     return MDState(state=state, topo=fe.topo, nlist=nlist, force=fe.force,
                    potential=fe.potential, breakdown=fe.breakdown,
                    kinetic=velocities.kinetic_energy(state.v, system.mass),
                    n_states=fe.n_states, eigenvector=fe.eigenvector,
-                   hydronium_of=fe.hydronium_of, n_hops_of=fe.n_hops_of)
+                   hydronium_of=fe.hydronium_of, n_hops_of=fe.n_hops_of,
+                   overflow=over)
 
 
 def md_step(ms: MDState, system, cbw, dt: float) -> MDState:
-    """One velocity-Verlet NVE step."""
+    """One velocity-Verlet NVE step.  The result is valid only if its
+    `overflow` is empty; else regrow and redo it from `ms`."""
     state, topo = ms.state, ms.topo
     box = state.box
     mass = system.mass[:, None]
@@ -156,7 +212,7 @@ def md_step(ms: MDState, system, cbw, dt: float) -> MDState:
     fe = evaluate_forces(x, box, topo, system, nlist, cbw, com=com)
     v = torch.where(mobile, v + dt / 2.0 * fe.force / mass * conv, v)
     v = velocities.remove_com_momentum(v, system.mass, mobile[:, 0])
-    hopped, force_overflow = _sync_flags(
+    over, hopped, force_overflow = _sync_flags(
         nlist, fe, fe.topo.hydronium_mol != topo.hydronium_mol)
     return MDState(state=State(x=x, v=v, box=box, step=state.step + 1),
                    topo=fe.topo, nlist=nlist, force=fe.force,
@@ -164,4 +220,5 @@ def md_step(ms: MDState, system, cbw, dt: float) -> MDState:
                    kinetic=velocities.kinetic_energy(v, system.mass),
                    n_states=fe.n_states, eigenvector=fe.eigenvector,
                    hydronium_of=fe.hydronium_of, n_hops_of=fe.n_hops_of,
-                   hopped=hopped, force_overflow=force_overflow)
+                   hopped=hopped, force_overflow=force_overflow,
+                   overflow=over)

@@ -2,9 +2,13 @@
 main_ms_evb.f90:15-122, print_step general_routines.f90:870-945).
 
 File contract of the reference CLI: in.gro ff.pmt top sim.pmt -> trajectory
-(.gro frames), log, hop file, A file.  Not ported yet: NVT/NPT, restart
-and checkpoints, capacity regrow, and the debug >= 2 A-file stream (the A
-file is created and left empty).
+(.gro frames), log, hop file, A file.  A fixed capacity that does not hold
+(neighbor rows and cells, on-demand rows, kernel A's cells, the PME slab
+cap) is regrown by the JAX package's factors and the step is redone from
+the state before it, so no reported energy comes from truncated data;
+each regrow is one line of the log.  Not ported yet: NVT/NPT, restart and
+checkpoints, the EVB state-cap regrow, and the debug >= 2 A-file stream
+(the A file is created and left empty).
 """
 
 import time
@@ -12,13 +16,14 @@ import time
 import numpy as np
 import torch
 
-from reactive_pb_nn_md_tpu.io.gro import read_gro, format_gro_frame
-from reactive_pb_nn_md_tpu.io.ffpmt import read_ffpmt
-from reactive_pb_nn_md_tpu.io.topfile import read_top
-from reactive_pb_nn_md_tpu.io.simpmt import read_sim_params
+from ..io.gro import read_gro, format_gro_frame
+from ..io.ffpmt import read_ffpmt
+from ..io.topfile import read_top
+from ..io.simpmt import read_sim_params
 from ..topology import build_system, State
 from ..models import pme
 from ..ops import neighbors
+from ..ops.kernels.realspace_pair import _impl_for
 from ..utils import pbc
 from ..utils.dtypes import float_dtype
 from . import integrators, velocities
@@ -36,6 +41,10 @@ def load_deck(gro_file, ff_file, top_file, sim_file, device,
                                 read_top(top_file), cfg,
                                 device=torch.device(device))
     return cfg, frame, system, topo
+
+
+# regrow rounds before a capacity that still overflows is an error
+_MAX_REGROWS = 16
 
 
 class Simulation:
@@ -66,11 +75,86 @@ class Simulation:
         self.cbw = pme.cb_half(box, self.system.pme_grid,
                                self.system.spline_order,
                                self.system.alpha_sqrt, dtype=f)
-        capacity = neighbors.suggest_capacity(
+        self.capacity = neighbors.suggest_capacity(
             self.system.n_atoms, float(pbc.box_volume(box)),
             self.system.verlet_cutoff)
-        self.ms = integrators.initial_md_state(state, topo, self.system,
-                                               self.cbw, capacity)
+        # verlet_allpairs forces the dense O(N^2) build (the reference's
+        # all-pairs fallback, general_routines.f90:1356)
+        self.cells = () if cfg.verlet_allpairs else neighbors.suggest_cells(
+            self.system.n_atoms, frame.box, self.system.verlet_cutoff)
+        self.react_cap = self.react_cells = None
+        self._log_lines = []            # written to the log when it opens
+        self.log_f = None
+        self._init_state(state, topo)
+
+    def _init_state(self, state, topo, step=0):
+        """MDState at `state` with the current capacities, regrown until
+        they hold (regrow lines name `step`)."""
+        for _ in range(_MAX_REGROWS + 1):
+            self.ms = integrators.initial_md_state(
+                state, topo, self.system, self.cbw, self.capacity,
+                self.cells, react_cap=self.react_cap,
+                react_cells=self.react_cells)
+            self.react_cap = self.ms.nlist.react_cap or None
+            self.react_cells = self.ms.nlist.react_cells or None
+            if not self.ms.overflow:
+                return
+            self._grow(self.ms.overflow, step)
+        raise integrators.CapacityOverflow(
+            f"{', '.join(self.ms.overflow)} still exceeded after "
+            f"{_MAX_REGROWS} regrows")
+
+    def _grow(self, names, step):
+        """Grow the capacities that did not hold by the JAX package's
+        factors (md/simulation.py:189-226 there) and log one line.  The
+        JAX package grows all of them, its flag being shared; the port's
+        flags are separate, so the others keep their size (a kernel A or
+        slab cap grown for nothing costs shared memory and time)."""
+        n1 = self.system.n_atoms - 1
+        kw = {}
+        if {integrators.NEIGHBOR_CAP, integrators.ROW_CAP} & set(names):
+            self.capacity = min(int(self.capacity * 1.5) + 8, n1)
+            if self.cells:
+                nc1, nc2, nc3, ccap = self.cells
+                self.cells = (nc1, nc2, nc3, int(ccap * 1.5) + 4)
+            if self.react_cap:
+                self.react_cap = min(int(self.react_cap * 1.5) + 8, n1)
+            if self.react_cells:
+                rn1, rn2, rn3, rcc = self.react_cells
+                self.react_cells = (rn1, rn2, rn3, int(rcc * 1.5) + 4)
+        if integrators.RS_CELL_CAP in names:
+            n1_, n2_, n3_, rcap = self.system.rs_cells
+            kw["rs_cells"] = (n1_, n2_, n3_, -(-int(rcap * 1.3 + 8) // 8) * 8)
+        if integrators.SLAB_CAP in names:
+            # multiplicative: a melting lattice concentrates whole planes
+            # into single slabs (~2.7x the mean on the 10k box)
+            kw["pme_scap"] = -(-int(self.system.pme_scap * 1.3 + 16) // 8) * 8
+        self.system = self.system.replace(**kw)
+        line = (f"step {step}: regrow ({', '.join(names)} exceeded): "
+                f"capacity {self.capacity} cells {self.cells} react_cap "
+                f"{self.react_cap} react_cells {self.react_cells} rs_cells "
+                f"{self.system.rs_cells} pme_scap {self.system.pme_scap}\n")
+        if self.log_f is None:
+            self._log_lines.append(line)
+        else:
+            self.log_f.write(line)
+            self.log_f.flush()
+
+    def _step(self, step):
+        """One md_step; a capacity that did not hold is regrown and the
+        step redone from the state before it."""
+        for _ in range(_MAX_REGROWS):
+            ms = integrators.md_step(self.ms, self.system, self.cbw,
+                                     self.cfg.delta_t)
+            if not ms.overflow:
+                self.ms = ms
+                return
+            self._grow(ms.overflow, step)
+            self._init_state(self.ms.state, self.ms.topo, step)
+        raise integrators.CapacityOverflow(
+            f"step {step}: {', '.join(ms.overflow)} still exceeded after "
+            f"{_MAX_REGROWS} regrows")
+
 
     def _write_frame(self, step):
         topo = self.ms.topo
@@ -102,6 +186,10 @@ class Simulation:
             f"n_exclusions {s.n_exclusions}",
             f" ms_evb {s.ms_evb}  evb_max_states {s.evb_max_states}  "
             f"evb_max_chain {s.evb_max_chain}",
+            f" neighbor cells {self.cells or 'dense'}  rs_cells "
+            f"{s.rs_cells or '()'} "
+            f"({_impl_for(s.rs_cells) if s.rs_cells else 'pair list'})  "
+            f"pme_scap {s.pme_scap or '0 (per-atom spread)'}",
             f" lj_comb_rule {cfg.lj_comb_rule}  precision {cfg.precision}  "
             f"device {self.device} ({name})", ""]))
         self.log_f.flush()
@@ -141,6 +229,8 @@ class Simulation:
                 open(self.files["hop"], "w") as hop_f, \
                 open(self.files["a"], "w"):
             self._log_header()
+            self.log_f.writelines(self._log_lines)
+            self._log_lines = []
             self._log_step(0)
             self._write_frame(0)
             if self.device.type == "cuda":
@@ -150,8 +240,7 @@ class Simulation:
             while step < n_steps:
                 prev_h = int(self.ms.topo.hydronium_mol) \
                     if self.system.ms_evb else -1
-                self.ms = integrators.md_step(self.ms, self.system, self.cbw,
-                                              cfg.delta_t)
+                self._step(step + 1)
                 step += 1
                 if self.ms.hopped:
                     hop_f.write(f"step  {step}\n proton hop from "
@@ -171,4 +260,5 @@ class Simulation:
             elapsed = time.perf_counter() - t0
             self.log_f.write(f"completed {step} steps in {elapsed:.2f} s "
                              f"({step / max(elapsed, 1e-9):.2f} steps/s)\n")
+        self.log_f = None
         return elapsed

@@ -3,7 +3,7 @@ reactive_pb_nn_md_tpu/md/velocities.py; md_integration.f90:48-177)."""
 
 import torch
 
-from reactive_pb_nn_md_tpu.utils.constants import CONV_KJMOL_A2PS2GMOL, KB
+from ..utils.constants import CONV_KJMOL_A2PS2GMOL, KB
 
 
 def freeze_mask(system, topo):

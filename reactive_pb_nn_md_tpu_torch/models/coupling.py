@@ -15,7 +15,7 @@ indices from the hop log.  Forces from autograd.
 
 import torch
 
-from reactive_pb_nn_md_tpu.utils.constants import CONV_E2A_KJMOL
+from ..utils.constants import CONV_E2A_KJMOL
 from ..utils import pbc
 
 

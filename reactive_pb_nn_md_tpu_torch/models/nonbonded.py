@@ -4,7 +4,7 @@ pair_int_real_space.f90).  Forces come from autograd."""
 
 import torch
 
-from reactive_pb_nn_md_tpu.utils.constants import CONV_E2A_KJMOL, SQRT_PI
+from ..utils.constants import CONV_E2A_KJMOL, SQRT_PI
 
 
 def tang_toennies(x, n):

@@ -1,7 +1,8 @@
 """Smooth Particle-Mesh Ewald, reciprocal space (counterpart of
 reactive_pb_nn_md_tpu/models/pme.py; Essmann 1995, pme.f90).
 
-  grid_Q                  -> charge_grid: kernel B (ops/kernels/pme_spread)
+  grid_Q                  -> charge_grid: kernel B (ops/kernels/pme_spread),
+                             or D (ops/kernels/pme_slab) with a slab cap
   FFT + CB                -> torch.fft.rfftn, E = conv/2 sum w CB |F(Q)|^2
   CB_array / bm_sq        -> cb_half
   update_Ewald_self       -> ewald_self
@@ -14,15 +15,25 @@ import math
 import numpy as np
 import torch
 
-from reactive_pb_nn_md_tpu.utils.constants import CONV_E2A_KJMOL, SQRT_PI
+from ..utils.constants import CONV_E2A_KJMOL, SQRT_PI
 from ..utils import pbc
 from ..ops.bspline import bspline_weights, bm_sq_factors
-from ..ops.kernels import pme_spread, recip_perstate
+from ..ops.kernels import pme_slab, pme_spread, recip_perstate
 
 
-def charge_grid(x, q, box, K, order):
-    """(K, K, K) charge grid of all atoms (kernel B on CUDA tensors)."""
-    return pme_spread.charge_grid(x, q, box, K, order)
+def charge_grid(x, q, box, K, order, scap=0):
+    """((K, K, K) charge grid of all atoms, slab overflow ()).
+
+    With a static slab capacity (scap > 0, System.pme_scap) the slab path
+    (kernels D1/D2 on CUDA tensors), whose overflow flag says an x-slab
+    held more than scap atoms: the grid then lacks atoms and the
+    simulation loop regrows scap.  Otherwise the per-atom spread (kernels
+    B1/B2), which cannot overflow.  The dispatch is the JAX package's
+    (models/pme.py:93-114), so both packages take one path per deck."""
+    if scap:
+        return pme_slab.charge_grid_slab(x, q, box, K, order, scap)
+    return (pme_spread.charge_grid(x, q, box, K, order),
+            torch.zeros((), dtype=torch.bool, device=x.device))
 
 
 def delta_charge_grid(x, dq, atom_idx, mask, box, K, order):

@@ -27,6 +27,7 @@ class EnergyBreakdown:
     angle: torch.Tensor
     dihedral: torch.Tensor
     rs_overflow: torch.Tensor      # () bool: kernel A's cell grid did not hold
+    slab_overflow: torch.Tensor    # () bool: the PME slab cap did not hold
 
 
 def realspace_inter(x, box, topo, system, pairs):
@@ -136,15 +137,17 @@ def energy_no_recip(x, box, topo, system, pairs, xa_pc=None):
     vdw = e_real_vdw + e_intra_vdw
     return EnergyBreakdown(total=elec + vdw + eb + ea + ed, elec=elec,
                            vdw=vdw, bond=eb, angle=ea, dihedral=ed,
-                           rs_overflow=rs_overflow)
+                           rs_overflow=rs_overflow,
+                           slab_overflow=torch.zeros_like(rs_overflow))
 
 
 def total_energy(x, box, topo, system, pairs, cbw):
     """Full potential energy of one topology (non-reactive path)."""
     bd = energy_no_recip(x, box, topo, system, pairs)
-    Q = pme.charge_grid(x, topo.charge, box, system.pme_grid,
-                        system.spline_order)
+    Q, slab_over = pme.charge_grid(x, topo.charge, box, system.pme_grid,
+                                   system.spline_order, scap=system.pme_scap)
     e_recip = pme.recip_energy(Q, cbw)
     return EnergyBreakdown(total=bd.total + e_recip, elec=bd.elec + e_recip,
                            vdw=bd.vdw, bond=bd.bond, angle=bd.angle,
-                           dihedral=bd.dihedral, rs_overflow=bd.rs_overflow)
+                           dihedral=bd.dihedral, rs_overflow=bd.rs_overflow,
+                           slab_overflow=slab_over)

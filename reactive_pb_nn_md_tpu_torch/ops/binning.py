@@ -1,0 +1,38 @@
+"""Stable binning of atoms into fixed-capacity bins (one sort).
+
+Shared by kernel A's cell packing, the cell-list neighbor build and the
+PME slab spread: the same sort / rank-in-run trick as the JAX package's
+``_bin_atoms``, ``_pack_cell_table`` and ``_bin_by_slab``.
+"""
+
+import torch
+
+
+def bin_slots(key, n_bins, cap):
+    """(slot (N,), overflow ()): each atom's row in a bin-major layout of
+    n_bins bins of `cap` rows, in atom order within a bin.  Atoms past
+    their bin's capacity go to the dump row n_bins * cap, and overflow is
+    set; nothing else is dropped."""
+    N = key.shape[0]
+    order = torch.argsort(key, stable=True)
+    sorted_key = key[order]
+    ar = torch.arange(N, device=key.device)
+    first = torch.ones(N, dtype=torch.bool, device=key.device)
+    first[1:] = sorted_key[1:] != sorted_key[:-1]
+    run_start = torch.cummax(torch.where(first, ar, torch.zeros_like(ar)),
+                             0).values
+    rank = ar - run_start
+    slot_sorted = torch.where(rank < cap, sorted_key * cap + rank,
+                              torch.full_like(rank, n_bins * cap))
+    slot = torch.empty_like(slot_sorted)
+    slot[order] = slot_sorted
+    return slot, (rank >= cap).any()
+
+
+def slot_atoms(slot, n_rows):
+    """(n_rows,) atom of every bin row, -1 where the row is empty (the
+    inverse of bin_slots' slot, dump row dropped)."""
+    rows = torch.full((n_rows + 1,), -1, dtype=torch.int64,
+                      device=slot.device)
+    rows[slot] = torch.arange(slot.shape[0], device=slot.device)
+    return rows[:n_rows]

@@ -1,20 +1,23 @@
 """Build and load the hand-written Hopper kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into ONE shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds)
-and loaded with ``ctypes``.  The build happens on first use, into
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc``, all started
+together, and the objects are linked into ONE shared library with a plain
+C interface (no PyTorch headers, so the build takes seconds) loaded with
+``ctypes``.  The build happens on first use, into
 ``build/kernels/<hash of sources and flags>/`` beside the package, and is
 redone when a source changes.  Each C entry point launches on the stream
 it is given, allocates nothing, does not synchronize, and returns
 ``cudaGetLastError()``; ``check`` raises on anything but 0.
 
-``launches`` counts kernel launches by kernel name (A, B1, B2, C1, C2);
-each wrapper adds one where it launches its kernel, and nowhere else.
+``launches`` counts kernel launches by kernel name (A, A', A'', B1, B2,
+C1, C2, D1, D2); each wrapper adds one where it launches its kernel, and
+nowhere else.
 """
 
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import tempfile
 import time
@@ -25,7 +28,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "--expt-relaxed-constexpr"]
 
 launches = Counter()
@@ -69,21 +72,47 @@ def _load():
     log = ""
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + [str(s) for s in srcs]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-        os.replace(tmp, so)             # atomic: concurrent builds agree
+        tmp_dir = tempfile.mkdtemp(dir=out_dir)
+        try:
+            log = _compile(srcs, Path(tmp_dir))
+            os.replace(os.path.join(tmp_dir, "libkernels.so"), so)  # atomic
+        finally:
+            shutil.rmtree(tmp_dir, ignore_errors=True)
     lib = ctypes.CDLL(str(so))
     lib.kernels_error_string.argtypes = [ctypes.c_int]
     lib.kernels_error_string.restype = ctypes.c_char_p
     build_info.update(seconds=time.perf_counter() - t0, path=str(so),
                       log=log)
     return lib
+
+
+def _compile(srcs, tmp_dir):
+    """One nvcc per source, all at once, then one link; returns the
+    compilers' output (register and spill counts)."""
+    procs = []
+    for src in srcs:
+        out = open(tmp_dir / (src.stem + ".log"), "w+")
+        cmd = ([_nvcc()] + NVCC_FLAGS
+               + ["-c", "-o", str(tmp_dir / (src.stem + ".o")), str(src)])
+        procs.append((src, out, subprocess.Popen(cmd, stdout=out,
+                                                 stderr=subprocess.STDOUT)))
+    log, failed = "", []
+    for src, out, proc in procs:
+        rc = proc.wait()
+        out.seek(0)
+        log += f"== {src.name}\n" + out.read()
+        out.close()
+        if rc != 0:
+            failed.append(src.name)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+    cmd = ([_nvcc(), "-shared", "-o", str(tmp_dir / "libkernels.so")]
+           + [str(tmp_dir / (s.stem + ".o")) for s in srcs])
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"link failed ({res.returncode}):\n"
+                           f"{res.stdout}{res.stderr}")
+    return log
 
 
 def function(name, n_ptr, n_int=0, n_float=0):

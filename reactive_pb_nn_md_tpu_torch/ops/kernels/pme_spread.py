@@ -32,8 +32,10 @@ def spread_plain(w, nearpt, q, K):
         0, flat, vals)
 
 
-def gather_plain(gQ, w, dw, nearpt, q, recip, K):
-    """(dE/dq (n,), dE/dx (n, 3)) from the grid cotangent gQ (K^3,)."""
+def contract_plain(gQ, w, dw, nearpt, K):
+    """(dE/dq (n,), dE/du (n, 3)) from the grid cotangent gQ (K^3,): the
+    brick of every atom against its spline values and derivatives, before
+    the charge and box factors of dE/dx."""
     order = w.shape[-1]
     k = torch.arange(order, device=w.device)
     idx = torch.remainder(nearpt[:, :, None] - k, K)
@@ -46,6 +48,12 @@ def gather_plain(gQ, w, dw, nearpt, q, recip, K):
     s = torch.stack([torch.einsum("aijl,ai,aj,al->a", c, d0, w1, w2),
                      torch.einsum("aijl,ai,aj,al->a", c, w0, d1, w2),
                      torch.einsum("aijl,ai,aj,al->a", c, w0, w1, d2)], -1)
+    return gq, s
+
+
+def gather_plain(gQ, w, dw, nearpt, q, recip, K):
+    """(dE/dq (n,), dE/dx (n, 3)) from the grid cotangent gQ (K^3,)."""
+    gq, s = contract_plain(gQ, w, dw, nearpt, K)
     return gq, K * ((q[:, None] * s) @ recip)
 
 

@@ -1,33 +1,67 @@
-"""Kernel A: the fused inter-molecular real-space pair sweep.
+"""Kernels A, A', A'': the fused inter-molecular real-space pair sweep.
 
-Replaces reactive_pb_nn_md_tpu/ops/pallas/realspace_pair.py:_forward ->
-_kernel / _pair_math (full 27-stencil path), source
-``csrc/realspace_pair.cu``.
+Replace reactive_pb_nn_md_tpu/ops/pallas/realspace_pair.py:_forward ->
+_kernel / _pair_math (A: full 27-stencil; A': the same with half=True,
+each unordered pair once) and _forward_column -> _kernel_column (A'': the
+half stencil walked one xy column of cells at a time), source
+``csrc/realspace_pair.cu``.  Which of them runs is the JAX package's
+choice (``_impl_for``): the column walk for grids of at least
+_HALF_MIN_CELLS cells (the 10,000-atom box), else the full stencil;
+``set_stencil_impl`` overrides it, as in the JAX package.
 
 Atoms are binned into a static (nc1, nc2, nc3) grid sized by the
 real-space cutoff (``System.rs_cells``), in torch: cell id, stable sort,
 rank in cell -> slot, and an overflow flag.  The cell-packed array
 (n_cells*ccap, 8) [x y z q type mol 0 0] goes to ``pair_rows``, which
-returns per-slot [dE_el/dx, dE_vdw/dx, e_el/2, e_vdw/2] -- the gradients
-come out of the forward sweep, so the autograd backward only scales the
-stored gradients (as the TPU kernel's custom VJP does).
+returns per-slot [dE_el/dx, dE_vdw/dx, e_el, e_vdw] (A splits each pair
+energy over both rows, A' and A'' put it on one) -- the gradients come
+out of the forward sweep, so the autograd backward only scales the stored
+gradients (as the TPU kernel's custom VJP does).
 
-What bounds it on the H100 and what the design does about it: see the
-source.  ``pair_rows`` runs the CUDA kernel for a CUDA tensor and the plain
-torch sweep below for a CPU tensor; nothing else selects between them.
+What bounds them on the H100 and what the designs do about it: see the
+source.  ``pair_rows`` runs a CUDA kernel for a CUDA tensor and the plain
+torch sweep below, the plain version of all three, for a CPU tensor;
+nothing else selects between them.
 The kernel assumes an orthorhombic box (L = diag(box)), as the reference
 kernel does; ``suggest_rs_cells`` returns () for any other box.
 """
 
 import torch
 
-from reactive_pb_nn_md_tpu.utils.constants import CONV_E2A_KJMOL, SQRT_PI
+from ...utils.constants import CONV_E2A_KJMOL, SQRT_PI
+from ..binning import bin_slots
 from . import _build
 
 SENTINEL = 1.0e6            # empty-slot position: far outside any cutoff
 # cells per pass of the plain sweep: bounds its (chunk, ccap, 27 ccap)
 # pair temporaries to a few MB at the flagship's ccap of 24
 _CELL_CHUNK = 16
+# the JAX package's crossover: grids of this many cells take the column
+# walk (realspace_pair.py:77)
+_HALF_MIN_CELLS = 200
+# pair results A' / A'' stage in shared memory per tile chunk
+# (csrc/realspace_pair.cu's PAIR_CAP)
+_PAIR_CAP = 768
+_STENCIL_IMPL = "auto"                  # "auto" | "full" | "half" | "column"
+# kernel launched by each stencil implementation
+KERNEL_OF = {"full": "A", "half": "A'", "column": "A''"}
+
+
+def set_stencil_impl(impl):
+    """Select the stencil enumeration: "auto" (the column walk for grids
+    of >= _HALF_MIN_CELLS cells, else the full stencil), "full", "half"
+    or "column"."""
+    global _STENCIL_IMPL
+    if impl not in ("auto", "full", "half", "column"):
+        raise ValueError(f"unknown stencil impl {impl!r}")
+    _STENCIL_IMPL = impl
+
+
+def _impl_for(cells):
+    if _STENCIL_IMPL == "auto":
+        big = cells[0] * cells[1] * cells[2] >= _HALF_MIN_CELLS
+        return "column" if big else "full"
+    return _STENCIL_IMPL
 
 
 def build_tabs(system, dtype):
@@ -48,28 +82,14 @@ def bin_atoms(x, box, cells, cutoff):
     when a cell holds more than ccap atoms or a cell is narrower than the
     cutoff."""
     nc1, nc2, nc3, ccap = cells
-    N = x.shape[0]
     ncv = torch.tensor([nc1, nc2, nc3], device=x.device)
     L = torch.diagonal(box)
     frac = x / L
     frac = frac - torch.floor(frac)
     ci = torch.minimum((frac * ncv).to(torch.int64), ncv - 1).clamp(min=0)
     cell_id = (ci[:, 0] * nc2 + ci[:, 1]) * nc3 + ci[:, 2]
-    order = torch.argsort(cell_id, stable=True)
-    sorted_id = cell_id[order]
-    ar = torch.arange(N, device=x.device)
-    first = torch.ones(N, dtype=torch.bool, device=x.device)
-    first[1:] = sorted_id[1:] != sorted_id[:-1]
-    run_start = torch.cummax(torch.where(first, ar, torch.zeros_like(ar)),
-                             0).values
-    rank = ar - run_start
-    C8 = nc1 * nc2 * nc3 * ccap
-    slot_sorted = torch.where(rank < ccap, sorted_id * ccap + rank,
-                              torch.full_like(rank, C8))
-    slot = torch.empty_like(slot_sorted)
-    slot[order] = slot_sorted
-    overflow = (rank >= ccap).any() | (L / ncv < cutoff).any()
-    return slot, overflow
+    slot, over = bin_slots(cell_id, nc1 * nc2 * nc3, ccap)
+    return slot, over | (L / ncv < cutoff).any()
 
 
 def pack_cells(x, charge, atype, mol, slot, cells):
@@ -184,20 +204,26 @@ def pair_rows_plain(cm, tabs, cells, L, rcut, alpha, has_sapt):
     return torch.cat(out).reshape(n_cells * ccap, 8)
 
 
-def pair_rows_cuda(cm, tabs, cells, box, rcut, alpha, has_sapt):
-    """Launch kernel A (box: (3, 3), orthorhombic)."""
+def _check(cm, tabs, cells, box, name):
     nc1, nc2, nc3, ccap = cells
-    C8 = nc1 * nc2 * nc3 * ccap
     f = cm.dtype
-    _build.require(cm, f, (C8, 8), "cm")
+    _build.require(cm, f, (nc1 * nc2 * nc3 * ccap, 8), "cm")
     _build.require(tabs, f, None, "tabs")
     _build.require(box, f, (3, 3), "box")
     n_tab, T = tabs.shape[0], tabs.shape[-1]
     if n_tab * T * T * cm.element_size() > 48 * 1024:
         raise ValueError("parameter tables exceed 48 KB of shared memory")
     if min(nc1, nc2, nc3) < 3:
-        raise ValueError("kernel A needs >= 3 cells along every axis")
-    out = torch.empty((C8, 8), dtype=f, device=cm.device)
+        raise ValueError(f"kernel {name} needs >= 3 cells along every axis")
+    return n_tab, T
+
+
+def pair_rows_cuda(cm, tabs, cells, box, rcut, alpha, has_sapt):
+    """Launch kernel A (box: (3, 3), orthorhombic)."""
+    n_tab, T = _check(cm, tabs, cells, box, "A")
+    nc1, nc2, nc3, ccap = cells
+    f = cm.dtype
+    out = torch.empty_like(cm)
     fn = _build.function("rs_pair_" + _build.suffix(f), 5, 7, 3)
     _build.check(fn(cm.data_ptr(), tabs.data_ptr(), box.data_ptr(),
                     out.data_ptr(), _build.stream_ptr(cm), nc1, nc2, nc3,
@@ -207,14 +233,52 @@ def pair_rows_cuda(cm, tabs, cells, box, rcut, alpha, has_sapt):
     return out
 
 
-def pair_rows(cm, tabs, cells, box, rcut, alpha, has_sapt):
-    """Per-slot [dE_el/dx (3), dE_vdw/dx (3), e_el/2, e_vdw/2]: the CUDA
-    kernel for a CUDA tensor, the plain sweep for a CPU tensor."""
-    if cm.is_cuda:
-        return pair_rows_cuda(cm, tabs, cells, box.contiguous(), rcut, alpha,
-                              has_sapt)
-    return pair_rows_plain(cm, tabs, cells, torch.diagonal(box), rcut,
-                           alpha, has_sapt)
+def pair_rows_half_cuda(cm, tabs, cells, box, rcut, alpha, has_sapt,
+                        column):
+    """Launch kernel A'' (column) or A' (half stencil) and their fold:
+    per-slot rows with each pair's energy on one row."""
+    name = KERNEL_OF["column" if column else "half"]
+    n_tab, T = _check(cm, tabs, cells, box, name)
+    nc1, nc2, nc3, ccap = cells
+    f = cm.dtype
+    # the kernels' shared memory: tables, the rows they accumulate (A'':
+    # a column's own rows and 4 j-side columns), the staged pair results
+    rows = nc3 * ccap * (8 + 4 * 6) if column else ccap * 8
+    smem = (n_tab * T * T + rows + _PAIR_CAP * 8) * cm.element_size()
+    if smem > 227 * 1024:
+        raise ValueError(f"kernel {name} needs {smem} B of shared memory at "
+                         f"cells {cells}, over the 227 KB of an SM")
+    C8 = cm.shape[0]
+    own = torch.empty_like(cm)
+    # A' adds its per-offset j sides into zeroed arrays; A'' writes its 4
+    # column accumulators whole
+    part = (torch.empty if column else torch.zeros)(
+        (4 if column else 13, C8, 6), dtype=f, device=cm.device)
+    out = torch.empty_like(cm)
+    fn = _build.function(("rs_column_" if column else "rs_half_")
+                         + _build.suffix(f), 7, 7, 3)
+    _build.check(fn(cm.data_ptr(), tabs.data_ptr(), box.data_ptr(),
+                    own.data_ptr(), part.data_ptr(), out.data_ptr(),
+                    _build.stream_ptr(cm), nc1, nc2, nc3, ccap, T, n_tab,
+                    int(bool(has_sapt)), float(rcut) ** 2, float(alpha),
+                    CONV_E2A_KJMOL), name)
+    _build.launches[name] += 1
+    return out
+
+
+def pair_rows(cm, tabs, cells, box, rcut, alpha, has_sapt, impl="full"):
+    """Per-slot [dE_el/dx (3), dE_vdw/dx (3), e_el, e_vdw]: for a CUDA
+    tensor the kernel of `impl` (A "full", A' "half", A'' "column"), for
+    a CPU tensor the plain sweep (whose rows split each pair energy in
+    two, as A's do; the sums agree)."""
+    if not cm.is_cuda:
+        return pair_rows_plain(cm, tabs, cells, torch.diagonal(box), rcut,
+                               alpha, has_sapt)
+    box = box.contiguous()
+    if impl == "full":
+        return pair_rows_cuda(cm, tabs, cells, box, rcut, alpha, has_sapt)
+    return pair_rows_half_cuda(cm, tabs, cells, box, rcut, alpha, has_sapt,
+                               column=impl == "column")
 
 
 class RealspaceInterCells(torch.autograd.Function):
@@ -226,7 +290,8 @@ class RealspaceInterCells(torch.autograd.Function):
                 has_sapt):
         slot, overflow = bin_atoms(x, box, cells, rcut)
         cm = pack_cells(x, charge, atype, mol, slot, cells)
-        f = pair_rows(cm, tabs, cells, box, rcut, alpha, has_sapt)
+        f = pair_rows(cm, tabs, cells, box, rcut, alpha, has_sapt,
+                      _impl_for(cells))
         g = torch.cat([f, torch.zeros_like(f[:1])])[slot]
         ctx.save_for_backward(g[:, 0:3], g[:, 3:6])
         ctx.mark_non_differentiable(overflow)

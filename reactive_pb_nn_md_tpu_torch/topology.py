@@ -20,10 +20,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from reactive_pb_nn_md_tpu.io.gro import GroFrame
-from reactive_pb_nn_md_tpu.io.ffpmt import RawForceField, compile_vdw_tables
-from reactive_pb_nn_md_tpu.io.topfile import TopologyFileRaw
-from reactive_pb_nn_md_tpu.io.simpmt import SimConfig
+from .io.gro import GroFrame
+from .io.ffpmt import RawForceField, compile_vdw_tables
+from .io.topfile import TopologyFileRaw
+from .io.simpmt import SimConfig
+from .ops.kernels.pme_slab import suggest_pme_scap
 
 
 @dataclass
@@ -125,6 +126,7 @@ class System:
     ms_evb: bool = False
     has_sapt: bool = False
     rs_cells: tuple = ()                 # kernel A cell grid, () = half list
+    pme_scap: int = 0                    # PME slab capacity (kernels D), 0 = B
     evb_rep_rc_max: float = 0.0
 
     def replace(self, **kw):
@@ -561,14 +563,15 @@ def build_numpy_tree(gro: GroFrame, ff_raw: RawForceField,
         ms_evb=bool(cfg.ms_evb_simulation),
         has_sapt=bool((vdw_type == 1).any()),
         rs_cells=suggest_rs_cells(N, gro.box, cfg.real_space_cutoff),
+        pme_scap=suggest_pme_scap(N, int(cfg.pme_grid), gro.box),
         evb_rep_rc_max=rep_rc_max)
     return dict(ff=ff, mt=mt, evb=evb, system=system, topo=topo)
 
 
 def build_system(gro: GroFrame, ff_raw: RawForceField,
-                 top_raw: TopologyFileRaw, cfg: SimConfig, device="cpu"):
-    """Compile parsed inputs into (System, Topology) on `device`, in the
-    deck's precision."""
+                 top_raw: TopologyFileRaw, cfg: SimConfig, device="cuda"):
+    """Compile parsed inputs into (System, Topology) on `device` (the card
+    unless asked otherwise), in the deck's precision."""
     from .convert import from_numpy_tree
     from .utils.dtypes import float_dtype
     return from_numpy_tree(build_numpy_tree(gro, ff_raw, top_raw, cfg),

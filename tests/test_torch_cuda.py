@@ -16,8 +16,9 @@ import torch
 from torch_bridge import fixture_deck
 from reactive_pb_nn_md_tpu_torch.topology import build_system, State
 from reactive_pb_nn_md_tpu_torch.models import pme
+from reactive_pb_nn_md_tpu_torch.ops import neighbors
 from reactive_pb_nn_md_tpu_torch.ops.kernels import (
-    pme_spread, realspace_pair as rsp, recip_perstate)
+    pme_slab, pme_spread, realspace_pair as rsp, recip_perstate)
 from reactive_pb_nn_md_tpu_torch.md import integrators
 from reactive_pb_nn_md_tpu_torch.utils import pbc
 
@@ -57,6 +58,97 @@ def test_pair_kernel_matches_plain(tmp_path, ff):
         ref = rsp.pair_rows_plain(*args, torch.diagonal(box), **kw)
         torch.cuda.synchronize()
         _close(got, ref, rtol)
+
+
+@pytest.mark.parametrize("ff", ["lj", "sapt"])
+def test_half_and_column_kernels_match_plain(tmp_path, ff):
+    """A' and A'' against the plain sweep (their plain version) at the
+    function level: per-slot gradients and the energy sums (the half
+    kernels put a whole pair energy on one row)."""
+    _need_card()
+    frame, ffr, topr, cfg = fixture_deck(tmp_path, 63, seed=4, cutoff=3.0,
+                                         verlet_cutoff=4.0,
+                                         sapt=ff == "sapt")
+    tsys, topo = build_system(frame, ffr, topr, cfg, device="cuda")
+    for f, rtol, _ in DTYPES:
+        x = torch.tensor(frame.xyz, dtype=f, device="cuda")
+        box = torch.tensor(frame.box, dtype=f, device="cuda")
+        slot, over = rsp.bin_atoms(x, box, tsys.rs_cells, 3.0)
+        assert not bool(over)
+        cm = rsp.pack_cells(x, topo.charge.to(f), topo.atom_type,
+                            topo.atom_mol, slot, tsys.rs_cells)
+        tabs = rsp.build_tabs(tsys, f)
+        kw = dict(rcut=3.0, alpha=tsys.alpha_sqrt, has_sapt=tsys.has_sapt)
+        ref = rsp.pair_rows_plain(cm, tabs, tsys.rs_cells,
+                                  torch.diagonal(box), **kw)
+        for column in (False, True):
+            got = rsp.pair_rows_half_cuda(cm, tabs, tsys.rs_cells, box,
+                                          column=column, **kw)
+            torch.cuda.synchronize()
+            _close(got[:, :6], ref[:, :6], rtol)
+            _close(got[:, 6:].sum(0), ref[:, 6:].sum(0), rtol)
+
+
+def test_slab_kernels_match_plain():
+    _need_card()
+    rng = np.random.default_rng(3)
+    n, K, order, L = 3000, 32, 6, 31.0
+    x0, q0 = rng.uniform(0, L, (n, 3)), rng.uniform(-1, 1, n)
+    gQ0 = rng.standard_normal(K ** 3)
+    scap = pme_slab.suggest_slab_cap(n, K)
+    for f, rtol, grtol in DTYPES:
+        x = torch.tensor(x0, dtype=f, device="cuda")
+        q = torch.tensor(q0, dtype=f, device="cuda")
+        box = torch.eye(3, dtype=f, device="cuda") * L
+        w, dw, nearpt = pme_spread.spline_setup(x, box, K, order)
+        slot, rows, over = pme_slab.slab_bins(nearpt, K, order, scap)
+        assert not bool(over)
+        _close(pme_slab.spread_slab_cuda(w, nearpt, q, rows, K, scap),
+               pme_slab.spread_slab_plain(w, nearpt, q, rows, K), rtol)
+        gQ = torch.tensor(gQ0, dtype=f, device="cuda")
+        _close(pme_slab.interp_slab_cuda(gQ, w, dw, nearpt, rows, K, scap),
+               pme_slab.interp_slab_plain(gQ, w, dw, nearpt, rows, K), grtol)
+        # D1 is deterministic: two launches agree bit for bit
+        assert torch.equal(pme_slab.spread_slab_cuda(w, nearpt, q, rows, K,
+                                                     scap),
+                           pme_slab.spread_slab_cuda(w, nearpt, q, rows, K,
+                                                     scap))
+
+
+def test_scale_path_forces_cuda_match_cpu(tmp_path):
+    """The scale path (cell list with on-demand rows, domain repulsion,
+    A'' and the slab spread) forced on a 63-water deck: CUDA kernels
+    against the CPU plain versions."""
+    _need_card()
+    frame, ffr, topr, cfg = fixture_deck(
+        tmp_path, 63, seed=3, cutoff=3.1, verlet_cutoff=4.1, pme_grid=12,
+        extra="evb_max_states 32\n")
+    out = {}
+    try:
+        rsp.set_stencil_impl("column")
+        for dev in ("cuda", "cpu"):
+            tsys, topo = build_system(frame, ffr, topr, cfg, device=dev)
+            tsys = tsys.replace(pme_scap=pme_slab.suggest_slab_cap(
+                tsys.n_atoms, tsys.pme_grid))
+            box = torch.tensor(frame.box, device=dev)
+            cells = neighbors.suggest_cells(tsys.n_atoms, frame.box,
+                                            tsys.verlet_cutoff, min_atoms=1)
+            ms = integrators.initial_md_state(
+                State(x=torch.tensor(frame.xyz, device=dev),
+                      v=torch.zeros((tsys.n_atoms, 3), dtype=torch.float64,
+                                    device=dev), box=box),
+                topo, tsys, pme.cb_half(box, tsys.pme_grid,
+                                        tsys.spline_order, tsys.alpha_sqrt),
+                tsys.n_atoms - 1, cells=cells)
+            assert not ms.overflow and ms.nlist.celltab is not None
+            out[dev] = ms
+    finally:
+        rsp.set_stencil_impl("auto")
+    g, c = out["cuda"], out["cpu"]
+    assert int(g.n_states) == int(c.n_states)
+    np.testing.assert_allclose(float(g.potential), float(c.potential),
+                               rtol=1e-10)
+    _close(g.force, c.force, 1e-9)
 
 
 def test_spread_and_gather_kernels_match_plain():

@@ -30,8 +30,8 @@ EQ = ROOT / "benchdata" / "eq_flagship_s80.npz"
 def flagship_evb():
     frame, ffr, topr, cfg = example_deck(ROOT)
     jsys, _ = jax_build(frame, ffr, topr, cfg)
-    tsys, _ = build_system(frame, ffr, topr, cfg)
-    state, ttopo, meta = load_equilibrated_npz(EQ)
+    tsys, _ = build_system(frame, ffr, topr, cfg, device="cpu")
+    state, ttopo, meta = load_equilibrated_npz(EQ, "cpu")
     data = np.load(EQ)
     jtopo = JTopology(*[jnp.asarray(data[f"l{i}"]).astype(
         jnp.float64 if i == 11 else jnp.int32) for i in range(5, 13)])

@@ -31,7 +31,8 @@ def _port_recip(x, q, box, K, order, alpha):
     qt = torch.tensor(q, requires_grad=True)
     bt = torch.tensor(box)
     cbw = pme.cb_half(bt, K, order, alpha)
-    Q = pme.charge_grid(xt, qt, bt, K, order)
+    Q, over = pme.charge_grid(xt, qt, bt, K, order)
+    assert not bool(over)
     e = pme.recip_energy(Q, cbw)
     gx, gq = torch.autograd.grad(e, (xt, qt))
     return Q.detach().numpy(), float(e.detach()), gx.numpy(), gq.numpy()

@@ -27,7 +27,7 @@ def _setup(tmp_path, ff):
                                          verlet_cutoff=4.0,
                                          sapt=ff == "sapt")
     jsys, jtopo = jax_build(frame, ffr, topr, cfg)
-    tsys, ttopo = build_system(frame, ffr, topr, cfg)
+    tsys, ttopo = build_system(frame, ffr, topr, cfg, device="cpu")
     assert tsys.rs_cells and tsys.has_sapt == (ff == "sapt")
     return frame, jsys, jtopo, tsys, ttopo
 
@@ -90,6 +90,46 @@ def test_cell_sweep_matches_pallas_interpret(tmp_path, ff):
     np.testing.assert_allclose(got[2], ref[2], rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("impl", ["half", "column"])
+def test_cell_sweep_matches_pallas_half_and_column(tmp_path, impl):
+    """Kernels A' and A'' compute kernel A's function, so the plain cell
+    sweep is their plain version: it is held against the JAX package's
+    half-stencil and column-walk kernels in interpret mode, at the
+    function level (e_el, e_vdw, per-atom gradient) -- the half paths put
+    a whole pair's energy on one row.  Tolerances as
+    test_cell_sweep_matches_pallas_interpret (the TPU erfc)."""
+    frame, jsys, jtopo, tsys, ttopo = _setup(tmp_path, "lj")
+    x, box = frame.xyz, frame.box
+    jbox = jnp.asarray(box)
+    f = jnp.float64
+    tabs = jax_rsp._build_tabs(jsys, f)
+    consts = (float(jsys.real_space_cutoff), float(jsys.alpha_sqrt),
+              bool(jsys.has_sapt), int(jsys.ff.vdw_type.shape[0]))
+    try:
+        jax_rsp.set_stencil_impl(impl)
+        rsp.set_stencil_impl(impl)
+        assert rsp._impl_for(tsys.rs_cells) == impl
+        ref = _jax(lambda xx: jax_rsp.realspace_inter_cells(
+            xx, jtopo.charge.astype(f), jtopo.atom_type.astype(f),
+            jtopo.atom_mol.astype(f), jbox, tabs, jsys.rs_cells, consts), x)
+        got = _port(tsys, ttopo, x, box)
+    finally:
+        jax_rsp.set_stencil_impl("auto")
+        rsp.set_stencil_impl("auto")
+    np.testing.assert_allclose(got[0], ref[0], rtol=1e-6, atol=5e-3)
+    np.testing.assert_allclose(got[1], ref[1], rtol=1e-9)
+    np.testing.assert_allclose(got[2], ref[2], rtol=1e-5, atol=1e-4)
+
+
+def test_stencil_selection_follows_jax():
+    for cells in ((4, 4, 4, 24), (5, 5, 8, 16), (10, 10, 10, 24)):
+        assert rsp._impl_for(cells) == jax_rsp._impl_for(cells)
+    assert rsp._impl_for((10, 10, 10, 24)) == "column"
+    assert rsp.KERNEL_OF == {"full": "A", "half": "A'", "column": "A''"}
+    with pytest.raises(ValueError):
+        rsp.set_stencil_impl("quarter")
+
+
 def test_bin_atoms_overflow(tmp_path):
     frame, _, _, tsys, _ = _setup(tmp_path, "lj")
     x = torch.tensor(frame.xyz)
@@ -110,22 +150,24 @@ def test_bin_atoms_overflow(tmp_path):
 
 def test_cell_overflow_reaches_the_step_flags(tmp_path):
     """The forward's own binning reports the overflow, and the step's flag
-    sync raises on it."""
+    sync names it (the simulation loop then regrows); an EVB state-cap
+    overflow raises."""
     frame, _, _, tsys, ttopo = _setup(tmp_path, "lj")
     box = torch.tensor(frame.box)
     flags = []
+    no = torch.zeros((), dtype=torch.bool)
     for x in (torch.tensor(frame.xyz),
               torch.zeros((tsys.n_atoms, 3), dtype=torch.float64) + 0.1):
         *_, over = total.realspace_inter(x, box, ttopo, tsys, None)
         flags.append(bool(over))
-        no = torch.zeros((), dtype=torch.bool)
-        fe = SimpleNamespace(breakdown=SimpleNamespace(rs_overflow=over),
-                             evb_overflow=no, force=torch.zeros_like(x))
-        args = (SimpleNamespace(overflow=no), fe, no)
-        if bool(over):
-            with pytest.raises(integrators.CapacityOverflow,
-                               match="kernel A cell capacity"):
-                integrators._sync_flags(*args)
-        else:
-            assert integrators._sync_flags(*args) == (False, False)
+        fe = SimpleNamespace(breakdown=SimpleNamespace(rs_overflow=over,
+                                                       slab_overflow=no),
+                             evb_overflow=no, row_overflow=no,
+                             force=torch.zeros_like(x))
+        got = integrators._sync_flags(SimpleNamespace(overflow=no), fe, no)
+        assert got == ((("kernel A cell capacity",) if bool(over) else ()),
+                       False, False)
     assert flags == [False, True]
+    fe.evb_overflow = torch.ones((), dtype=torch.bool)
+    with pytest.raises(integrators.CapacityOverflow, match="EVB state cap"):
+        integrators._sync_flags(SimpleNamespace(overflow=no), fe, no)

@@ -44,7 +44,7 @@ def slice_runs(tmp_path_factory):
     frame, ffr, topr, cfg = fixture_deck(tmp, 8, seed=1, pme_grid=12,
                                          extra="evb_max_states 16\n")
     jsys, jtopo = jax_build(frame, ffr, topr, cfg)
-    tsys, ttopo = build_system(frame, ffr, topr, cfg)
+    tsys, ttopo = build_system(frame, ffr, topr, cfg, device="cpu")
     mass = np.asarray(jsys.mass)
     rng = np.random.default_rng(7)
     v0 = rng.standard_normal((jsys.n_atoms, 3)) \
@@ -186,7 +186,7 @@ def test_cli_refuses_cuda_without_a_card(tmp_path):
 def test_sample_velocities_exact_temperature(tmp_path):
     from reactive_pb_nn_md_tpu_torch.md import velocities
     frame, ffr, topr, cfg = fixture_deck(tmp_path, 8, seed=1)
-    tsys, ttopo = build_system(frame, ffr, topr, cfg)
+    tsys, ttopo = build_system(frame, ffr, topr, cfg, device="cpu")
     mobile = velocities.freeze_mask(tsys, ttopo)
     gen = torch.Generator().manual_seed(3)
     v = velocities.sample_velocities(gen, tsys.mass, 300.0, mobile)

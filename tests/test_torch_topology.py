@@ -41,8 +41,8 @@ def test_build_system_matches_jax(tmp_path, deck):
         frame, ffr, topr, cfg = fixture_deck(
             tmp_path, 26, seed=0, h3o_reordered=deck.endswith("reordered"))
     jsys, jtopo = jax_build(frame, ffr, topr, cfg)
-    ref_sys, ref_topo = from_numpy_tree(jax_tree(jsys, jtopo))
-    sys_, topo = build_system(frame, ffr, topr, cfg)
+    ref_sys, ref_topo = from_numpy_tree(jax_tree(jsys, jtopo), "cpu")
+    sys_, topo = build_system(frame, ffr, topr, cfg, device="cpu")
     _assert_same(sys_, ref_sys)
     _assert_same(topo, ref_topo, "topo")
     assert sys_.rs_cells == tuple(jsys.rs_cells)
@@ -52,7 +52,7 @@ def test_build_system_matches_jax(tmp_path, deck):
 def test_precision_key_picks_dtype(tmp_path):
     frame, ffr, topr, cfg = fixture_deck(tmp_path, 8)
     cfg.precision = "fp32"
-    sys_, topo = build_system(frame, ffr, topr, cfg)
+    sys_, topo = build_system(frame, ffr, topr, cfg, device="cpu")
     assert sys_.mass.dtype == torch.float32
     assert topo.charge.dtype == torch.float32
     assert topo.atom_type.dtype == torch.int64
@@ -67,7 +67,7 @@ def test_load_deck_matches_build_system():
     frame_r, ffr, topr, cfg_r = example_deck(ROOT)
     np.testing.assert_array_equal(frame.xyz, frame_r.xyz)
     cfg_r.precision = "fp32"
-    ref_sys, ref_topo = build_system(frame_r, ffr, topr, cfg_r)
+    ref_sys, ref_topo = build_system(frame_r, ffr, topr, cfg_r, device="cpu")
     _assert_same(sys_, ref_sys)
     _assert_same(topo, ref_topo, "topo")
     assert sys_.mass.dtype == torch.float32
@@ -75,7 +75,7 @@ def test_load_deck_matches_build_system():
 
 def test_load_equilibrated_npz():
     path = ROOT / "benchdata" / "eq_flagship_s80.npz"
-    state, topo, meta = load_equilibrated_npz(path)
+    state, topo, meta = load_equilibrated_npz(path, "cpu")
     data = np.load(path)
     np.testing.assert_array_equal(state.x.numpy(),
                                   data["l0"].astype(np.float64))

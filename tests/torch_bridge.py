@@ -5,12 +5,18 @@ containers flattened to numpy so the port never imports jax."""
 import dataclasses
 
 import numpy as np
+import torch
 
 from fixtures import make_water_box, write_fixture_files
 from reactive_pb_nn_md_tpu.io.ffpmt import read_ffpmt
 from reactive_pb_nn_md_tpu.io.gro import read_gro
 from reactive_pb_nn_md_tpu.io.simpmt import read_sim_params
 from reactive_pb_nn_md_tpu.io.topfile import read_top
+
+# The suite runs under pytest-xdist, several workers on shared cores: one
+# intra-op thread per worker process keeps torch's small CPU ops from
+# oversubscribing the cores (tens of times slower when they do).
+torch.set_num_threads(1)
 
 
 # synthetic SAPT water force field (the one tests/test_pallas_realspace.py

@@ -1,10 +1,15 @@
 #!/usr/bin/env python3
-"""Profile the port's eager NVE step on the flagship equilibrated box
-(benchdata/eq_flagship_s80.npz with examples/water_msevb/), on one card:
+"""Profile the port's eager NVE step on one card:
 
-    python3 tools/profile_step.py [--out chiprun_out]
+    python3 tools/profile_step.py [--deck flagship|10k] [--out DIR]
 
-For fp64 and fp32, from the same equilibrated state:
+--deck flagship (default): the equilibrated flagship box
+(benchdata/eq_flagship_s80.npz with examples/water_msevb/); --deck 10k:
+the 10,000-atom lattice of examples/water_10k/ with the CLI's seeded
+velocities, stepped through the simulation loop (a capacity that does
+not hold is regrown and the step redone, as in a run).
+
+For fp64 and fp32, from the same starting state:
   1. wall ms per step over TIMED unprofiled steps after WARM ones
      (perf_counter between CUDA synchronisations);
   2. torch.profiler (CPU and CUDA activities) over PROFILED further steps:
@@ -63,11 +68,10 @@ def _instrument():
     torch.autograd.grad = ranged(torch.autograd.grad, "P:backward")
 
 
-def _run(ms, system, cbw, dt, n, trace=None):
-    """n steps; appends (Etot, n_states) of each step to `trace`."""
-    from reactive_pb_nn_md_tpu_torch.md import integrators
+def _run(step, ms, n, trace=None):
+    """n steps of step(ms); appends (Etot, n_states) of each to `trace`."""
     for _ in range(n):
-        ms = integrators.md_step(ms, system, cbw, dt)
+        ms = step(ms)
         if trace is not None:
             trace.append((float(ms.kinetic + ms.potential),
                           int(ms.n_states)))
@@ -79,26 +83,67 @@ def _first(flags):
     return next((i for i, f in enumerate(flags) if f), -1)
 
 
-def profile_one(dtype, out_dir):
+def _flagship_stepper(dtype):
+    """(step, first MDState, regrow lines) on the equilibrated flagship
+    state."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from chip_smoke import flagship
     from reactive_pb_nn_md_tpu_torch.md import integrators
     system, state, topo, meta, cbw, cfg = flagship(torch.device("cuda"),
                                                    dtype)
     ms0 = integrators.initial_md_state(state, topo, system, cbw,
-                                       meta["capacity"], meta["react_cap"])
-    dt = cfg.delta_t
-    ms = _run(ms0, system, cbw, dt, WARM)
+                                       meta["capacity"],
+                                       react_cap=meta["react_cap"])
+
+    def step(ms):
+        ms = integrators.md_step(ms, system, cbw, cfg.delta_t)
+        if ms.overflow:
+            raise integrators.CapacityOverflow(", ".join(ms.overflow))
+        return ms
+    return step, ms0, []
+
+
+def _lattice_stepper(dtype, out_dir):
+    """(step, first MDState, regrow lines) of the simulation loop on
+    water_10k."""
+    import shutil
+    import torch
+    from chip_smoke import DECK_10K
+    from reactive_pb_nn_md_tpu_torch.md.simulation import Simulation
+    tag = "fp64" if dtype == torch.float64 else "fp32"
+    d = out_dir / f"deck_10k_{tag}"
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(DECK_10K, d)
+    sim = d / "sim.pmt"
+    sim.write_text(sim.read_text().replace("precision          fp32",
+                                           f"precision          {tag}"))
+    files = [str(d / n) for n in ("in.gro", "ff.pmt", "top.top", "sim.pmt",
+                                  "traj.gro", "run.log", "hops.log",
+                                  "A.log")]
+    sim = Simulation(*files, device="cuda")
+
+    def step(ms):
+        sim.ms = ms
+        sim._step(int(ms.state.step) + 1)
+        return sim.ms
+    return step, sim.ms, sim._log_lines
+
+
+def profile_one(dtype, out_dir, deck):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    step, ms0, regrows = (_flagship_stepper(dtype) if deck == "flagship"
+                          else _lattice_stepper(dtype, out_dir))
+    ms = _run(step, ms0, WARM)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ms = _run(ms, system, cbw, dt, TIMED)
+    ms = _run(step, ms, TIMED)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        ms = _run(ms, system, cbw, dt, PROFILED)
+        ms = _run(step, ms, PROFILED)
         torch.cuda.synchronize()
     n = PROFILED
     ka = prof.key_averages()
@@ -114,13 +159,13 @@ def profile_one(dtype, out_dir):
                 per_step=e.count / n)
            for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:15]]
     tag = "fp64" if dtype == torch.float64 else "fp32"
-    (out_dir / f"profile_{tag}.txt").write_text(
+    (out_dir / f"profile_{deck}_{tag}.txt").write_text(
         ka.table(sort_by="self_device_time_total", row_limit=60))
 
     runs = []
     for _ in range(2):
         trace = []
-        end = _run(ms0, system, cbw, dt, REPEAT, trace)
+        end = _run(step, ms0, REPEAT, trace)
         runs.append((trace, end.state.x))
     (ta, xa), (tb, xb) = runs
     e0 = float(ms0.kinetic + ms0.potential)
@@ -138,13 +183,15 @@ def profile_one(dtype, out_dir):
         repeat_abs_dEtot=de,
         repeat_first_step_n_states_differ=_first(
             a[1] != b[1] for a, b in zip(ta, tb)) + 1,
-        n_states_max=max(t[1] for t in ta))
+        n_states_max=max(t[1] for t in ta),
+        regrows=[ln.strip() for ln in regrows])
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default="chiprun_out",
-                   help="directory for profile.json and the tables")
+                   help="directory for profile_<deck>.json and the tables")
+    p.add_argument("--deck", default="flagship", choices=("flagship", "10k"))
     args = p.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -155,12 +202,13 @@ def main(argv=None):
     _instrument()
     out_dir = pathlib.Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
-    res = dict(card=nvidia_smi(), steps=dict(warm=WARM, timed=TIMED,
+    res = dict(card=nvidia_smi(), deck=args.deck,
+               steps=dict(warm=WARM, timed=TIMED,
                                              profiled=PROFILED,
                                              repeat=REPEAT))
     for dtype in (torch.float64, torch.float32):
         tag = "fp64" if dtype == torch.float64 else "fp32"
-        r = res[tag] = profile_one(dtype, out_dir)
+        r = res[tag] = profile_one(dtype, out_dir, args.deck)
         print(f"{tag}: wall {r['wall_ms_per_step']:.2f} ms/step "
               f"({r['steps_per_s']:.2f} steps/s), device "
               f"{r['device_ms_per_step']:.2f} ms/step, busy "
@@ -171,13 +219,16 @@ def main(argv=None):
               f"k steps {r['repeat_max_abs_dEtot_within']}; n_states first "
               f"differ at step {r['repeat_first_step_n_states_differ']} "
               f"(0: never); max n_states {r['n_states_max']}", flush=True)
+        for ln in r["regrows"]:
+            print("  " + ln)
         for name, ph in sorted(r["phases"].items()):
             print(f"  {name:32s} host {ph['host_ms']:8.2f} ms  device "
                   f"{ph['device_ms']:7.3f} ms")
         for t in r["top_device_ops"][:10]:
             print(f"  {t['op']:60s} {t['device_ms']:.4f} ms x"
                   f"{t['per_step']:.1f}")
-    (out_dir / "profile.json").write_text(json.dumps(res, indent=1))
+    (out_dir / f"profile_{args.deck}.json").write_text(
+        json.dumps(res, indent=1))
     print(res["card"])
     return 0
 
