@@ -9,8 +9,8 @@ Phases, in order, one line each (any failure raises, exit code != 0):
   2. build: every kernel under reactive_pb_nn_md_tpu_torch/csrc/ with nvcc
      (one nvcc per source, all at once);
   3. kernels against their plain PyTorch versions, in fp64 and fp32, with
-     CUDA-event times: A, B1, B2, C1, C2 at the flagship shapes (the
-     649-atom equilibrated state, K = 32, order 6, S = 48 and 80,
+     CUDA-event times (cuda_ms): A, B1, B2, C1, C2 at the flagship shapes
+     (the 649-atom equilibrated state, K = 32, order 6, S = 48 and 80,
      U = 4 S); A, A', A'', B1, B2, D1, D2, C1, C2 at the 10,000-atom
      shapes (the lattice of examples/water_10k/, cells (10, 10, 10, 24),
      K = 64, scap 280, S = 32), A' under set_stencil_impl("half"), B
@@ -130,19 +130,29 @@ def close(got, ref, rtol, atol=0.0, scale_atol=0.0):
 
 
 def cuda_ms(fn, reps=25):
-    """Median milliseconds of fn() over `reps` runs, by CUDA events."""
+    """Milliseconds of one fn() call by CUDA events: the median of `reps`
+    samples, each a run of n back-to-back calls over n (n from a first
+    timed call: a sample spans about 2 ms, n at most 20), so that the
+    wrapper's host work overlaps the card's and is not counted while the
+    card idles."""
     import torch
     fn()
     torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    fn()
+    t1.record()
+    torch.cuda.synchronize()
+    n = max(1, min(20, int(2.0 / max(t0.elapsed_time(t1), 1e-3))))
     times = []
     for _ in range(reps):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
-        fn()
+        for _ in range(n):
+            fn()
         t1.record()
         torch.cuda.synchronize()
-        times.append(t0.elapsed_time(t1))
+        times.append(t0.elapsed_time(t1) / n)
     times.sort()
     return times[len(times) // 2]
 
@@ -304,26 +314,38 @@ def perstate_kernels(out, tag, x, box, topo, system, cbw, S, rng, key):
         lv = [t.clone().requires_grad_(i < 7) for i, t in enumerate(ins)]
         torch.autograd.grad((rp.perstate_plain(*lv) * gbar).sum(), lv[:7])
 
-    # the one PyTorch call of the plain formulation: the complex W @ BC
-    # (C1) and dG @ BC^H (C2)
+    # the library yardsticks, complex torch.matmul of the plain
+    # formulation: W @ BC (C1); G = W @ BC, dG @ BC^H and W^H @ dG, C2's
+    # three products, in one closure (C2)
     W = (dq[:, None, :] * torch.complex(ins[1], ins[2])[None]).reshape(
         S * K, U)
     BC = torch.complex(BCr, BCi)
     dG = torch.complex(torch.randn(S * K, Mh, dtype=dtype, device=dev),
                        torch.randn(S * K, Mh, dtype=dtype, device=dev))
+
+    def c2_library():
+        torch.matmul(W, BC)
+        torch.matmul(dG, BC.mH)
+        torch.matmul(W.mH, dG)
+
     gemm = 8.0 * S * K * U * Mh
     c1_plain = cuda_ms(lambda: rp.perstate_plain(*ins))
     record(out, "C1" + key, err[:2], err[2],
            lambda: rp.perstate_fwd_cuda(*ins), c1_plain,
            nbytes(*ins) + S * dq.element_size(), gemm, tag,
            lib=lambda: torch.matmul(W, BC), gemm=True)
+    # C2 folds every cross-block sum in a fixed order: a second call
+    # must give the same bits
+    same = all(torch.equal(a, b) for a, b in zip(
+        g_k, rp.perstate_bwd_cuda(gbar, *ins)))
+    check(same, f"C2{key} ({tag}) differs between two calls")
     record(out, "C2" + key, (max(e for e, _, _ in errs),
                              max(r for _, r, _ in errs)),
            all(o for _, _, o in errs),
            lambda: rp.perstate_bwd_cuda(gbar, *ins),
            cuda_ms(plain_fb) - c1_plain,
            nbytes(gbar, *ins) + nbytes(*ins[:7]), 3 * gemm, tag,
-           lib=lambda: torch.matmul(dG, BC.mH), gemm=True)
+           lib=c2_library, gemm=True)
 
 
 def spread_kernels(out, tag, x, box, topo, K, order, rng, key):

@@ -16,6 +16,8 @@ and the plain ``W @ BC`` formulation (models/pme.py:294-305 of the JAX
 package) for CPU tensors, whose gradient autograd takes.
 """
 
+import functools
+
 import torch
 
 from . import _build
@@ -45,20 +47,28 @@ def _check(dq, ar, ai, bcr, bci, f0r, f0i, cbw):
     return S, U, K, Mh
 
 
+@functools.lru_cache(maxsize=None)
+def _layout(f64, S, U, K, Mh):
+    """(C1 scratch elements, C2 scratch elements, C1 column blocks)."""
+    scratch = _build.function("perstate_scratch", 0, 6)
+    cols = _build.function("perstate_tile_cols", 0, 1)
+    return (scratch(f64, 0, S, U, K, Mh), scratch(f64, 1, S, U, K, Mh),
+            -(-Mh // cols(f64)))
+
+
 def perstate_fwd_cuda(dq, ar, ai, bcr, bci, f0r, f0i, cbw):
     """Kernel C1: (S,) energies."""
     S, U, K, Mh = _check(dq, ar, ai, bcr, bci, f0r, f0i, cbw)
-    lib = _build.library()
-    bm, bn = lib.perstate_tile(0), lib.perstate_tile(1)
-    nblk = -(-Mh // bn) * -(-K // bm)
-    partial = torch.empty((S, nblk), dtype=dq.dtype, device=dq.device)
-    fn = _build.function("perstate_fwd_" + _build.suffix(dq.dtype), 10, 4)
-    _build.check(fn(dq.data_ptr(), ar.data_ptr(), ai.data_ptr(),
-                    bcr.data_ptr(), bci.data_ptr(), f0r.data_ptr(),
-                    f0i.data_ptr(), cbw.data_ptr(), partial.data_ptr(),
-                    _build.stream_ptr(dq), S, U, K, Mh), "C1")
+    f = dq.dtype
+    n_scratch, _, ncb = _layout(int(f == torch.float64), S, U, K, Mh)
+    partial = torch.empty((S, K * ncb), dtype=f, device=dq.device)
+    scratch = torch.empty(n_scratch, dtype=f, device=dq.device)
+    fn = _build.function("perstate_fwd_" + _build.suffix(f), 11, 4)
+    _build.check(fn(*[t.data_ptr() for t in (
+        dq, ar, ai, bcr, bci, f0r, f0i, cbw, partial, scratch)],
+        _build.stream_ptr(dq), S, U, K, Mh), "C1")
     _build.launches["C1"] += 1
-    return partial.sum(dim=1)
+    return partial.sum(dim=1)        # per-row partials, in a fixed order
 
 
 def perstate_bwd_cuda(gbar, dq, ar, ai, bcr, bci, f0r, f0i, cbw):
@@ -70,16 +80,14 @@ def perstate_bwd_cuda(gbar, dq, ar, ai, bcr, bci, f0r, f0i, cbw):
     def new(*shape):
         return torch.empty(shape, dtype=f, device=dq.device)
 
-    dgr, dgi = new(S, K, Mh), new(S, K, Mh)          # scratch
-    dwr, dwi = new(S, K, U), new(S, K, U)            # scratch
+    scratch = new(_layout(int(f == torch.float64), S, U, K, Mh)[1])
     ddq, dar, dai = new(S, U), new(K, U), new(K, U)
     dbcr, dbci = new(U, Mh), new(U, Mh)
     df0r, df0i = new(K, Mh), new(K, Mh)
-    fn = _build.function("perstate_bwd_" + _build.suffix(f), 21, 4)
+    fn = _build.function("perstate_bwd_" + _build.suffix(f), 18, 4)
     _build.check(fn(*[t.data_ptr() for t in (
-        gbar, dq, ar, ai, bcr, bci, f0r, f0i, cbw, dgr, dgi, dwr, dwi, ddq,
-        dar, dai, dbcr, dbci, df0r, df0i)], _build.stream_ptr(dq),
-        S, U, K, Mh), "C2")
+        gbar, dq, ar, ai, bcr, bci, f0r, f0i, cbw, scratch, ddq, dar, dai,
+        dbcr, dbci, df0r, df0i)], _build.stream_ptr(dq), S, U, K, Mh), "C2")
     _build.launches["C2"] += 1
     return ddq, dar, dai, dbcr, dbci, df0r, df0i
 

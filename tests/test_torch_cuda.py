@@ -171,19 +171,32 @@ def test_spread_and_gather_kernels_match_plain():
             _close(a, b, grtol)
 
 
-@pytest.mark.parametrize("S", [8, 48])
-def test_perstate_kernels_match_plain(S):
-    _need_card()
-    rng = np.random.default_rng(S)
-    U, K = 4 * S, 16
+def _perstate_inputs(S, U, K, f, seed=0):
+    rng = np.random.default_rng(seed)
     Mh = K * (K // 2 + 1)
     vals = [rng.standard_normal(s) for s in ((S, U), (K, U), (K, U), (U, Mh),
                                              (U, Mh), (K, Mh), (K, Mh))]
     vals.append(rng.uniform(0, 1, (K, Mh)))
-    gbar0 = rng.standard_normal(S)
+    ins = [torch.tensor(v, dtype=f, device="cuda") for v in vals]
+    return ins, torch.tensor(rng.standard_normal(S), dtype=f, device="cuda")
+
+
+# (S, U, K): ragged row, column and depth edges of the output tiles (U 13
+# and 321, Mh 84 = K 12), split depths that are not a multiple of their
+# chunk (dW: Mh 84 in 16- or 32-deep chunks at S = 1; dBC: 48 states in
+# chunks of 7 in fp64), the flagship's S = 48 / 80, the 10k shapes, and
+# rows that 16-byte copies cannot take (Mh 45 = K 9 in both types, Mh 66
+# = K 11 in fp32): element loads
+PERSTATE_SHAPES = [(1, 13, 12), (7, 28, 12), (7, 321, 32), (8, 32, 16),
+                   (48, 192, 32), (80, 320, 32), (80, 13, 64), (32, 128, 64),
+                   (5, 20, 9), (3, 12, 11)]
+
+
+@pytest.mark.parametrize("S,U,K", PERSTATE_SHAPES)
+def test_perstate_kernels_match_plain(S, U, K):
+    _need_card()
     for f, rtol, grtol in DTYPES:
-        ins = [torch.tensor(v, dtype=f, device="cuda") for v in vals]
-        gbar = torch.tensor(gbar0, dtype=f, device="cuda")
+        ins, gbar = _perstate_inputs(S, U, K, f, seed=S + U + K)
         _close(recip_perstate.perstate_fwd_cuda(*ins),
                recip_perstate.perstate_plain(*ins), rtol * 5)
         leaves = [t.clone().requires_grad_(i < 7) for i, t in enumerate(ins)]
@@ -192,6 +205,20 @@ def test_perstate_kernels_match_plain(S):
             leaves[:7])
         for a, b in zip(recip_perstate.perstate_bwd_cuda(gbar, *ins), ref):
             _close(a, b, grtol)
+
+
+@pytest.mark.parametrize("S,U,K", [(48, 192, 32), (32, 128, 64)])
+def test_perstate_kernels_are_deterministic(S, U, K):
+    """C1 and C2 (with both depth splits folding partials) give
+    bit-identical outputs on two calls: no atomics, fixed-order sums."""
+    _need_card()
+    for f, _, _ in DTYPES:
+        ins, gbar = _perstate_inputs(S, U, K, f)
+        assert torch.equal(recip_perstate.perstate_fwd_cuda(*ins),
+                           recip_perstate.perstate_fwd_cuda(*ins))
+        for a, b in zip(recip_perstate.perstate_bwd_cuda(gbar, *ins),
+                        recip_perstate.perstate_bwd_cuda(gbar, *ins)):
+            assert torch.equal(a, b)
 
 
 def test_force_evaluation_cuda_matches_cpu(tmp_path):

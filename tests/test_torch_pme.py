@@ -6,7 +6,11 @@ B: the port's charge grid (spread) and its backward (gather) against JAX
 C: the per-state reciprocal delta energies against JAX
    recip_delta_perstate (XLA formulation) in fp64, and the Pallas kernel
    in interpret mode in fp32 at the tolerances of
-   tests/test_recip_perstate.py; values and position gradients."""
+   tests/test_recip_perstate.py; values and position gradients; and the
+   seven cotangents of the plain backward (kernel C2's contract) against
+   the Pallas kernel's VJP in interpret mode."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -16,8 +20,10 @@ import torch
 
 from reactive_pb_nn_md_tpu.models import pme as jax_pme
 from reactive_pb_nn_md_tpu.ops.pallas.pme_spread import charge_grid_pallas
+from reactive_pb_nn_md_tpu.ops.pallas.recip_perstate import (
+    perstate_recip_energy)
 from reactive_pb_nn_md_tpu_torch.models import pme
-from reactive_pb_nn_md_tpu_torch.ops.kernels import pme_spread
+from reactive_pb_nn_md_tpu_torch.ops.kernels import pme_spread, recip_perstate
 
 
 def _random_system(n=40, L=12.0, seed=0):
@@ -169,3 +175,52 @@ def test_perstate_matches_jax_pallas_interpret_fp32():
     np.testing.assert_allclose(e, e_r, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(g, g_r, rtol=2e-4, atol=2e-4)
 
+
+
+_COTANGENTS = ("ddq", "dar", "dai", "dbcr", "dbci", "df0r", "df0i")
+
+
+@functools.lru_cache(maxsize=None)
+def _perstate_cotangents(S=8, U=13, K=12, seed=3):
+    """The seven cotangents of E . gbar from jax.vjp of the Pallas kernel
+    (interpret mode, fp32) and from autograd through the port's
+    perstate_plain, on the same numpy inputs (made as
+    tests/test_recip_perstate.py's _inputs makes them)."""
+    rng = np.random.default_rng(seed)
+    Mh = K * (K // 2 + 1)
+    Mp = -(-Mh // 128) * 128              # the Pallas kernel's lane padding
+    f = np.float32
+    dq = (rng.standard_normal((S, U)) * 0.3).astype(f)
+    ar, ai = (rng.standard_normal((K, U)).astype(f) for _ in range(2))
+    bcr, bci = (rng.standard_normal((U, Mh)).astype(f) for _ in range(2))
+    f0r, f0i = (rng.standard_normal((K, Mh)).astype(f) for _ in range(2))
+    cbw = rng.uniform(0, 1, (K, Mh)).astype(f)
+    gbar = rng.standard_normal(S).astype(f)
+    vals = (dq, ar, ai, bcr, bci, f0r, f0i, cbw)
+
+    def padl(a):
+        return np.pad(a, [(0, 0), (0, Mp - a.shape[1])])
+
+    jins = [jnp.asarray(padl(v) if i >= 3 else v) for i, v in enumerate(vals)]
+    _, vjp = jax.vjp(perstate_recip_energy, *jins)
+    ref = [np.asarray(c)[:, :Mh] if i >= 3 else np.asarray(c)
+           for i, c in enumerate(vjp(jnp.asarray(gbar))[:7])]
+    leaves = [torch.tensor(v, requires_grad=i < 7) for i, v in enumerate(vals)]
+    got = torch.autograd.grad(
+        (recip_perstate.perstate_plain(*leaves) * torch.tensor(gbar)).sum(),
+        leaves[:7])
+    return ref, [g.numpy() for g in got]
+
+
+@pytest.mark.parametrize("name", _COTANGENTS)
+def test_perstate_cotangents_match_jax_pallas_vjp(name):
+    """Each cotangent of kernel C2's contract (ddq, dA, dBC, dF0) from the
+    port's plain backward against the JAX Pallas kernel's custom VJP, S = 8,
+    U = 13, K = 12 (Mh = 84 of a 128-lane Mp).  Tolerance of
+    tests/test_recip_perstate.py::test_gradients_match_dense: the Pallas
+    kernel contracts in bf16x3 passes, the port in full fp32."""
+    ref, got = _perstate_cotangents()
+    i = _COTANGENTS.index(name)
+    assert got[i].shape == ref[i].shape
+    np.testing.assert_allclose(got[i], ref[i], rtol=2e-3,
+                               atol=2e-5 * np.abs(ref[i]).max(), err_msg=name)
