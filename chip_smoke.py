@@ -9,12 +9,14 @@ Phases, in order, one line each (any failure raises, exit code != 0):
   2. build: every kernel under reactive_pb_nn_md_tpu_torch/csrc/ with nvcc
      (one nvcc per source, all at once);
   3. kernels against their plain PyTorch versions, in fp64 and fp32, with
-     CUDA-event times (cuda_ms): A, B1, B2, C1, C2 at the flagship shapes
-     (the 649-atom equilibrated state, K = 32, order 6, S = 48 and 80,
-     U = 4 S); A, A', A'', B1, B2, D1, D2, C1, C2 at the 10,000-atom
-     shapes (the lattice of examples/water_10k/, cells (10, 10, 10, 24),
-     K = 64, scap 280, S = 32), A' under set_stencil_impl("half"), B
-     beside D on the same atoms;
+     CUDA-event times (cuda_ms) and device times (device_ms: the
+     profiler's device kernels of a call, summed): A, B1, B2, C1, C2 at
+     the flagship shapes (the 649-atom equilibrated state, K = 32, order
+     6, S = 48 and 80, U = 4 S); A, A', A'', B1, B2, D1, D2, C1, C2 at
+     the 10,000-atom shapes (the lattice of examples/water_10k/, cells
+     (10, 10, 10, 24), K = 64, scap 280, S = 32), A' under
+     set_stencil_impl("half"), B beside D on the same atoms; two calls
+     of A', A'' and C2 must agree bit for bit;
   4. full force evaluations in fp64, CUDA (kernels) against CPU (plain):
      the flagship and the 10k lattice;
   5. the main paths through the CLI, each with the launch counts set to 0
@@ -107,6 +109,10 @@ TOL32 = {"pair_e": dict(rtol=1e-6, atol=5e-3), "pair_g": dict(rtol=1e-5,
          "C1": dict(rtol=5e-5, scale_atol=5e-5)}
 
 
+def fmt(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
 def log(msg):
     print(msg, flush=True)
 
@@ -157,6 +163,24 @@ def cuda_ms(fn, reps=25):
     return times[len(times) // 2]
 
 
+def device_ms(fn, calls=5):
+    """Device milliseconds of one fn() call by torch.profiler: every
+    device kernel, copy and fill the profile holds over `calls` calls
+    after a warm-up, summed whatever its name, over `calls`; None if the
+    profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(max(getattr(e, "self_device_time_total", 0), 0)
+             for e in prof.key_averages())
+    return us / calls / 1e3 if us > 0 else None
+
+
 def nvidia_smi():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -193,10 +217,12 @@ def pairs_within(x, box, mol, rc):
 
 def record(out, name, err, ok, fn, plain, n_bytes, flops, tag, lib=None,
            gemm=False):
-    """One kernel's entry: error, kernel / plain / library ms, bound."""
+    """One kernel's entry: error, kernel / plain / library ms, the
+    kernel's device ms, bound."""
     b_ms, b_by = bound(n_bytes, flops, tag, gemm)
     out[name] = dict(max_abs_err=err[0], max_rel_err=err[1], ok=ok,
-                     ms=cuda_ms(fn), plain_ms=plain if isinstance(
+                     ms=cuda_ms(fn), device_ms=device_ms(fn),
+                     plain_ms=plain if isinstance(
                          plain, float) else cuda_ms(plain),
                      bound_ms=b_ms, bound_by=b_by,
                      library_ms=None if lib is None else cuda_ms(lib))
@@ -268,6 +294,11 @@ def pair_kernels(out, tag, system, x, box, topo, names):
                 e2, r2, ok2 = close(got[:, 6:].double().sum(0),
                                     ref[:, 6:].double().sum(0),
                                     **TOL32["pair_e"])
+            if impl != "full":
+                # A' and A'' fold their j sides in a fixed order: a second
+                # call must give the same bits
+                check(torch.equal(got, fn()),
+                      f"kernel {name} ({tag}) differs between two calls")
             record(out, name, (max(e1, e2), max(r1, r2)),
                    ok1 and ok2, fn, plain, nbytes(cm, tabs, box) + nbytes(cm),
                    FLOP_PAIR * n_pairs, tag)
@@ -442,18 +473,18 @@ def phase_kernels(results):
         perstate_kernels(out, tag, x, box, topo, system, cbw,
                          system.evb_max_states, rng, "@10k")
         torch.cuda.synchronize()
-        a, a1, a2 = out["A@10k"], out["A'"], out["A''"]
-        log(f"  {tag}: on the 10k lattice A {a['ms']:.4f} ms, A' "
-            f"{a1['ms']:.4f} ms, A'' {a2['ms']:.4f} ms; B1 "
-            f"{out['B1@10k']['ms']:.4f} ms, D1 {out['D1']['ms']:.4f} ms; B2 "
-            f"{out['B2@10k']['ms']:.4f} ms, D2 {out['D2']['ms']:.4f} ms")
+        ten = ("A@10k", "A'", "A''", "B1@10k", "D1", "B2@10k", "D2")
+        row = ", ".join(f"{k} {out[k]['ms']:.4f} / "
+                        f"{fmt(out[k]['device_ms'])}" for k in ten)
+        log(f"  {tag}: on the 10k lattice, cuda_ms / device_ms: {row}")
         for name, r in out.items():
             lib = ("" if r["library_ms"] is None
                    else f"  library {r['library_ms']:.4f} ms")
             log(f"  {tag} {name:7s} max_abs_err {r['max_abs_err']:.3e} "
                 f"max_rel_err {r['max_rel_err']:.3e} ok {r['ok']}  kernel "
-                f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
-                f"{r['bound_ms']:.4f} ms ({r['bound_by']}){lib}")
+                f"{r['ms']:.4f} ms  device {fmt(r['device_ms'])} ms  plain "
+                f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}){lib}")
             check(r["ok"], f"kernel {name} ({tag}) disagrees with its plain "
                            f"version: max abs error {r['max_abs_err']:.3e}")
 
@@ -678,15 +709,17 @@ def main():
         kernels.append(dict(
             name=k, route="cuda", source=src, replaces=rep,
             launches=launches[k], max_abs_err=m64["max_abs_err"],
-            ms=m64["ms"], plain_ms=m64["plain_ms"],
+            ms=m64["ms"], device_ms=m64["device_ms"],
+            plain_ms=m64["plain_ms"],
             bound_ms=m64["bound_ms"], bound_by=m64["bound_by"],
             library_ms=m64["library_ms"],
             shapes="water_10k" if k in AT_10K else "flagship",
             fp32_max_abs_err=m32["max_abs_err"], fp32_ms=m32["ms"],
+            fp32_device_ms=m32["device_ms"],
             fp32_plain_ms=m32["plain_ms"], fp32_bound_ms=m32["bound_ms"],
             fp32_library_ms=m32["library_ms"]))
-    extra = {f"{tag}_{k}": {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
-                                               "library_ms")}
+    extra = {f"{tag}_{k}": {f: r[f] for f in ("ms", "device_ms", "plain_ms",
+                                               "bound_ms", "library_ms")}
              for tag, res in measured.items() for k, r in res.items()
              if k not in KERNELS}
     log(f"  other shapes: {json.dumps(extra)}")

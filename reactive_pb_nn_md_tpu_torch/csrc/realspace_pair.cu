@@ -10,7 +10,7 @@
 // under the minimum image, so the mol >= 0 tests are load-bearing).
 // Output: per slot [dE_el/dx (3), dE_vdw/dx (3), e_el, e_vdw] -- analytic
 // gradients come out of the forward sweep, so the backward needs no
-// kernel.  All three share pair_eval (erfc-Ewald + LJ / SAPT
+// kernel.  All three share pair_math (erfc-Ewald + LJ / SAPT
 // Buckingham-Tang-Toennies), so they compute one function.
 //
 // A: one warp per i slot; the lanes stride over the 27*ccap stencil
@@ -21,26 +21,22 @@
 //
 // A' and A'' evaluate each unordered pair once: the self cell's strict
 // upper triangle plus the 13 lexicographically positive neighbor cells
-// (distinct for >= 3 cells an axis), which halves A's candidate math;
-// the whole pair energy goes to the i row.  The j-side force partials
-// need a reduction across i, which on the TPU is a column sum written to
-// per-offset outputs.  Here a block runs one tile (ccap i slots x ccap j
-// slots) at a time: one thread per pair stages the pair's force terms
-// and energies in shared memory, then one thread per (row, value) sums
-// the i side over j and one thread per (column, value) the j side over
-// i, both in ascending order.  Every sum has a fixed order: the result
-// is deterministic, with no atomics.
-//  A'  : one block per cell; the j-side of offset k lands in a per-offset
-//        array at the neighbor cell's slots (one writer per slot), and a
-//        fold pass adds the 13 arrays to the cells' own rows.
-//  A'' : one block per xy column walks the column's cells in z (the TPU
-//        design's 5 column loads / 4 column outputs): the self column's
-//        j-sides accumulate in the block's own rows, the other 12
-//        offsets' in 4 per-neighbor-column accumulators in shared memory,
-//        written once at the end and folded like A'.  z neighbors are
-//        taken mod nc3 directly, so there are no ghost cells to fold.
-//        100 blocks for the 10k box's (10, 10, 10) grid: fewer than the
-//        132 SMs, which is the design's cost here (see PERF.md).
+// (distinct for >= 3 cells an axis); the whole pair energy goes to the i
+// row.  On the TPU A'' walks one xy column of cells in z to reuse the
+// loaded stencil columns; on the H100 both run one routine,
+// rs_half_cell_kernel, with one block per cell (1000 blocks of 4 warps
+// at the 10k box's (10, 10, 10) grid, several resident per SM: the
+// column walk's reuse would serialise a block again, and the stencil
+// cells come from L2).  The work is latency-bound (tools/pair_phases.py
+// times its phases; PERF.md): ~58% of slots are empty and ~14% of the
+// real candidates lie inside the cutoff, so the block compacts the
+// occupied slots, runs the cheap test on every candidate and the pair
+// math (erfc, exp, divides) on the survivors alone, in full warps.
+// The j-side force partials need a reduction across i: ordered sums in
+// shared memory, and per-offset arrays with one writer per slot, folded
+// in order by a second launch.  Every sum has an order fixed by the
+// input: deterministic, no atomics.  Shared memory grows with ccap and
+// not with the grid (half_smem_t).
 // Bound as A, on half the candidate pairs.
 #include "common.cuh"
 
@@ -70,36 +66,37 @@ __device__ __forceinline__ PairConst<T> pair_const(
     return P;
 }
 
-// Pair physics of slot i (position, charge, type, molecule) with packed
-// slot pj.  False when the pair is not inter-molecular or outside the
-// cutoff; else d = xi - xj under the minimum image, the force factors
-// (dE/dxi = -s d) and the pair energies.
+// Minimum-image separation d = xi - xj (orthorhombic box) and |d|^2.
 template <typename T>
-__device__ __forceinline__ bool pair_eval(
-        const T* __restrict__ pj, T xi, T yi, T zi, T qi, int ti, T moli,
-        const PairConst<T>& P, T& dx, T& dy, T& dz, T& s_el, T& s_v,
-        T& e_el, T& e_v) {
-    const T molj = pj[5];
-    if (molj < (T)0 || molj == moli) return false;
-    dx = xi - pj[0];
-    dy = yi - pj[1];
-    dz = zi - pj[2];
+__device__ __forceinline__ T pair_r2(T xi, T yi, T zi, T xj, T yj, T zj,
+                                     const PairConst<T>& P, T& dx, T& dy,
+                                     T& dz) {
+    dx = xi - xj;
+    dy = yi - yj;
+    dz = zi - zj;
     dx -= P.Lx * t_rint(dx * ((T)1 / P.Lx));
     dy -= P.Ly * t_rint(dy * ((T)1 / P.Ly));
     dz -= P.Lz * t_rint(dz * ((T)1 / P.Lz));
-    const T r2 = dx * dx + dy * dy + dz * dz;
-    if (!(r2 < P.rcut2)) return false;
+    return dx * dx + dy * dy + dz * dz;
+}
+
+// The pair physics, the one definition all three kernels share: for an
+// inter-molecular pair at r2 < rcut2, the force factors (dE/dxi = -s d)
+// and the pair energies.
+template <typename T>
+__device__ __forceinline__ void pair_math(T r2, T qi, T qj, int ti, int tj,
+                                          const PairConst<T>& P, T& s_el,
+                                          T& s_v, T& e_el, T& e_v) {
     const T inv_r2 = (T)1 / r2;
     const T r = t_sqrt(r2);
     const T inv_r = (T)1 / r;
     // erfc-Ewald (pairwise_real_space_ewald)
-    const T qq = qi * pj[3] * P.conv;
+    const T qq = qi * qj * P.conv;
     const T ar = P.alpha * r;
     const T erfc_ar = t_erfc(ar);
     e_el = qq * erfc_ar * inv_r;
     s_el = qq * (erfc_ar * inv_r + P.two_a_pi * t_exp(-ar * ar)) * inv_r2;
     // vdW: LJ or SAPT Buckingham + Tang-Toennies
-    const int tj = (int)t_rint(pj[4]);
     const int p = ti * P.T_ + tj;
     const T* stab = P.stab;
     const int TT = P.TT;
@@ -138,6 +135,22 @@ __device__ __forceinline__ bool pair_eval(
             }
         }
     }
+}
+
+// Slot i (position, charge, type, molecule) against packed slot pj.
+// False when the pair is not inter-molecular or outside the cutoff; else
+// d = xi - xj under the minimum image and pair_math's terms.
+template <typename T>
+__device__ __forceinline__ bool pair_eval(
+        const T* __restrict__ pj, T xi, T yi, T zi, T qi, int ti, T moli,
+        const PairConst<T>& P, T& dx, T& dy, T& dz, T& s_el, T& s_v,
+        T& e_el, T& e_v) {
+    const T molj = pj[5];
+    if (molj < (T)0 || molj == moli) return false;
+    const T r2 = pair_r2(xi, yi, zi, pj[0], pj[1], pj[2], P, dx, dy, dz);
+    if (!(r2 < P.rcut2)) return false;
+    pair_math(r2, qi, pj[3], ti, (int)t_rint(pj[4]), P, s_el, s_v, e_el,
+              e_v);
     return true;
 }
 
@@ -214,150 +227,262 @@ __constant__ int HALF_OFF[14][3] = {
     {1, -1, -1}, {1, -1, 0}, {1, -1, 1}, {1, 0, -1}, {1, 0, 0},
     {1, 0, 1}, {1, 1, -1}, {1, 1, 0}, {1, 1, 1}};
 
-// pair results staged per tile chunk: PAIR_CAP pairs x 8 values
-#define PAIR_CAP 768
+#define HALF_THREADS 128            // 4 warps a block
+#define HALF_WARPS (HALF_THREADS / 32)
+#define PAIR_LIST 256               // pairs one flush evaluates
+static_assert(PAIR_LIST >= HALF_THREADS, "a filter pass must fit");
 
-// One tile of the half stencil: the ccap i slots of cell c against the
-// ccap j slots of cell nb (self tile: only i < j), in chunks of i rows
-// that fit PAIR_CAP pairs.  One thread per pair evaluates it and stages
-// [s_el d (3), s_v d (3), e_el, e_v] in pg (shared); then one thread per
-// (i row, value) sums its row over j in ascending order into irow[i*8 +
-// m] (forces negated, energies whole), and one thread per (j slot, value)
-// its column over i in ascending order into jout[j*jstride + m].  Fixed
-// orders: deterministic, no atomics.
+// Shared memory of rs_half_cell_kernel in bytes (the wrapper's
+// check_half_smem mirrors it).  With N = 14 ccap staged slots: T values
+// [tables | x, y, z, q (N each) | j-side sums (6 N) | pair terms (8
+// PAIR_LIST) | i-side sums (8 ccap)], then ints [mol, type, slot map (N
+// each) | pair list (PAIR_LIST) | run starts (ccap + 1) | counts, starts,
+// cell ids (3 x 16) | warp counts (2 HALF_WARPS)].  Nothing in it
+// depends on the grid's size.
 template <typename T>
-__device__ void half_tile(const T* __restrict__ cm, int c, int nb, bool self,
-                          int ccap, const PairConst<T>& P, T* irow, T* pg,
-                          T* jout, int jstride) {
-    const int ic_max = PAIR_CAP / ccap > 0 ? PAIR_CAP / ccap : 1;
-    for (int i0 = 0; i0 < ccap; i0 += ic_max) {
-        const int ic = ccap - i0 < ic_max ? ccap - i0 : ic_max;
-        for (int t = threadIdx.x; t < ic * ccap; t += blockDim.x) {
-            const int i = i0 + t / ccap, j = t % ccap;
-            const T* pi = cm + ((size_t)c * ccap + i) * 8;
-            T* g = pg + (size_t)t * 8;
-            T dx, dy, dz, s_el, s_v, ee, ev;
-            if (pi[5] >= (T)0 && (!self || i < j)
-                && pair_eval(cm + ((size_t)nb * ccap + j) * 8, pi[0], pi[1],
-                             pi[2], pi[3], (int)t_rint(pi[4]), pi[5], P, dx,
-                             dy, dz, s_el, s_v, ee, ev)) {
-                g[0] = s_el * dx; g[1] = s_el * dy; g[2] = s_el * dz;
-                g[3] = s_v * dx;  g[4] = s_v * dy;  g[5] = s_v * dz;
-                g[6] = ee;        g[7] = ev;
-            } else {
-                for (int m = 0; m < 8; ++m) g[m] = 0;
-            }
-        }
-        __syncthreads();
-        // rows, then columns (a self tile's columns are rows of irow too)
-        const int n_row = ic * 8, n_col = ccap * 6;
-        for (int t = threadIdx.x; t < n_row + (self ? 0 : n_col);
-             t += blockDim.x) {
-            if (t < n_row) {
-                const int i = t / 8, m = t % 8;
-                T sum = 0;
-                for (int j = 0; j < ccap; ++j) sum += pg[(i * ccap + j) * 8 + m];
-                irow[(i0 + i) * 8 + m] += m < 6 ? -sum : sum;
-            } else {
-                const int j = (t - n_row) / 6, m = (t - n_row) % 6;
-                T sum = 0;
-                for (int i = 0; i < ic; ++i) sum += pg[(i * ccap + j) * 8 + m];
-                jout[j * jstride + m] += sum;
-            }
-        }
-        if (self) {
-            __syncthreads();
-            for (int t = threadIdx.x; t < n_col; t += blockDim.x) {
-                const int j = t / 6, m = t % 6;
-                T sum = 0;
-                for (int i = 0; i < ic; ++i) sum += pg[(i * ccap + j) * 8 + m];
-                jout[j * jstride + m] += sum;
-            }
-        }
-        __syncthreads();
-    }
+static size_t half_smem_t(int n_tabv, int ccap) {
+    const size_t N = 14 * (size_t)ccap;
+    return ((size_t)n_tabv + 10 * N + 8 * PAIR_LIST + 8 * (size_t)ccap)
+               * sizeof(T)
+           + (3 * N + PAIR_LIST + ccap + 1 + 48 + 2 * HALF_WARPS)
+               * sizeof(int);
+}
+
+__device__ __forceinline__ int half_nb(int c1, int c2, int c3, int k,
+                                       int nc1, int nc2, int nc3) {
+    return (((c1 + HALF_OFF[k][0] + nc1) % nc1) * nc2
+            + (c2 + HALF_OFF[k][1] + nc2) % nc2) * nc3
+           + (c3 + HALF_OFF[k][2] + nc3) % nc3;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(256)
-rs_half_kernel(const T* __restrict__ cm, const T* __restrict__ tabs,
-               const T* __restrict__ box, T* __restrict__ own,
-               T* __restrict__ part, int nc1, int nc2, int nc3, int ccap,
-               int T_, int n_tab, int has_sapt, T rcut2, T alpha, T conv) {
-    extern __shared__ unsigned char smem_raw[];
-    const int n_tabv = n_tab * T_ * T_;
-    T* stab = reinterpret_cast<T*>(smem_raw);
-    T* irow = stab + n_tabv;                        // (ccap, 8)
-    T* pg = irow + ccap * 8;                        // (PAIR_CAP, 8)
-    load_tabs(tabs, stab, n_tabv);
-    for (int k = threadIdx.x; k < ccap * 8; k += blockDim.x) irow[k] = 0;
+struct HalfSmem {
+    T *sx, *sy, *sz, *sq, *jacc, *pv, *irow;
+    int *smol, *sty, *nmap, *lst, *seg, *cnt, *nstart, *nbid, *wcnt;
+};
+
+// first e in [lo, hi) with lst[e] >= key
+__device__ __forceinline__ int first_key_geq(const int* lst, int lo, int hi,
+                                           int key) {
+    while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (lst[mid] < key) lo = mid + 1; else hi = mid;
+    }
+    return lo;
+}
+
+// Evaluate the L listed pairs (keys t = i Nj + n, ascending) and add
+// them to the i-side rows and the j-side sums, both in list order:
+//  1. one thread per pair: pair_math's terms into pv (8 arrays of
+//     PAIR_LIST, so a warp reads consecutive words), and where each i's
+//     run of keys starts (binary search);
+//  2. warps 1..3, one per i: its run summed by lanes, then a shuffle
+//     tree, into irow[i] (forces negated, energies whole);
+//  3. warp 0 meanwhile: the runs in ascending i, each added to jacc by
+//     its lanes (the n of one run are distinct: no two lanes collide).
+// Every sum has an order fixed by the input alone: no atomics.
+template <typename T>
+__device__ void half_flush(const HalfSmem<T>& S, int L, int Nj,
+                           const PairConst<T>& P) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    for (int e = tid; e < L; e += HALF_THREADS) {
+        const int t = S.lst[e], i = t / Nj, n = t - i * Nj;
+        T dx, dy, dz, s_el, s_v, ee, ev;
+        const T r2 = pair_r2(S.sx[i], S.sy[i], S.sz[i], S.sx[n], S.sy[n],
+                             S.sz[n], P, dx, dy, dz);
+        pair_math(r2, S.sq[i], S.sq[n], S.sty[i], S.sty[n], P, s_el, s_v,
+                  ee, ev);
+        T* g = S.pv + e;
+        g[0] = s_el * dx;
+        g[PAIR_LIST] = s_el * dy;
+        g[2 * PAIR_LIST] = s_el * dz;
+        g[3 * PAIR_LIST] = s_v * dx;
+        g[4 * PAIR_LIST] = s_v * dy;
+        g[5 * PAIR_LIST] = s_v * dz;
+        g[6 * PAIR_LIST] = ee;
+        g[7 * PAIR_LIST] = ev;
+    }
+    const int i_lo = S.lst[0] / Nj, n_i = S.lst[L - 1] / Nj - i_lo + 1;
+    for (int q = tid; q <= n_i; q += HALF_THREADS)
+        S.seg[q] = first_key_geq(S.lst, 0, L, (i_lo + q) * Nj);
     __syncthreads();
-    const PairConst<T> P = pair_const(stab, box, T_, has_sapt, rcut2, alpha,
-                                      conv);
-    const int C8 = nc1 * nc2 * nc3 * ccap;
+    if (warp == 0) {
+        for (int q = 0; q < n_i; ++q) {
+            for (int e = S.seg[q] + lane; e < S.seg[q + 1]; e += 32) {
+                T* a = S.jacc + (S.lst[e] - (i_lo + q) * Nj) * 6;
+                for (int m = 0; m < 6; ++m) a[m] += S.pv[m * PAIR_LIST + e];
+            }
+            __syncwarp();
+        }
+    } else {
+        for (int q = warp - 1; q < n_i; q += HALF_WARPS - 1) {
+            T v[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+            for (int e = S.seg[q] + lane; e < S.seg[q + 1]; e += 32)
+                for (int m = 0; m < 8; ++m) v[m] += S.pv[m * PAIR_LIST + e];
+            for (int m = 0; m < 8; ++m) v[m] = warp_sum(v[m]);
+            if (lane == 0) {
+                T* r = S.irow + (i_lo + q) * 8;
+                for (int m = 0; m < 8; ++m) r[m] += m < 6 ? -v[m] : v[m];
+            }
+        }
+    }
+    __syncthreads();
+}
+
+// Kernels A' and A'' (one routine): one block per cell c over its half
+// stencil, the self cell's pairs i < j and the 13 positive neighbors.
+//  - stage: the occupied slots of the 14 cells, compacted in slot order
+//    (self cell first, so i = 0 .. n0-1 index both the i atoms and the
+//    self cell's j atoms), in shared memory, in two rounds of one
+//    independent load a slot (one warp a cell paid one L2 latency per
+//    cell and field);
+//  - filter: all threads walk the candidates (i, n), n > i, in key order
+//    t = i Nj + n; the cheap test (molecule ids, then r2 < rcut2 under
+//    the minimum image) keeps ~14% of them, and a warp ballot plus the
+//    warps' counts append the survivors to the pair list in key order;
+//  - whenever the list could overflow, and at the end, half_flush runs
+//    the pair math on the listed pairs alone, with full warps;
+//  - out: the cell's own rows (i side + the self cell's j sides) to
+//    `own`, and the j sides of offset k (1..13) to part[k - 1] at the
+//    neighbor's slots, 0 at an empty slot (each slot of part[k - 1] has
+//    this one writer); rs_fold_kernel adds the 13 in order.
+template <typename T>
+__global__ void __launch_bounds__(HALF_THREADS)
+rs_half_cell_kernel(const T* __restrict__ cm, const T* __restrict__ tabs,
+                    const T* __restrict__ box, T* __restrict__ own,
+                    T* __restrict__ part, int nc1, int nc2, int nc3,
+                    int ccap, int T_, int n_tab, int has_sapt, T rcut2,
+                    T alpha, T conv) {
+    extern __shared__ unsigned char smem_raw[];
+    const int n_tabv = n_tab * T_ * T_, N = 14 * ccap;
+    T* stab = reinterpret_cast<T*>(smem_raw);
+    HalfSmem<T> S;
+    S.sx = stab + n_tabv;
+    S.sy = S.sx + N;
+    S.sz = S.sy + N;
+    S.sq = S.sz + N;
+    S.jacc = S.sq + N;
+    S.pv = S.jacc + 6 * N;
+    S.irow = S.pv + 8 * PAIR_LIST;
+    S.smol = reinterpret_cast<int*>(S.irow + 8 * ccap);
+    S.sty = S.smol + N;
+    S.nmap = S.sty + N;
+    S.lst = S.nmap + N;
+    S.seg = S.lst + PAIR_LIST;
+    S.cnt = S.seg + ccap + 1;
+    S.nstart = S.cnt + 16;
+    S.nbid = S.nstart + 16;
+    S.wcnt = S.nbid + 16;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const unsigned lt = (1u << lane) - 1u;
+    load_tabs(tabs, stab, n_tabv);
     const int c = blockIdx.x;
     const int c1 = c / (nc2 * nc3), c2 = (c / nc3) % nc2, c3 = c % nc3;
-    half_tile(cm, c, c, true, ccap, P, irow, pg, irow, 8);
-    for (int k = 1; k < 14; ++k) {
-        const int nb = (((c1 + HALF_OFF[k][0] + nc1) % nc1) * nc2
-                        + (c2 + HALF_OFF[k][1] + nc2) % nc2) * nc3
-                       + (c3 + HALF_OFF[k][2] + nc3) % nc3;
-        // part is zeroed by the wrapper; (k, nb) has this block alone
-        half_tile(cm, c, nb, false, ccap, P, irow, pg,
-                  part + ((size_t)(k - 1) * C8 + (size_t)nb * ccap) * 6, 6);
-    }
-    for (int k = threadIdx.x; k < ccap * 8; k += blockDim.x)
-        own[(size_t)c * ccap * 8 + k] = irow[k];
-}
+    const size_t C8 = (size_t)nc1 * nc2 * nc3 * ccap;
 
-template <typename T>
-__global__ void __launch_bounds__(512)
-rs_column_kernel(const T* __restrict__ cm, const T* __restrict__ tabs,
-                 const T* __restrict__ box, T* __restrict__ own,
-                 T* __restrict__ part, int nc1, int nc2, int nc3, int ccap,
-                 int T_, int n_tab, int has_sapt, T rcut2, T alpha, T conv) {
-    extern __shared__ unsigned char smem_raw[];
-    const int n_tabv = n_tab * T_ * T_;
-    const int zc = nc3 * ccap;
-    T* stab = reinterpret_cast<T*>(smem_raw);
-    T* fbuf = stab + n_tabv;                        // (nc3*ccap, 8)
-    T* acc = fbuf + zc * 8;                         // (4, nc3*ccap, 6)
-    T* pg = acc + 4 * zc * 6;                       // (PAIR_CAP, 8)
-    load_tabs(tabs, stab, n_tabv);
-    for (int k = threadIdx.x; k < zc * 8; k += blockDim.x) fbuf[k] = 0;
-    for (int k = threadIdx.x; k < 4 * zc * 6; k += blockDim.x) acc[k] = 0;
+    // stage: the 14 cells' ids; each slot's occupancy (one load a slot,
+    // all independent); its rank among its cell's occupied slots and the
+    // cells' counts (ballots on shared flags); the cells' starts; the
+    // occupied slots' copies at their compacted positions
+    if (tid < 14) S.nbid[tid] = half_nb(c1, c2, c3, tid, nc1, nc2, nc3);
+    __syncthreads();
+#pragma unroll 4
+    for (int u = tid; u < N; u += HALF_THREADS)
+        S.nmap[u] = cm[((size_t)S.nbid[u / ccap] * ccap + u % ccap) * 8 + 5]
+                    >= (T)0;
+    __syncthreads();
+    for (int k = warp; k < 14; k += HALF_WARPS) {
+        int n = 0;
+        for (int s0 = 0; s0 < ccap; s0 += 32) {
+            const int s = s0 + lane;
+            const bool occ = s < ccap && S.nmap[k * ccap + s];
+            const unsigned bal = __ballot_sync(0xffffffffu, occ);
+            if (s < ccap) S.nmap[k * ccap + s] = occ ? n + __popc(bal & lt)
+                                                     : -1;
+            n += __popc(bal);
+        }
+        if (lane == 0) S.cnt[k] = n;
+    }
+    __syncthreads();
+    if (tid == 0) {
+        int a = 0;
+        for (int k = 0; k < 14; ++k) {
+            S.nstart[k] = a;
+            a += S.cnt[k];
+        }
+        S.nstart[14] = a;
+    }
+    __syncthreads();
+    const int n0 = S.cnt[0], Nj = S.nstart[14];
+#pragma unroll 4
+    for (int u = tid; u < N; u += HALF_THREADS) {
+        const int k = u / ccap, rank = S.nmap[u];
+        if (rank < 0) continue;
+        const int pos = S.nstart[k] + rank;
+        const T* r = cm + ((size_t)S.nbid[k] * ccap + u % ccap) * 8;
+        S.nmap[u] = pos;
+        S.sx[pos] = r[0];
+        S.sy[pos] = r[1];
+        S.sz[pos] = r[2];
+        S.sq[pos] = r[3];
+        S.sty[pos] = (int)t_rint(r[4]);
+        S.smol[pos] = (int)t_rint(r[5]);
+    }
+    for (int k = tid; k < 6 * Nj; k += HALF_THREADS) S.jacc[k] = 0;
+    for (int k = tid; k < 8 * n0; k += HALF_THREADS) S.irow[k] = 0;
     __syncthreads();
     const PairConst<T> P = pair_const(stab, box, T_, has_sapt, rcut2, alpha,
                                       conv);
-    const int C8 = nc1 * nc2 * nc3 * ccap;
-    const int p = blockIdx.x;
-    const int c1 = p / nc2, c2 = p % nc2;
-    for (int z = 0; z < nc3; ++z) {
-        const int c = p * nc3 + z;
-        T* irow = fbuf + z * ccap * 8;
-        for (int k = 0; k < 14; ++k) {
-            const int dx = HALF_OFF[k][0], dy = HALF_OFF[k][1];
-            const int zz = (z + HALF_OFF[k][2] + nc3) % nc3;
-            const int nb = (((c1 + dx + nc1) % nc1) * nc2
-                            + (c2 + dy + nc2) % nc2) * nc3 + zz;
-            // self column: its own rows; other columns: their accumulator
-            // (dx, dy) = (0, 1), (1, -1), (1, 0), (1, 1) -> 0, 1, 2, 3
-            const bool self_col = dx == 0 && dy == 0;
-            const int m = dx == 0 ? 0 : dy + 2;
-            T* jout = self_col ? fbuf + zz * ccap * 8
-                               : acc + ((size_t)m * zc + zz * ccap) * 6;
-            half_tile(cm, c, nb, k == 0, ccap, P, irow, pg, jout,
-                      self_col ? 8 : 6);
+
+    // filter in key order; flush first whenever this pass's survivors
+    // could overflow the list
+    const int total = n0 * Nj;
+    int L = 0, pass = 0;
+    for (int base = 0; base < total; base += HALF_THREADS, ++pass) {
+        const int t = base + tid;
+        bool keep = false;
+        if (t < total) {
+            const int i = t / Nj, n = t - i * Nj;
+            if (n > i && S.smol[n] != S.smol[i]) {
+                T dx, dy, dz;
+                keep = pair_r2(S.sx[i], S.sy[i], S.sz[i], S.sx[n], S.sy[n],
+                               S.sz[n], P, dx, dy, dz) < P.rcut2;
+            }
         }
+        const unsigned bal = __ballot_sync(0xffffffffu, keep);
+        int* wc = S.wcnt + (pass & 1) * HALF_WARPS;     // double-buffered
+        if (lane == 0) wc[warp] = __popc(bal);
+        __syncthreads();
+        int off = 0, tot = 0;
+        for (int w = 0; w < HALF_WARPS; ++w) {
+            const int v = wc[w];
+            off += w < warp ? v : 0;
+            tot += v;
+        }
+        if (L + tot > PAIR_LIST) {                      // block-uniform
+            half_flush(S, L, Nj, P);
+            L = 0;
+        }
+        if (keep) S.lst[L + off + __popc(bal & lt)] = t;
+        L += tot;
     }
-    for (int k = threadIdx.x; k < zc * 8; k += blockDim.x)
-        own[(size_t)p * zc * 8 + k] = fbuf[k];
-    for (int m = 0; m < 4; ++m) {
-        const int dx = m == 0 ? 0 : 1, dy = m == 0 ? 1 : m - 2;
-        const int pm = ((c1 + dx + nc1) % nc1) * nc2 + (c2 + dy + nc2) % nc2;
-        T* dst = part + ((size_t)m * C8 + (size_t)pm * zc) * 6;
-        for (int k = threadIdx.x; k < zc * 6; k += blockDim.x)
-            dst[k] = acc[(size_t)m * zc * 6 + k];
+    __syncthreads();
+    if (L > 0) half_flush(S, L, Nj, P);
+
+    // own rows: i side + the self cell's j side; part: offsets 1..13
+    T* orow = own + (size_t)c * ccap * 8;
+    for (int k = tid; k < ccap * 8; k += HALF_THREADS) {
+        const int s = k >> 3, m = k & 7, i = S.nmap[s];
+        orow[k] = i < 0 ? (T)0
+                        : S.irow[i * 8 + m] + (m < 6 ? S.jacc[i * 6 + m]
+                                                     : (T)0);
+    }
+    for (int k = 1; k < 14; ++k) {
+        T* dst = part + ((size_t)(k - 1) * C8 + (size_t)S.nbid[k] * ccap) * 6;
+        for (int q = tid; q < ccap * 6; q += HALF_THREADS) {
+            const int n = S.nmap[k * ccap + q / 6];
+            dst[q] = n < 0 ? (T)0 : S.jacc[n * 6 + q % 6];
+        }
     }
 }
 
@@ -392,58 +517,41 @@ static int rs_pair_launch(const void* cm, const void* tabs, const void* box,
     return (int)cudaGetLastError();
 }
 
+// A' and A'': rs_half_cell_kernel, then the fold of its 13 j-side arrays
 template <typename T>
-static int rs_half_launch(int column, const void* cm, const void* tabs,
-                          const void* box, void* own, void* part, void* out,
-                          void* stream, int nc1, int nc2, int nc3, int ccap,
-                          int T_, int n_tab, int has_sapt, double rcut2,
+static int rs_half_launch(const void* cm, const void* tabs, const void* box,
+                          void* own, void* part, void* out, void* stream,
+                          int nc1, int nc2, int nc3, int ccap, int T_,
+                          int n_tab, int has_sapt, double rcut2,
                           double alpha, double conv) {
-    // the layouts of rs_column_kernel / rs_half_kernel (the wrapper checks
-    // the same sizes against the SM's limit)
-    const size_t n_tabv = (size_t)n_tab * T_ * T_;
-    const size_t shm = (column ? n_tabv + (size_t)nc3 * ccap * (8 + 4 * 6)
-                                       + PAIR_CAP * 8
-                               : n_tabv + (size_t)ccap * 8 + PAIR_CAP * 8)
-                       * sizeof(T);
+    const size_t shm = half_smem_t<T>(n_tab * T_ * T_, ccap);
     cudaStream_t s = (cudaStream_t)stream;
-    int err;
-    if (column) {
-        err = allow_smem((const void*)rs_column_kernel<T>, shm);
-        if (err) return err;
-        rs_column_kernel<T><<<nc1 * nc2, 512, shm, s>>>(
-            (const T*)cm, (const T*)tabs, (const T*)box, (T*)own, (T*)part,
-            nc1, nc2, nc3, ccap, T_, n_tab, has_sapt, (T)rcut2, (T)alpha,
-            (T)conv);
-    } else {
-        err = allow_smem((const void*)rs_half_kernel<T>, shm);
-        if (err) return err;
-        rs_half_kernel<T><<<nc1 * nc2 * nc3, 256, shm, s>>>(
-            (const T*)cm, (const T*)tabs, (const T*)box, (T*)own, (T*)part,
-            nc1, nc2, nc3, ccap, T_, n_tab, has_sapt, (T)rcut2, (T)alpha,
-            (T)conv);
-    }
+    int err = allow_smem((const void*)rs_half_cell_kernel<T>, shm);
+    if (err) return err;
+    rs_half_cell_kernel<T><<<nc1 * nc2 * nc3, HALF_THREADS, shm, s>>>(
+        (const T*)cm, (const T*)tabs, (const T*)box, (T*)own, (T*)part,
+        nc1, nc2, nc3, ccap, T_, n_tab, has_sapt, (T)rcut2, (T)alpha,
+        (T)conv);
     err = (int)cudaGetLastError();
     if (err) return err;
     const int C8 = nc1 * nc2 * nc3 * ccap;
     rs_fold_kernel<T><<<(C8 * 8 + 255) / 256, 256, 0, s>>>(
-        (const T*)own, (const T*)part, (T*)out, C8, column ? 4 : 13);
+        (const T*)own, (const T*)part, (T*)out, C8, 13);
     return (int)cudaGetLastError();
 }
 
-#define RS_ENTRY(NAME, CALL, T)                                              \
+#define RS_ENTRY(NAME, T)                                                    \
     KERNELS_API int NAME(const void* cm, const void* tabs, const void* box, \
                          void* own, void* part, void* out, void* stream,     \
                          int nc1, int nc2, int nc3, int ccap, int T_,        \
                          int n_tab, int has_sapt, double rcut2,              \
                          double alpha, double conv) {                        \
-        return rs_half_launch<T>(CALL, cm, tabs, box, own, part, out,        \
-                                 stream, nc1, nc2, nc3, ccap, T_, n_tab,     \
-                                 has_sapt, rcut2, alpha, conv);              \
+        return rs_half_launch<T>(cm, tabs, box, own, part, out, stream,      \
+                                 nc1, nc2, nc3, ccap, T_, n_tab, has_sapt,   \
+                                 rcut2, alpha, conv);                        \
     }
-RS_ENTRY(rs_half_f32, 0, float)
-RS_ENTRY(rs_half_f64, 0, double)
-RS_ENTRY(rs_column_f32, 1, float)
-RS_ENTRY(rs_column_f64, 1, double)
+RS_ENTRY(rs_half_f32, float)
+RS_ENTRY(rs_half_f64, double)
 
 KERNELS_API int rs_pair_f32(const void* cm, const void* tabs,
                             const void* box, void* out, void* stream,

@@ -7,7 +7,8 @@ half stencil walked one xy column of cells at a time), source
 ``csrc/realspace_pair.cu``.  Which of them runs is the JAX package's
 choice (``_impl_for``): the column walk for grids of at least
 _HALF_MIN_CELLS cells (the 10,000-atom box), else the full stencil;
-``set_stencil_impl`` overrides it, as in the JAX package.
+``set_stencil_impl`` overrides it, as in the JAX package.  On the card
+A' and A'' are one routine (one block per cell of the half stencil).
 
 Atoms are binned into a static (nc1, nc2, nc3) grid sized by the
 real-space cutoff (``System.rs_cells``), in torch: cell id, stable sort,
@@ -39,9 +40,11 @@ _CELL_CHUNK = 16
 # the JAX package's crossover: grids of this many cells take the column
 # walk (realspace_pair.py:77)
 _HALF_MIN_CELLS = 200
-# pair results A' / A'' stage in shared memory per tile chunk
-# (csrc/realspace_pair.cu's PAIR_CAP)
-_PAIR_CAP = 768
+# A' / A'': pairs one flush of the pair list evaluates, and threads a
+# block (csrc/realspace_pair.cu's PAIR_LIST, HALF_THREADS)
+_PAIR_LIST = 256
+_HALF_THREADS = 128
+SMEM_LIMIT = 227 * 1024                 # shared memory a block can use
 _STENCIL_IMPL = "auto"                  # "auto" | "full" | "half" | "column"
 # kernel launched by each stencil implementation
 KERNEL_OF = {"full": "A", "half": "A'", "column": "A''"}
@@ -233,32 +236,46 @@ def pair_rows_cuda(cm, tabs, cells, box, rcut, alpha, has_sapt):
     return out
 
 
+def check_half_smem(n_tabv, cells, itemsize, name):
+    """Bytes of shared memory kernels A' / A'' take at `cells`, the layout
+    of csrc/realspace_pair.cu's half_smem_t: per block the 14 stencil
+    cells' staged slots (x, y, z, q and the j-side sums: 10 values; mol,
+    type, slot map: 3 ints), the pair list's terms and keys, the i-side
+    rows, the run starts, counts and cell ids.  It grows with ccap, not
+    with the grid.  ValueError with the numbers when it does not fit one
+    block."""
+    ccap = cells[3]
+    n = 14 * ccap
+    warps = _HALF_THREADS // 32
+    smem = ((n_tabv + 10 * n + 8 * _PAIR_LIST + 8 * ccap) * itemsize
+            + (3 * n + _PAIR_LIST + ccap + 1 + 48 + 2 * warps) * 4)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"kernel {name} needs {smem} B of shared memory at "
+                         f"cells {tuple(cells)} ({itemsize}-byte values), "
+                         f"over the {SMEM_LIMIT} B a block can use")
+    return smem
+
+
 def pair_rows_half_cuda(cm, tabs, cells, box, rcut, alpha, has_sapt,
                         column):
     """Launch kernel A'' (column) or A' (half stencil) and their fold:
-    per-slot rows with each pair's energy on one row."""
+    per-slot rows with each pair's energy on one row.  On the card both
+    are one routine (one block per cell); `column` names the launch."""
     name = KERNEL_OF["column" if column else "half"]
     n_tab, T = _check(cm, tabs, cells, box, name)
     nc1, nc2, nc3, ccap = cells
-    f = cm.dtype
-    # the kernels' shared memory: tables, the rows they accumulate (A'':
-    # a column's own rows and 4 j-side columns), the staged pair results
-    rows = nc3 * ccap * (8 + 4 * 6) if column else ccap * 8
-    smem = (n_tab * T * T + rows + _PAIR_CAP * 8) * cm.element_size()
-    if smem > 227 * 1024:
-        raise ValueError(f"kernel {name} needs {smem} B of shared memory at "
-                         f"cells {cells}, over the 227 KB of an SM")
+    check_half_smem(n_tab * T * T, cells, cm.element_size(), name)
     C8 = cm.shape[0]
-    own = torch.empty_like(cm)
-    # A' adds its per-offset j sides into zeroed arrays; A'' writes its 4
-    # column accumulators whole
-    part = (torch.empty if column else torch.zeros)(
-        (4 if column else 13, C8, 6), dtype=f, device=cm.device)
+    # one scratch: the cells' own rows (C8, 8), then the 13 per-offset
+    # j-side arrays (13, C8, 6), every slot of which has one writer
+    scratch = torch.empty(C8 * 8 + 13 * C8 * 6, dtype=cm.dtype,
+                          device=cm.device)
     out = torch.empty_like(cm)
-    fn = _build.function(("rs_column_" if column else "rs_half_")
-                         + _build.suffix(f), 7, 7, 3)
+    fn = _build.function("rs_half_" + _build.suffix(cm.dtype), 7, 7, 3)
     _build.check(fn(cm.data_ptr(), tabs.data_ptr(), box.data_ptr(),
-                    own.data_ptr(), part.data_ptr(), out.data_ptr(),
+                    scratch.data_ptr(),
+                    scratch.data_ptr() + C8 * 8 * cm.element_size(),
+                    out.data_ptr(),
                     _build.stream_ptr(cm), nc1, nc2, nc3, ccap, T, n_tab,
                     int(bool(has_sapt)), float(rcut) ** 2, float(alpha),
                     CONV_E2A_KJMOL), name)

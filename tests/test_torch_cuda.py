@@ -9,6 +9,8 @@ Tolerances: fp64 1e-10 relative to the largest reference value; fp32 as
 chip_smoke.py states them (the Pallas tests' own, or a loosening for the
 other summation order of atomics and tiles)."""
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +22,7 @@ from reactive_pb_nn_md_tpu_torch.ops import neighbors
 from reactive_pb_nn_md_tpu_torch.ops.kernels import (
     pme_slab, pme_spread, realspace_pair as rsp, recip_perstate)
 from reactive_pb_nn_md_tpu_torch.md import integrators
+from reactive_pb_nn_md_tpu_torch.md.simulation import load_deck
 from reactive_pb_nn_md_tpu_torch.utils import pbc
 
 pytestmark = pytest.mark.cuda
@@ -87,6 +90,67 @@ def test_half_and_column_kernels_match_plain(tmp_path, ff):
             torch.cuda.synchronize()
             _close(got[:, :6], ref[:, :6], rtol)
             _close(got[:, 6:].sum(0), ref[:, 6:].sum(0), rtol)
+
+
+def _packed(frame, topo, tsys, f, cells, rcut):
+    x = torch.tensor(frame.xyz, dtype=f, device="cuda")
+    box = torch.tensor(frame.box, dtype=f, device="cuda")
+    slot, over = rsp.bin_atoms(x, box, cells, rcut)
+    assert not bool(over)
+    cm = rsp.pack_cells(x, topo.charge.to(f), topo.atom_type, topo.atom_mol,
+                        slot, cells)
+    return cm, rsp.build_tabs(tsys, f), box
+
+
+@pytest.mark.parametrize("ff", ["lj", "sapt"])
+def test_half_and_column_kernels_are_deterministic(tmp_path, ff):
+    """A' and A'' fold every sum in an order fixed by the input: two calls
+    give the same bits."""
+    _need_card()
+    frame, ffr, topr, cfg = fixture_deck(tmp_path, 63, seed=4, cutoff=3.0,
+                                         verlet_cutoff=4.0,
+                                         sapt=ff == "sapt")
+    tsys, topo = build_system(frame, ffr, topr, cfg, device="cuda")
+    for f, _, _ in DTYPES:
+        cm, tabs, box = _packed(frame, topo, tsys, f, tsys.rs_cells, 3.0)
+        kw = dict(rcut=3.0, alpha=tsys.alpha_sqrt, has_sapt=tsys.has_sapt)
+        for column in (False, True):
+            a, b = (rsp.pair_rows_half_cuda(cm, tabs, tsys.rs_cells, box,
+                                            column=column, **kw)
+                    for _ in range(2))
+            assert torch.equal(a, b)
+
+
+# the 10k lattice's grid at the capacities a cell regrow reaches (24 ->
+# 40 -> 64 -> 96 by Simulation._grow; 100 as well), and finer grids with
+# nc3 >= 16 at a shorter cutoff (2.3 A: L / nc >= 2.3), one not cubic
+# (the layout before the per-cell design refused both in fp64)
+GRIDS = [((10, 10, 10, 40), 4.5), ((10, 10, 10, 64), 4.5),
+         ((10, 10, 10, 96), 4.5), ((10, 10, 10, 100), 4.5),
+         ((10, 10, 20, 40), 2.3), ((16, 16, 16, 48), 2.3)]
+
+
+@pytest.mark.parametrize("cells,rcut", GRIDS)
+def test_column_kernel_on_the_10k_lattice(cells, rcut):
+    """A'' against the plain sweep on the 10,000-atom lattice of
+    examples/water_10k/ binned into `cells`: per-slot gradients and the
+    energy sums, fp64 and fp32."""
+    _need_card()
+    deck = pathlib.Path(__file__).resolve().parents[1] / "examples" \
+        / "water_10k"
+    for f, rtol, _ in DTYPES:
+        _, frame, tsys, topo = load_deck(
+            deck / "in.gro", deck / "ff.pmt", deck / "top.top",
+            deck / "sim.pmt", torch.device("cuda"),
+            precision="fp64" if f == torch.float64 else "fp32")
+        cm, tabs, box = _packed(frame, topo, tsys, f, cells, rcut)
+        kw = dict(rcut=rcut, alpha=tsys.alpha_sqrt, has_sapt=tsys.has_sapt)
+        ref = rsp.pair_rows_plain(cm, tabs, cells, torch.diagonal(box), **kw)
+        got = rsp.pair_rows_half_cuda(cm, tabs, cells, box, column=True,
+                                      **kw)
+        torch.cuda.synchronize()
+        _close(got[:, :6], ref[:, :6], rtol)
+        _close(got[:, 6:].double().sum(0), ref[:, 6:].double().sum(0), rtol)
 
 
 def test_slab_kernels_match_plain():

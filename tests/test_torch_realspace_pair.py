@@ -171,3 +171,26 @@ def test_cell_overflow_reaches_the_step_flags(tmp_path):
     fe.evb_overflow = torch.ones((), dtype=torch.bool)
     with pytest.raises(integrators.CapacityOverflow, match="EVB state cap"):
         integrators._sync_flags(SimpleNamespace(overflow=no), fe, no)
+
+
+def test_half_kernel_shared_memory_fits_and_raises():
+    """Kernels A' / A'' take shared memory by ccap alone: it fits one
+    block at every capacity a cell regrow reaches from the 10k deck, on
+    grids of any length, and the check raises with the numbers where a
+    capacity does not fit."""
+    n_tabv = 8 * 4 * 4                     # SAPT tables of 4 types
+    for itemsize in (8, 4):
+        for ccap in (24, 40, 64, 96, 100):
+            sizes = {rsp.check_half_smem(n_tabv, (10, 10, nc3, ccap),
+                                         itemsize, "A''")
+                     for nc3 in (10, 16, 20, 64)}
+            assert len(sizes) == 1 and sizes.pop() <= rsp.SMEM_LIMIT
+    # at the 10k deck's cells, at least two blocks fit an SM in fp64
+    assert 2 * rsp.check_half_smem(n_tabv, (10, 10, 10, 24), 8,
+                                   "A''") <= rsp.SMEM_LIMIT
+    assert rsp.check_half_smem(n_tabv, (10, 10, 10, 100), 8, "A''") == (
+        (n_tabv + 10 * 1400 + 8 * 256 + 800) * 8
+        + (3 * 1400 + 256 + 101 + 48 + 8) * 4)
+    with pytest.raises(ValueError, match=r"needs \d+ B of shared memory at "
+                                         r"cells \(10, 10, 10, 200\)"):
+        rsp.check_half_smem(n_tabv, (10, 10, 10, 200), 8, "A''")
