@@ -16,7 +16,7 @@ Phases, in order, one line each (any failure raises, exit code != 0):
      the 10,000-atom shapes (the lattice of examples/water_10k/, cells
      (10, 10, 10, 24), K = 64, scap 280, S = 32), A' under
      set_stencil_impl("half"), B beside D on the same atoms; two calls
-     of A', A'' and C2 must agree bit for bit;
+     of A', A'', C2, D1 and D2 must agree bit for bit;
   4. full force evaluations in fp64, CUDA (kernels) against CPU (plain):
      the flagship and the 10k lattice;
   5. the main paths through the CLI, each with the launch counts set to 0
@@ -26,9 +26,12 @@ Phases, in order, one line each (any failure raises, exit code != 0):
         A'', D1, D2, C1, C2 launch, and A, B1, B2 do not;
      c. examples/water_10k/ under set_stencil_impl("half"), 3 steps fp32:
         A' launches;
-  6. NVE from the equilibrated flagship state, 200 steps in fp64
-     (|Etot(200) - Etot(0)| <= 5 kJ/mol) and in fp32 (finite; drift
-     reported, not bounded); the largest excursion is reported for both.
+     d. examples/water_msevb/ at evb_max_states 8, 5 steps fp64: the state
+        cap is regrown (a log line) and the run completes;
+  6. NVE from the equilibrated flagship state through the simulation loop,
+     512 steps in fp64 and fp32: fp64 |Etot(200) - Etot(0)| <= 5 kJ/mol;
+     fp32 finite at every step and |dEtot(512)| within 10 kJ/mol of
+     fp64's; both drifts, the largest excursions and the rates reported.
 The line before the last is nvidia-smi's name and power limit, the one
 before it the per-kernel JSON (times, errors and bounds in fp64; fp32 in
 the fp32_ keys); the last line is the result JSON.
@@ -91,6 +94,7 @@ PEAK_GEMM_FLOPS = {"fp64": 67e12, "fp32": 67e12}
 # operations per inter-molecular pair within the cutoff: erfc (~20), exp
 # (~10), sqrt and the divides (~10), LJ (~10), force factors (~10)
 FLOP_PAIR = 60
+NVE_STEPS = 512                 # phase 6, past the reference's fp32 pump
 
 # Tolerances (|got - ref| <= atol + rtol |ref|, atol relative to max|ref|):
 #  fp64: 1e-10 relative for every kernel.
@@ -450,9 +454,14 @@ def phase_kernels(results):
         n = x.shape[0]
         slot, rows, over = sl.slab_bins(nearpt, K, order, scap)
         check(not bool(over), "the 10k lattice overflows the slab cap")
-        err = close(sl.spread_slab_cuda(w, nearpt, q, rows, K, scap),
-                    sl.spread_slab_plain(w, nearpt, q, rows, K),
+        grid = sl.spread_slab_cuda(w, nearpt, q, rows, K, scap)
+        err = close(grid, sl.spread_slab_plain(w, nearpt, q, rows, K),
                     **(TOL64 if fp64 else TOL32["spread"]))
+        # D1 and D2 sum every element in one fixed order: a second call
+        # must give the same bits
+        check(torch.equal(grid, sl.spread_slab_cuda(w, nearpt, q, rows, K,
+                                                    scap)),
+              f"kernel D1 ({tag}) differs between two calls")
         record(out, "D1", err[:2], err[2],
                lambda: sl.spread_slab_cuda(w, nearpt, q, rows, K, scap),
                lambda: sl.spread_slab_plain(w, nearpt, q, rows, K),
@@ -461,9 +470,11 @@ def phase_kernels(results):
         gQ = torch.tensor(rng.standard_normal(K ** 3), dtype=dtype,
                           device=dev)
         dargs = (gQ, w, dw, nearpt, rows, K)
-        err = close(sl.interp_slab_cuda(*dargs, scap),
-                    sl.interp_slab_plain(*dargs),
+        d2 = sl.interp_slab_cuda(*dargs, scap)
+        err = close(d2, sl.interp_slab_plain(*dargs),
                     **(TOL64 if fp64 else TOL32["gather"]))
+        check(torch.equal(d2, sl.interp_slab_cuda(*dargs, scap)),
+              f"kernel D2 ({tag}) differs between two calls")
         record(out, "D2", err[:2], err[2],
                lambda: sl.interp_slab_cuda(*dargs, scap),
                lambda: sl.interp_slab_plain(*dargs),
@@ -551,10 +562,9 @@ def phase_forces():
     forces_cuda_vs_cpu("10k lattice", lattice)
 
 
-def run_cli(tmp, deck, prec, steps, n_frames):
-    """The CLI on a copy of `deck` in precision `prec`; returns (steps/s,
-    regrow lines)."""
-    from reactive_pb_nn_md_tpu_torch.run import cli
+def deck_copy(tmp, deck, prec, extra=""):
+    """The 8 CLI file names of a copy of `deck` under `tmp` in precision
+    `prec`, with the parameter lines `extra` appended."""
     d = tmp / f"{deck.name}_{prec}"
     shutil.copytree(deck, d)
     sim = d / "sim.pmt"
@@ -562,18 +572,26 @@ def run_cli(tmp, deck, prec, steps, n_frames):
     for p in ("fp64", "fp32"):
         text = text.replace(f"precision          {p}",
                             f"precision          {prec}")
-    sim.write_text(text)
-    files = [str(d / n) for n in ("in.gro", "ff.pmt", "top.top", "sim.pmt",
-                                  "traj.gro", "run.log", "hops.log",
-                                  "A.log")]
+    sim.write_text(text.rstrip("\n") + "\n" + extra)
+    return [str(d / n) for n in ("in.gro", "ff.pmt", "top.top", "sim.pmt",
+                                 "traj.gro", "run.log", "hops.log", "A.log")]
+
+
+def run_cli(tmp, deck, prec, steps, n_frames, extra=""):
+    """The CLI on a copy of `deck` in precision `prec`; returns (steps/s,
+    regrow lines)."""
+    from reactive_pb_nn_md_tpu_torch.run import cli
+    files = deck_copy(tmp, deck, prec, extra)
     cli.main(files + ["--device", "cuda", "--steps", str(steps)])
-    text = (d / "run.log").read_text()
+    text = pathlib.Path(files[5]).read_text()
     check(f"precision {prec}" in text, f"the log does not say {prec}")
+    check(f"completed {steps} steps" in text,
+          f"{deck.name} {prec}: the run did not complete {steps} steps")
     etot = [float(ln.split()[5]) for ln in text.splitlines()
             if ln.startswith(" KE")]
     check(len(etot) == n_frames and all(math.isfinite(e) for e in etot),
           f"{deck.name} {prec}: log energies {etot}")
-    frames = (d / "traj.gro").read_text().count("step ")
+    frames = pathlib.Path(files[4]).read_text().count("step ")
     check(frames == n_frames, f"{deck.name} {prec}: {frames} trajectory "
                               f"frames, not {n_frames}")
     regrows = [ln for ln in text.splitlines() if "regrow" in ln]
@@ -583,7 +601,7 @@ def run_cli(tmp, deck, prec, steps, n_frames):
         f"{len(regrows)} regrows")
     for ln in regrows:
         log("    " + ln)
-    return rate
+    return rate, regrows
 
 
 def main_path(name, fn, launched, absent=()):
@@ -601,38 +619,58 @@ def main_path(name, fn, launched, absent=()):
     return counts
 
 
-def phase_nve():
-    """Phase 6: 200 NVE steps from the equilibrated state."""
+def nve(tmp, dtype, steps):
+    """NVE from the equilibrated flagship state through the simulation
+    loop (capacities regrown, step redone); (Etot at every step, hops,
+    steps/s, regrow lines)."""
     import torch
-    from reactive_pb_nn_md_tpu_torch.md import integrators
+    from reactive_pb_nn_md_tpu_torch.md.simulation import Simulation
+    tag = "fp64" if dtype == torch.float64 else "fp32"
+    system, state, topo, meta, cbw, _ = flagship(torch.device("cuda"), dtype)
+    sim = Simulation(*deck_copy(tmp, DECK, tag), device="cuda")
+    sim.system, sim.cbw = system, cbw
+    sim.capacity, sim.react_cap = meta["capacity"], meta["react_cap"]
+    sim._init_state(state, topo)
+    etot = [float(sim.ms.kinetic + sim.ms.potential)]
+    hops = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(steps):
+        check(sim._step(k + 1), f"{tag}: the EVB state cap hit its ceiling")
+        hops += sim.ms.hopped
+        etot.append(float(sim.ms.kinetic + sim.ms.potential))
+    torch.cuda.synchronize()
+    return etot, hops, steps / (time.perf_counter() - t0), sim._log_lines
+
+
+def phase_nve():
+    """Phase 6: NVE_STEPS steps from the equilibrated state in fp64 and
+    fp32.  fp64 must hold |Etot(200) - Etot(0)| <= 5 kJ/mol; fp32 must stay
+    finite at every step and end within 10 kJ/mol of fp64's drift at the
+    last step."""
+    import torch
     out = {}
-    for dtype in (torch.float64, torch.float32):
-        tag = "fp64" if dtype == torch.float64 else "fp32"
-        system, state, topo, meta, cbw, cfg = flagship(torch.device("cuda"),
-                                                       dtype)
-        ms = integrators.initial_md_state(state, topo, system, cbw,
-                                          meta["capacity"],
-                                          react_cap=meta["react_cap"])
-        check(not ms.overflow, f"{tag}: {ms.overflow} overflow")
-        etot = [float(ms.kinetic + ms.potential)]
-        hops = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(200):
-            ms = integrators.md_step(ms, system, cbw, cfg.delta_t)
-            check(not ms.overflow, f"{tag}: {ms.overflow} overflow")
-            hops += ms.hopped
-            etot.append(float(ms.kinetic + ms.potential))
-        torch.cuda.synchronize()
-        rate = 200 / (time.perf_counter() - t0)
-        check(all(math.isfinite(e) for e in etot), f"{tag}: non-finite Etot")
-        out[tag] = dict(dEtot=etot[-1] - etot[0],
-                        max_abs_dEtot=max(abs(e - etot[0]) for e in etot),
-                        steps_per_s=rate, hops=hops)
-        log(f"  {tag}: Etot(200) - Etot(0) {etot[-1] - etot[0]:+.3f} "
-            f"kJ/mol, max|Etot - Etot0| {out[tag]['max_abs_dEtot']:.3f}, "
-            f"{rate:.2f} steps/s, {hops} hops")
-    check(abs(out["fp64"]["dEtot"]) <= 5.0, "fp64 NVE drift exceeds 5 kJ/mol")
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype in (torch.float64, torch.float32):
+            tag = "fp64" if dtype == torch.float64 else "fp32"
+            etot, hops, rate, regrows = nve(pathlib.Path(tmp), dtype,
+                                            NVE_STEPS)
+            bad = [i for i, e in enumerate(etot) if not math.isfinite(e)]
+            check(not bad, f"{tag}: non-finite Etot from step {bad[:1]}")
+            out[tag] = etot
+            d = [e - etot[0] for e in etot]
+            log(f"  {tag}: Etot(200) - Etot(0) {d[200]:+.3f} kJ/mol, "
+                f"Etot({NVE_STEPS}) - Etot(0) {d[-1]:+.3f}, max|Etot - Etot0| "
+                f"{max(map(abs, d)):.3f}, {rate:.2f} steps/s, {hops} hops, "
+                f"{len(regrows)} regrows")
+            for ln in regrows:
+                log("    " + ln.rstrip())
+    d64 = out["fp64"][200] - out["fp64"][0]
+    dd = (out["fp32"][-1] - out["fp32"][0]) - (out["fp64"][-1] - out["fp64"][0])
+    log(f"  fp32 - fp64 drift at step {NVE_STEPS}: {dd:+.3f} kJ/mol")
+    check(abs(d64) <= 5.0, "fp64 NVE drift exceeds 5 kJ/mol at step 200")
+    check(abs(dd) <= 10.0, f"fp32 drift differs from fp64's by more than 10 "
+                           f"kJ/mol at step {NVE_STEPS}")
 
 
 def main():
@@ -693,13 +731,23 @@ def main():
         (tmp / "half").mkdir()
         half_counts = main_path("5c water_10k half stencil", half, ("A'",),
                                 ("A", "A''"))
+
+        def regrow():
+            (tmp / "cap8").mkdir()
+            _, lines = run_cli(tmp / "cap8", DECK, "fp64", 5, 1,
+                               extra="evb_max_states     8\n")
+            check(any("evb_max_states regrown to" in ln for ln in lines),
+                  "the state cap 8 was not regrown")
+
+        main_path("5d water_msevb at evb_max_states 8", regrow,
+                  ("A", "B1", "B2", "C1", "C2"), ("A'", "A''", "D1", "D2"))
     for k in ("A", "B1", "B2", "C1", "C2"):
         launches[k] = flag[k]
     for k in ("A''", "D1", "D2"):
         launches[k] = big[k]
     launches["A'"] = half_counts["A'"]
 
-    log("[6 nve] 200 steps from benchdata/eq_flagship_s80.npz")
+    log(f"[6 nve] {NVE_STEPS} steps from benchdata/eq_flagship_s80.npz")
     phase_nve()
 
     k64, k32 = measured["fp64"], measured["fp32"]

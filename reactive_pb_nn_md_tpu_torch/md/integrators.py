@@ -8,10 +8,9 @@ surface in reactive mode, which also switches the principle topology on
 a hop), kick, COM-momentum removal.  The rebuild check and the step's
 flags are Python branches, one host sync each.  A capacity that did not
 hold (neighbor rows, cells, on-demand rows, kernel A's cells, the PME
-slab cap) is reported in MDState.overflow: the step's result is then not
-valid, and the simulation loop (md/simulation.py) regrows the capacities
-and redoes the step.  An overflow of the EVB state cap raises (its regrow
-is not ported).
+slab cap, the EVB state cap) is reported in MDState.overflow: the step's
+result is then not valid, and the simulation loop (md/simulation.py)
+regrows the capacities and redoes the step.
 """
 
 import dataclasses
@@ -30,15 +29,15 @@ from . import velocities
 
 
 class CapacityOverflow(RuntimeError):
-    """A fixed capacity could not be regrown to hold (the EVB state cap,
-    or a capacity still overflowing after the regrow rounds of
-    md/simulation.py)."""
+    """A capacity still overflowing after the regrow rounds of
+    md/simulation.py."""
 
 
 # the capacity flags of a step, in the order _sync_flags reads them
 CAPACITIES = ("neighbor-list capacity", "on-demand row capacity",
-              "kernel A cell capacity", "PME slab capacity")
-NEIGHBOR_CAP, ROW_CAP, RS_CELL_CAP, SLAB_CAP = CAPACITIES
+              "kernel A cell capacity", "PME slab capacity",
+              "EVB state cap")
+NEIGHBOR_CAP, ROW_CAP, RS_CELL_CAP, SLAB_CAP, EVB_STATE_CAP = CAPACITIES
 
 
 @dataclass
@@ -123,17 +122,14 @@ def evaluate_forces(x, box, topo, system, nlist, cbw, com=None):
 
 def _sync_flags(nlist, fe, hopped):
     """One host sync for the step's flags: (the CAPACITIES that did not
-    hold, hopped, |F| > 1e4).  Raises on an EVB state-cap overflow.  The
-    slab flag comes from the forward's own slab binning, kernel A's from
-    its own cell binning: no second binning."""
+    hold, hopped, |F| > 1e4).  The slab flag comes from the forward's own
+    slab binning, kernel A's from its own cell binning: no second
+    binning."""
     bd = fe.breakdown
     flags = torch.stack([nlist.overflow, fe.row_overflow, bd.rs_overflow,
                          bd.slab_overflow, fe.evb_overflow, hopped,
                          (fe.force.abs() > 1.0e4).any()]).tolist()
-    if flags[4]:
-        raise CapacityOverflow("EVB state cap (evb_max_states) exceeded; "
-                               "regrowing the state cap is not ported")
-    over = tuple(n for n, bad in zip(CAPACITIES, flags[:4]) if bad)
+    over = tuple(n for n, bad in zip(CAPACITIES, flags[:5]) if bad)
     return over, flags[5], flags[6]
 
 

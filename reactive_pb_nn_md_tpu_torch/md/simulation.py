@@ -4,13 +4,23 @@ main_ms_evb.f90:15-122, print_step general_routines.f90:870-945).
 File contract of the reference CLI: in.gro ff.pmt top sim.pmt -> trajectory
 (.gro frames), log, hop file, A file.  A fixed capacity that does not hold
 (neighbor rows and cells, on-demand rows, kernel A's cells, the PME slab
-cap) is regrown by the JAX package's factors and the step is redone from
-the state before it, so no reported energy comes from truncated data;
-each regrow is one line of the log.  Not ported yet: NVT/NPT, restart and
-checkpoints, the EVB state-cap regrow, and the debug >= 2 A-file stream
-(the A file is created and left empty).
+cap, the EVB state cap) is regrown by the JAX package's factors and the
+step is redone from the state before it, so no reported energy comes from
+truncated data; each regrow is one line of the log.  The EVB state cap
+grows to min(evb_hard_max_states, max(2S, S + 8)); an overflow at that
+ceiling ends the run with the JAX package's "aborting" line.
+
+Not ported yet, and refused with a ValueError naming the key or the file
+rather than ignored: NVT/NPT, the velocity checkpoints (checkpoint_velocity
+> 0), the debug >= 2 A-file stream, and restarts.  The JAX driver restarts
+when the trajectory exists beside its checkpoint; the port takes that
+checkpoint's default name, velocity_checkpoint.npz, and its text sibling
+velocity_checkpoint, in the trajectory's directory, and refuses to start
+(and overwrite the trajectory and log) when either is there.  The A file
+is created and left empty.
 """
 
+import os
 import time
 
 import numpy as np
@@ -45,6 +55,36 @@ def load_deck(gro_file, ff_file, top_file, sim_file, device,
 
 # regrow rounds before a capacity that still overflows is an error
 _MAX_REGROWS = 16
+# the JAX driver's default checkpoint and its text sibling
+CHECKPOINT_FILE = "velocity_checkpoint.npz"
+TEXT_CHECKPOINT_FILE = "velocity_checkpoint"
+
+
+def _refuse_unported(cfg, traj_file, log_file):
+    """Raise ValueError on a deck key or file the JAX driver would act on
+    and the port cannot honour yet."""
+    if cfg.ensemble != "NVE":
+        raise ValueError(f"ensemble {cfg.ensemble} is not ported yet "
+                         f"(NVE only)")
+    if cfg.checkpoint_velocity > 0:
+        raise ValueError(f"checkpoint_velocity {cfg.checkpoint_velocity}: "
+                         f"velocity checkpoints are not ported yet (set it "
+                         f"to 0)")
+    if cfg.debug >= 2:
+        raise ValueError(f"debug {cfg.debug}: the debug >= 2 A-file stream "
+                         f"is not ported yet (use debug <= 1)")
+    # the JAX driver's restart conditions (md/simulation.py:64-70 there)
+    d = os.path.dirname(os.path.abspath(traj_file))
+    npz = os.path.join(d, CHECKPOINT_FILE)
+    text = os.path.join(d, TEXT_CHECKPOINT_FILE)
+    if os.path.exists(traj_file) and (
+            os.path.exists(npz)
+            or (os.path.exists(log_file) and os.path.exists(text)
+                and os.path.getsize(text) > 0)):
+        found = npz if os.path.exists(npz) else text
+        raise ValueError(f"checkpoint {found} beside the trajectory "
+                         f"{traj_file}: restarts are not ported yet (move "
+                         f"the checkpoint or the trajectory away)")
 
 
 class Simulation:
@@ -53,12 +93,10 @@ class Simulation:
     def __init__(self, gro_file, ff_file, top_file, sim_file, traj_file,
                  log_file, hop_file, a_file, device):
         self.device = torch.device(device)
+        _refuse_unported(read_sim_params(sim_file), traj_file, log_file)
         self.cfg, frame, self.system, topo = load_deck(
             gro_file, ff_file, top_file, sim_file, self.device)
         cfg = self.cfg
-        if cfg.ensemble != "NVE":
-            raise ValueError(f"ensemble {cfg.ensemble} is not ported yet "
-                             f"(NVE only)")
         self.files = dict(traj=traj_file, log=log_file, hop=hop_file,
                           a=a_file)
         f = float_dtype(cfg.precision)
@@ -89,7 +127,9 @@ class Simulation:
 
     def _init_state(self, state, topo, step=0):
         """MDState at `state` with the current capacities, regrown until
-        they hold (regrow lines name `step`)."""
+        they hold (regrow lines name `step`).  An EVB state-cap overflow
+        at the ceiling is left in the state: the next step reports it
+        and ends the run, as the JAX driver's first chunk does."""
         for _ in range(_MAX_REGROWS + 1):
             self.ms = integrators.initial_md_state(
                 state, topo, self.system, self.cbw, self.capacity,
@@ -97,21 +137,36 @@ class Simulation:
                 react_cells=self.react_cells)
             self.react_cap = self.ms.nlist.react_cap or None
             self.react_cells = self.ms.nlist.react_cells or None
-            if not self.ms.overflow:
+            over = tuple(n for n in self.ms.overflow
+                         if n != integrators.EVB_STATE_CAP
+                         or not self._states_at_ceiling())
+            if not over:
                 return
-            self._grow(self.ms.overflow, step)
+            self._grow(over, step)
         raise integrators.CapacityOverflow(
             f"{', '.join(self.ms.overflow)} still exceeded after "
             f"{_MAX_REGROWS} regrows")
 
+    def _states_at_ceiling(self):
+        return self.system.evb_max_states >= self.cfg.evb_hard_max_states
+
     def _grow(self, names, step):
         """Grow the capacities that did not hold by the JAX package's
-        factors (md/simulation.py:189-226 there) and log one line.  The
-        JAX package grows all of them, its flag being shared; the port's
-        flags are separate, so the others keep their size (a kernel A or
-        slab cap grown for nothing costs shared memory and time)."""
+        factors (md/simulation.py:189-238 there) and log one line each
+        for the state cap and the others.  The JAX package grows all of
+        the others, its flag being shared; the port's flags are separate,
+        so the others keep their size (a kernel A or slab cap grown for
+        nothing costs shared memory and time)."""
         n1 = self.system.n_atoms - 1
         kw = {}
+        lines = []
+        if integrators.EVB_STATE_CAP in names:
+            S = self.system.evb_max_states
+            kw["evb_max_states"] = min(self.cfg.evb_hard_max_states,
+                                       max(2 * S, S + 8))
+            lines.append(f"step {step}: diabat enumeration exceeded the "
+                         f"state cap; evb_max_states regrown to "
+                         f"{kw['evb_max_states']}, step redone\n")
         if {integrators.NEIGHBOR_CAP, integrators.ROW_CAP} & set(names):
             self.capacity = min(int(self.capacity * 1.5) + 8, n1)
             if self.cells:
@@ -130,31 +185,47 @@ class Simulation:
             # into single slabs (~2.7x the mean on the 10k box)
             kw["pme_scap"] = -(-int(self.system.pme_scap * 1.3 + 16) // 8) * 8
         self.system = self.system.replace(**kw)
-        line = (f"step {step}: regrow ({', '.join(names)} exceeded): "
+        others = [n for n in names if n != integrators.EVB_STATE_CAP]
+        if others:
+            lines.append(
+                f"step {step}: regrow ({', '.join(others)} exceeded): "
                 f"capacity {self.capacity} cells {self.cells} react_cap "
                 f"{self.react_cap} react_cells {self.react_cells} rs_cells "
                 f"{self.system.rs_cells} pme_scap {self.system.pme_scap}\n")
+        self._log(lines)
+
+    def _log(self, lines):
+        """Write `lines` to the log, or keep them until it opens."""
         if self.log_f is None:
-            self._log_lines.append(line)
+            self._log_lines.extend(lines)
         else:
-            self.log_f.write(line)
+            self.log_f.writelines(lines)
             self.log_f.flush()
 
     def _step(self, step):
         """One md_step; a capacity that did not hold is regrown and the
-        step redone from the state before it."""
+        step redone from the state before it.  Returns False when the
+        EVB state cap overflowed at evb_hard_max_states: the step is kept,
+        as the JAX driver keeps its chunk, and the run ends."""
         for _ in range(_MAX_REGROWS):
             ms = integrators.md_step(self.ms, self.system, self.cbw,
                                      self.cfg.delta_t)
             if not ms.overflow:
                 self.ms = ms
-                return
+                return True
+            if integrators.EVB_STATE_CAP in ms.overflow \
+                    and self._states_at_ceiling():
+                self._log([f"step {step}: diabat enumeration exceeded "
+                           f"evb_hard_max_states="
+                           f"{self.cfg.evb_hard_max_states} -- aborting "
+                           f"(reference behavior, ms_evb.f90:3107-3123)\n"])
+                self.ms = ms
+                return False
             self._grow(ms.overflow, step)
             self._init_state(self.ms.state, self.ms.topo, step)
         raise integrators.CapacityOverflow(
             f"step {step}: {', '.join(ms.overflow)} still exceeded after "
             f"{_MAX_REGROWS} regrows")
-
 
     def _write_frame(self, step):
         topo = self.ms.topo
@@ -240,7 +311,7 @@ class Simulation:
             while step < n_steps:
                 prev_h = int(self.ms.topo.hydronium_mol) \
                     if self.system.ms_evb else -1
-                self._step(step + 1)
+                going = self._step(step + 1)
                 step += 1
                 if self.ms.hopped:
                     hop_f.write(f"step  {step}\n proton hop from "
@@ -255,6 +326,8 @@ class Simulation:
                 if step % cfg.n_output == 0:
                     self._log_step(step)
                     self._write_frame(step)
+                if not going:
+                    break
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             elapsed = time.perf_counter() - t0

@@ -7,17 +7,25 @@ _spread_slab_kernel and _bwd -> _interp_slab_kernel, source
 per-atom spread when the system has a slab capacity (System.pme_scap,
 10,000 atoms at K = 64); so does the port.
 
-Atoms are binned in torch by their x-corner c1 = (floor(u_x) - (order-1))
-mod K into K slabs of static capacity scap (one stable sort, the same
-binning as kernel A's cells).  The overflow flag comes from that binning:
-an atom past its slab's capacity is in no slab row, so the grid lacks it
-and the flag makes the simulation loop regrow scap and redo the step --
-an energy from such a grid is never reported.  D1 builds the K^3 grid
-from the slab rows; D2 gives every slab row [dE/dq, dE/du1..3] from the
-grid cotangent, and the backward gathers those back to atoms and applies
-the charge and box factors.  ``spread_slab`` / ``interp_slab`` run the kernels
-for CUDA tensors and the plain versions below (kernel B's index_add
-spread and contraction over the slab rows) for CPU tensors.
+Atoms are binned in torch by their x corner c1 = (floor(u_x) - (order-1))
+mod K into K slabs of static capacity scap, and within a slab in ascending
+y corner c2 (``slab_bins``: one sort by c2, then kernel A's stable
+binning by c1).  The overflow flag comes from that binning: an atom past
+its slab's capacity is in no slab row, so the grid lacks it and the flag
+makes the simulation loop regrow scap and redo the step -- an energy from
+such a grid is never reported.  D1 builds the K^3 grid from the slab rows
+in one launch, each block owning a band of grid rows and finding the atoms
+that reach it by their y corner; D2 gives every slab row [dE/dq,
+dE/du1..3] from the grid cotangent in one launch, each block taking the
+rows of one slab whose y corner lies in a band.  Both need the rows in
+slab_bins' order; neither has a scratch array or atomics, and their shared
+memory depends on K, the order and the dtype, not on scap.  Their bound
+is bytes, but they run bounded by latency (the source has the design).
+The backward gathers D2's rows back to atoms and applies the charge and
+box factors.
+``spread_slab`` / ``interp_slab`` run the kernels for CUDA tensors and the
+plain versions below (kernel B's index_add spread and contraction over the
+slab rows, in any row order) for CPU tensors.
 """
 
 import math
@@ -55,9 +63,14 @@ def suggest_pme_scap(n_atoms, K, box=None, order=6):
 
 def slab_bins(nearpt, K, order, scap):
     """(slot (N,), rows (K*scap,), overflow ()): each atom's slab row, the
-    atom of every slab row (-1 empty), and whether a slab overflowed."""
-    c1 = torch.remainder(nearpt[:, 0] - (order - 1), K)
-    slot, over = bin_slots(c1, K, scap)
+    atom of every slab row (-1 empty), and whether a slab overflowed.  The
+    rows of a slab hold its atoms in ascending y corner (ties in atom
+    order), then -1: kernel D finds a band's atoms by that order."""
+    c = torch.remainder(nearpt[:, :2] - (order - 1), K)
+    by_y = torch.argsort(c[:, 1], stable=True)
+    slot_y, over = bin_slots(c[by_y, 0], K, scap)
+    slot = torch.empty_like(slot_y)
+    slot[by_y] = slot_y
     return slot, slot_atoms(slot, K * scap), over
 
 
@@ -77,52 +90,76 @@ def interp_slab_plain(gQ, w, dw, nearpt, rows, K):
     return torch.where((rows >= 0)[:, None], out, torch.zeros_like(out))
 
 
+# csrc/pme_slab.cu: y rows of a D1 tile, warps of a D1 block, atoms a D1
+# block stages at a time, a D1 tile row's padding; y corners of a D2
+# block, slab rows a D2 block stages at a time
+SLAB_BAND, SLAB_WARPS, SLAB_STAGE, TILE_PAD = 8, 8, 128, 6
+INTERP_BAND, INTERP_STAGE = 8, 32
+SMEM_LIMIT = 227 * 1024
+
+
+def spread_smem(K, order, itemsize):
+    """D1's shared memory: each warp's own tile of SLAB_BAND rows of K +
+    TILE_PAD, and the staged atoms (the band-row weights, the z spline row
+    and the z point of each)."""
+    return (SLAB_WARPS * SLAB_BAND * (K + TILE_PAD) * itemsize
+            + SLAB_STAGE * ((SLAB_BAND + order) * itemsize + 4))
+
+
+def interp_smem(K, order, itemsize):
+    """D2's shared memory: the cotangent window of a block (order x-planes
+    by INTERP_BAND + order - 1 y rows by K + 1 padded z values) and the
+    staged rows (spline and derivative rows, atom, z point, y corner)."""
+    return (order * (INTERP_BAND + order - 1) * (K + 1) * itemsize
+            + INTERP_STAGE * (6 * order * itemsize + 16))
+
+
 def _check(w, nearpt, rows, K, scap):
     n, _, order = w.shape
     f = w.dtype
     _build.require(w, f, (n, 3, order), "w")
     _build.require(nearpt, torch.int64, (n, 3), "nearpt")
     _build.require(rows, torch.int64, (K * scap,), "rows")
-    if order > K:
-        raise ValueError("spline order exceeds the PME grid")
-    # D1 holds a K x K plane and the slab's staged atoms
-    smem = K * K * w.element_size() + scap * (2 * order * w.element_size()
-                                              + 8)
-    if smem > 227 * 1024:
-        raise ValueError(f"kernel D needs {smem} B of shared memory at "
-                         f"K = {K}, scap = {scap}: over the 227 KB of an SM")
+    if order not in (4, 6):
+        raise ValueError(f"kernel D takes spline order 4 or 6, not {order}")
+    if order > K or K + order - 1 > 128:
+        raise ValueError(f"kernel D takes order <= K and K + order - 1 <= "
+                         f"128, not K = {K}, order = {order}")
+    for name, smem in (("D1", spread_smem(K, order, w.element_size())),
+                       ("D2", interp_smem(K, order, w.element_size()))):
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"kernel {name} needs {smem} B of shared memory "
+                             f"at K = {K}: over the 227 KB of an SM")
     return order
 
 
 def spread_slab_cuda(w, nearpt, q, rows, K, scap):
-    """Kernel D1: (K^3,) grid; one plane-spread and one fold launch."""
+    """Kernel D1: (K^3,) grid of the atoms in the slab rows (slab_bins'
+    order); one launch."""
     order = _check(w, nearpt, rows, K, scap)
     f = w.dtype
     _build.require(q, f, (w.shape[0],), "q")
-    planes = torch.empty((K, order, K, K), dtype=f, device=w.device)
     grid = torch.empty(K ** 3, dtype=f, device=w.device)
-    fn = _build.function("pme_slab_spread_" + _build.suffix(f), 7, 3)
+    fn = _build.function("pme_slab_spread_" + _build.suffix(f), 6, 3)
     _build.check(fn(w.data_ptr(), nearpt.data_ptr(), q.data_ptr(),
-                    rows.data_ptr(), planes.data_ptr(), grid.data_ptr(),
-                    _build.stream_ptr(w), K, order, scap), "D1")
+                    rows.data_ptr(), grid.data_ptr(), _build.stream_ptr(w),
+                    K, order, scap), "D1")
     _build.launches["D1"] += 1
     return grid
 
 
 def interp_slab_cuda(gQ, w, dw, nearpt, rows, K, scap):
-    """Kernel D2: (K*scap, 4) per slab row [dE/dq, dE/du1..3]; one
-    per-offset contraction and one fold launch."""
+    """Kernel D2: (K*scap, 4) per slab row [dE/dq, dE/du1..3] (slab_bins'
+    order), zero on empty rows; one launch."""
     order = _check(w, nearpt, rows, K, scap)
     f = w.dtype
     _build.require(dw, f, w.shape, "dw")
     _build.require(gQ, f, (K ** 3,), "gQ")
-    part = torch.empty((K * scap, order, 4), dtype=f, device=w.device)
     out = torch.empty((K * scap, 4), dtype=f, device=w.device)
-    fn = _build.function("pme_slab_interp_" + _build.suffix(f), 8, 3)
+    fn = _build.function("pme_slab_interp_" + _build.suffix(f), 7, 3)
     _build.check(fn(gQ.data_ptr(), w.data_ptr(), dw.data_ptr(),
-                    nearpt.data_ptr(), rows.data_ptr(), part.data_ptr(),
-                    out.data_ptr(), _build.stream_ptr(w), K, order, scap),
-                 "D2")
+                    nearpt.data_ptr(), rows.data_ptr(), out.data_ptr(),
+                    _build.stream_ptr(w), K, order, scap), "D2")
     _build.launches["D2"] += 1
     return out
 

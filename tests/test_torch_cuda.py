@@ -9,6 +9,7 @@ Tolerances: fp64 1e-10 relative to the largest reference value; fp32 as
 chip_smoke.py states them (the Pallas tests' own, or a loosening for the
 other summation order of atomics and tiles)."""
 
+import functools
 import pathlib
 
 import numpy as np
@@ -153,13 +154,10 @@ def test_column_kernel_on_the_10k_lattice(cells, rcut):
         _close(got[:, 6:].double().sum(0), ref[:, 6:].double().sum(0), rtol)
 
 
-def test_slab_kernels_match_plain():
-    _need_card()
-    rng = np.random.default_rng(3)
-    n, K, order, L = 3000, 32, 6, 31.0
-    x0, q0 = rng.uniform(0, L, (n, 3)), rng.uniform(-1, 1, n)
-    gQ0 = rng.standard_normal(K ** 3)
-    scap = pme_slab.suggest_slab_cap(n, K)
+def _slab_check(x0, q0, L, K, order, scap, seed=0):
+    """D1 and D2 against their plain versions on the slab rows of x0, in
+    both dtypes, each giving the same bits on two calls."""
+    gQ0 = np.random.default_rng(seed).standard_normal(K ** 3)
     for f, rtol, grtol in DTYPES:
         x = torch.tensor(x0, dtype=f, device="cuda")
         q = torch.tensor(q0, dtype=f, device="cuda")
@@ -167,16 +165,60 @@ def test_slab_kernels_match_plain():
         w, dw, nearpt = pme_spread.spline_setup(x, box, K, order)
         slot, rows, over = pme_slab.slab_bins(nearpt, K, order, scap)
         assert not bool(over)
-        _close(pme_slab.spread_slab_cuda(w, nearpt, q, rows, K, scap),
-               pme_slab.spread_slab_plain(w, nearpt, q, rows, K), rtol)
+        grid = pme_slab.spread_slab_cuda(w, nearpt, q, rows, K, scap)
+        _close(grid, pme_slab.spread_slab_plain(w, nearpt, q, rows, K), rtol)
         gQ = torch.tensor(gQ0, dtype=f, device="cuda")
-        _close(pme_slab.interp_slab_cuda(gQ, w, dw, nearpt, rows, K, scap),
-               pme_slab.interp_slab_plain(gQ, w, dw, nearpt, rows, K), grtol)
-        # D1 is deterministic: two launches agree bit for bit
-        assert torch.equal(pme_slab.spread_slab_cuda(w, nearpt, q, rows, K,
-                                                     scap),
-                           pme_slab.spread_slab_cuda(w, nearpt, q, rows, K,
-                                                     scap))
+        out = pme_slab.interp_slab_cuda(gQ, w, dw, nearpt, rows, K, scap)
+        _close(out, pme_slab.interp_slab_plain(gQ, w, dw, nearpt, rows, K),
+               grtol)
+        # no atomics: two launches agree bit for bit
+        assert torch.equal(grid, pme_slab.spread_slab_cuda(w, nearpt, q, rows,
+                                                           K, scap))
+        assert torch.equal(out, pme_slab.interp_slab_cuda(gQ, w, dw, nearpt,
+                                                          rows, K, scap))
+
+
+def test_slab_kernels_match_plain():
+    _need_card()
+    rng = np.random.default_rng(3)
+    n, K, order, L = 3000, 32, 6, 31.0
+    x0, q0 = rng.uniform(0, L, (n, 3)), rng.uniform(-1, 1, n)
+    _slab_check(x0, q0, L, K, order, pme_slab.suggest_slab_cap(n, K))
+
+
+@functools.lru_cache(maxsize=None)
+def _water_10k():
+    d = pathlib.Path(__file__).resolve().parents[1] / "examples" / "water_10k"
+    _, frame, _, topo = load_deck(d / "in.gro", d / "ff.pmt", d / "top.top",
+                                  d / "sim.pmt", "cpu", precision="fp64")
+    return frame.xyz, topo.charge.numpy(), float(frame.box[0, 0])
+
+
+# the 10k lattice at its slab cap and at the cap a melting run regrows to;
+# a clumped 10k box whose fullest slab holds ~2.7x the mean; order 4; K
+# that are not a multiple of the band of 8 y rows (20, and 12, whose band
+# window covers every y)
+SLAB_CASES = ["10k_280", "10k_520", "10k_clumped", "order4", "K20", "K12"]
+
+
+@pytest.mark.parametrize("case", SLAB_CASES)
+def test_slab_kernels_on_the_10k_box_and_edge_shapes(case):
+    _need_card()
+    rng = np.random.default_rng(11)
+    if case.startswith("10k"):
+        x0, q0, L = _water_10k()
+        K, order = 64, 6
+        if case == "10k_clumped":
+            x0 = rng.uniform(0, L, x0.shape)
+            # 270 more atoms in the slab of x corner 0: ~426 against 156
+            x0[:270, 0] = rng.uniform(5.1, 5.9, 270) * L / K
+        scap = 280 if case == "10k_280" else 520
+        _slab_check(x0, q0, L, K, order, scap)
+        return
+    K, order = {"order4": (32, 4), "K20": (20, 6), "K12": (12, 6)}[case]
+    n, L = 40 * K, 2.0 * K
+    x0, q0 = rng.uniform(0, L, (n, 3)), rng.uniform(-1, 1, n)
+    _slab_check(x0, q0, L, K, order, pme_slab.suggest_slab_cap(n, K))
 
 
 def test_scale_path_forces_cuda_match_cpu(tmp_path):
@@ -250,10 +292,11 @@ def _perstate_inputs(S, U, K, f, seed=0):
 # chunk (dW: Mh 84 in 16- or 32-deep chunks at S = 1; dBC: 48 states in
 # chunks of 7 in fp64), the flagship's S = 48 / 80, the 10k shapes, and
 # rows that 16-byte copies cannot take (Mh 45 = K 9 in both types, Mh 66
-# = K 11 in fp32): element loads
+# = K 11 in fp32): element loads; the 10k deck's shapes after its state
+# cap regrows 32 -> 64, and that cap's small tier of 48
 PERSTATE_SHAPES = [(1, 13, 12), (7, 28, 12), (7, 321, 32), (8, 32, 16),
                    (48, 192, 32), (80, 320, 32), (80, 13, 64), (32, 128, 64),
-                   (5, 20, 9), (3, 12, 11)]
+                   (5, 20, 9), (3, 12, 11), (64, 256, 64), (48, 192, 64)]
 
 
 @pytest.mark.parametrize("S,U,K", PERSTATE_SHAPES)

@@ -150,8 +150,8 @@ def test_bin_atoms_overflow(tmp_path):
 
 def test_cell_overflow_reaches_the_step_flags(tmp_path):
     """The forward's own binning reports the overflow, and the step's flag
-    sync names it (the simulation loop then regrows); an EVB state-cap
-    overflow raises."""
+    sync names it (the simulation loop then regrows), beside an EVB
+    state-cap overflow."""
     frame, _, _, tsys, ttopo = _setup(tmp_path, "lj")
     box = torch.tensor(frame.box)
     flags = []
@@ -169,8 +169,8 @@ def test_cell_overflow_reaches_the_step_flags(tmp_path):
                        False, False)
     assert flags == [False, True]
     fe.evb_overflow = torch.ones((), dtype=torch.bool)
-    with pytest.raises(integrators.CapacityOverflow, match="EVB state cap"):
-        integrators._sync_flags(SimpleNamespace(overflow=no), fe, no)
+    assert integrators._sync_flags(SimpleNamespace(overflow=no), fe, no) == (
+        ("kernel A cell capacity", "EVB state cap"), False, False)
 
 
 def test_half_kernel_shared_memory_fits_and_raises():

@@ -138,3 +138,55 @@ def test_evb_base_grid_takes_the_slab_path(tmp_path):
     np.testing.assert_allclose(got.force.numpy(), ref.force.numpy(),
                                rtol=1e-10,
                                atol=1e-10 * float(ref.force.abs().max()))
+
+
+@pytest.mark.parametrize("clumped", [False, True])
+def test_slab_rows_ascend_in_y_corner(clumped):
+    """slab_bins keeps each slab's atoms in ascending y corner (kernel D
+    finds a band's atoms by that order), then -1 rows; an atom past its
+    slab's capacity goes to the dump row, and the overflow flag is the JAX
+    package's pme_slab_overflow."""
+    rng = np.random.default_rng(9)
+    n, K, L, order = 300, 16, 12.0, 6
+    x = rng.uniform(0, L, (n, 3))
+    if clumped:
+        x[:60, 0] = rng.uniform(0, 0.3, 60)
+    box = np.eye(3) * L
+    w, dw, nearpt = pme_spread.spline_setup(torch.tensor(x),
+                                            torch.tensor(box), K, order)
+    c1 = np.mod(nearpt[:, 0].numpy() - (order - 1), K)
+    c2 = np.mod(nearpt[:, 1].numpy() - (order - 1), K)
+    counts = np.bincount(c1, minlength=K)
+    scap = suggest_slab_cap(n, K)
+    slot, rows, over = pme_slab.slab_bins(nearpt, K, order, scap)
+    assert bool(over) == clumped == bool(pme_slab_overflow(
+        jnp.asarray(x), jnp.asarray(box), K, order, scap))
+    slot, rows = slot.numpy(), rows.numpy().reshape(K, scap)
+    for b in range(K):
+        held = min(counts[b], scap)
+        atoms = rows[b, :held]
+        assert (atoms >= 0).all() and (rows[b, held:] == -1).all()
+        assert (c1[atoms] == b).all()
+        assert (np.diff(c2[atoms]) >= 0).all()
+        assert (slot[atoms] == b * scap + np.arange(held)).all()
+    dumped = slot == K * scap
+    assert dumped.sum() == np.maximum(counts - scap, 0).sum()
+    assert sorted(rows[rows >= 0].tolist() + np.flatnonzero(dumped)
+                  .tolist()) == list(range(n))
+
+
+def test_kernel_d_shared_memory_does_not_grow_with_scap():
+    """D1's and D2's shared memory is a function of K, the order and the
+    dtype (no scap argument): at the 10k deck's K = 64 in fp64 four blocks
+    of each fit an SM, and every K the slab path takes (K + order - 1 <=
+    128) fits one."""
+    for order in (4, 6):
+        for itemsize in (4, 8):
+            for K in range(order, 129 - order + 1):
+                assert pme_slab.spread_smem(K, order, itemsize) \
+                    <= pme_slab.SMEM_LIMIT
+                assert pme_slab.interp_smem(K, order, itemsize) \
+                    <= pme_slab.SMEM_LIMIT
+    per_block = pme_slab.SMEM_LIMIT // 4 - 1024     # 1 KB reserved a block
+    assert pme_slab.spread_smem(64, 6, 8) <= per_block
+    assert pme_slab.interp_smem(64, 6, 8) <= per_block
