@@ -16,7 +16,9 @@ Phases, in order, one line each (any failure raises, exit code != 0):
      the 10,000-atom shapes (the lattice of examples/water_10k/, cells
      (10, 10, 10, 24), K = 64, scap 280, S = 32), A' under
      set_stencil_impl("half"), B beside D on the same atoms; two calls
-     of A', A'', C2, D1 and D2 must agree bit for bit;
+     of A, A', A'', B2, C2, D1 and D2 must agree bit for bit (B1 adds
+     with atomics); an empty kernel's device_ms, the launch floor, is
+     printed beside them;
   4. full force evaluations in fp64, CUDA (kernels) against CPU (plain):
      the flagship and the 10k lattice;
   5. the main paths through the CLI, each with the launch counts set to 0
@@ -185,6 +187,13 @@ def device_ms(fn, calls=5):
     return us / calls / 1e3 if us > 0 else None
 
 
+def launch_floor_ms():
+    """device_ms of an empty kernel (torch.cuda._sleep(0)): the launch
+    floor a tiny kernel's device time is read against."""
+    import torch
+    return device_ms(lambda: torch.cuda._sleep(0))
+
+
 def nvidia_smi():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -298,11 +307,10 @@ def pair_kernels(out, tag, system, x, box, topo, names):
                 e2, r2, ok2 = close(got[:, 6:].double().sum(0),
                                     ref[:, 6:].double().sum(0),
                                     **TOL32["pair_e"])
-            if impl != "full":
-                # A' and A'' fold their j sides in a fixed order: a second
-                # call must give the same bits
-                check(torch.equal(got, fn()),
-                      f"kernel {name} ({tag}) differs between two calls")
+            # every row is summed in a fixed order (A' and A'' fold their
+            # j sides in one too): a second call must give the same bits
+            check(torch.equal(got, fn()),
+                  f"kernel {name} ({tag}) differs between two calls")
             record(out, name, (max(e1, e2), max(r1, r2)),
                    ok1 and ok2, fn, plain, nbytes(cm, tabs, box) + nbytes(cm),
                    FLOP_PAIR * n_pairs, tag)
@@ -407,6 +415,10 @@ def spread_kernels(out, tag, x, box, topo, K, order, rng, key):
     got = torch.cat([t.reshape(-1) for t in sp.gather_cuda(*gargs)])
     ref = torch.cat([t.reshape(-1) for t in sp.gather_plain(*gargs)])
     err = close(got, ref, **(TOL64 if fp64 else TOL32["gather"]))
+    # B2 sums each atom in a fixed order: a second call gives the same bits
+    check(torch.equal(got, torch.cat([t.reshape(-1) for t in
+                                      sp.gather_cuda(*gargs)])),
+          f"kernel B2{key} ({tag}) differs between two calls")
     record(out, "B2" + key, err[:2], err[2], lambda: sp.gather_cuda(*gargs),
            lambda: sp.gather_plain(*gargs),
            nbytes(*gargs[:-1]) + 4 * n * w.element_size(),
@@ -484,6 +496,8 @@ def phase_kernels(results):
         perstate_kernels(out, tag, x, box, topo, system, cbw,
                          system.evb_max_states, rng, "@10k")
         torch.cuda.synchronize()
+        log(f"  {tag}: empty kernel device_ms (launch floor) "
+            f"{fmt(launch_floor_ms())}")
         ten = ("A@10k", "A'", "A''", "B1@10k", "D1", "B2@10k", "D2")
         row = ", ".join(f"{k} {out[k]['ms']:.4f} / "
                         f"{fmt(out[k]['device_ms'])}" for k in ten)

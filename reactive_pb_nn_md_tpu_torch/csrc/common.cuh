@@ -32,6 +32,14 @@ __device__ __forceinline__ T warp_sum(T v) {
     return v;
 }
 
+// the warp's sum in every lane; the xor butterfly adds the same two
+// values in every pair of lanes, so all lanes get the same bits
+template <typename T>
+__device__ __forceinline__ T warp_allsum(T v) {
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+}
+
 // Dynamic shared memory above 48 KB must be allowed per kernel first.
 static inline int allow_smem(const void* kernel, size_t bytes) {
     if (bytes <= 48 * 1024) return 0;

@@ -13,11 +13,28 @@
 // kernel.  All three share pair_math (erfc-Ewald + LJ / SAPT
 // Buckingham-Tang-Toennies), so they compute one function.
 //
-// A: one warp per i slot; the lanes stride over the 27*ccap stencil
-// candidates and the warp reduces the row, so each row is written once,
-// with no atomics.  Every ordered pair is evaluated (energies carry 1/2).
-// Bound on the H100: arithmetic (erfc, exp, divides) on the candidate
-// pairs, ~15% of which are inside the cutoff; the candidates hit L1/L2.
+// A (rs_full_kernel): every ordered pair, so each i row has one writer
+// and needs no j-side sum: no fold launch, no atomics, no scratch.  On
+// the flagship box (cells (4, 4, 4, 24), 649 atoms) it is bound by
+// latency, not bytes or operations: 58% of the slots are empty, a real
+// atom has ~270 occupied stencil candidates of which ~38 lie inside the
+// cutoff, and the pair math (erfc, exp, divides in fp64) is a long
+// dependent chain.  So a block of 8 warps owns one cell, or one of
+// `parts` interleaved slices of its atoms (2 at the flagship: 128
+// blocks, one an SM, ran faster than 192 or 256); it stages the 27
+// cells' slots in shared memory in one round of independent loads
+// issued before anything waits on a load, and lists the occupied ones
+// (ballots, a warp scan).  A warp takes one i atom, or one 32-aligned
+// part of its candidate list when the block has fewer atoms than warps:
+// it runs the cheap test (molecule ids, r2 < rcut2 under the minimum
+// image, 1/L precomputed) on 4 x 32 candidates a step with no branch,
+// ballots append the survivors to a per-warp ring in candidate order,
+// and pair_math runs on 32 ring entries at a time, in full lanes.  No
+// integer division or fp64 divide is left per candidate.  Sums run in an
+// order fixed by the input (lane-strided, then a butterfly, then the
+// parts in order): two calls give the same bits.  Shared memory grows
+// with ccap alone (full_smem_t).  Empty rows are written as zeros by the
+// cell's part 0.  tools/full_phases.py times its phases.
 //
 // A' and A'' evaluate each unordered pair once: the self cell's strict
 // upper triangle plus the 13 lexicographically positive neighbor cells
@@ -44,7 +61,7 @@ template <typename T>
 struct PairConst {
     const T* stab;          // (n_tab, T, T) parameter tables, shared memory
     int T_, TT, has_sapt;
-    T Lx, Ly, Lz, rcut2, alpha, conv, two_a_pi;
+    T Lx, Ly, Lz, iLx, iLy, iLz, rcut2, alpha, conv, two_a_pi;
 };
 
 template <typename T>
@@ -59,6 +76,9 @@ __device__ __forceinline__ PairConst<T> pair_const(
     P.Lx = box[0];                     // orthorhombic box
     P.Ly = box[4];
     P.Lz = box[8];
+    P.iLx = (T)1 / P.Lx;               // the minimum image's 1/L, once
+    P.iLy = (T)1 / P.Ly;
+    P.iLz = (T)1 / P.Lz;
     P.rcut2 = rcut2;
     P.alpha = alpha;
     P.conv = conv;
@@ -74,9 +94,9 @@ __device__ __forceinline__ T pair_r2(T xi, T yi, T zi, T xj, T yj, T zj,
     dx = xi - xj;
     dy = yi - yj;
     dz = zi - zj;
-    dx -= P.Lx * t_rint(dx * ((T)1 / P.Lx));
-    dy -= P.Ly * t_rint(dy * ((T)1 / P.Ly));
-    dz -= P.Lz * t_rint(dz * ((T)1 / P.Lz));
+    dx -= P.Lx * t_rint(dx * P.iLx);
+    dy -= P.Ly * t_rint(dy * P.iLy);
+    dz -= P.Lz * t_rint(dz * P.iLz);
     return dx * dx + dy * dy + dz * dz;
 }
 
@@ -137,87 +157,272 @@ __device__ __forceinline__ void pair_math(T r2, T qi, T qj, int ti, int tj,
     }
 }
 
-// Slot i (position, charge, type, molecule) against packed slot pj.
-// False when the pair is not inter-molecular or outside the cutoff; else
-// d = xi - xj under the minimum image and pair_math's terms.
-template <typename T>
-__device__ __forceinline__ bool pair_eval(
-        const T* __restrict__ pj, T xi, T yi, T zi, T qi, int ti, T moli,
-        const PairConst<T>& P, T& dx, T& dy, T& dz, T& s_el, T& s_v,
-        T& e_el, T& e_v) {
-    const T molj = pj[5];
-    if (molj < (T)0 || molj == moli) return false;
-    const T r2 = pair_r2(xi, yi, zi, pj[0], pj[1], pj[2], P, dx, dy, dz);
-    if (!(r2 < P.rcut2)) return false;
-    pair_math(r2, qi, pj[3], ti, (int)t_rint(pj[4]), P, s_el, s_v, e_el,
-              e_v);
-    return true;
-}
-
 template <typename T>
 __device__ __forceinline__ void load_tabs(const T* __restrict__ tabs, T* stab,
                                           int n) {
     for (int k = threadIdx.x; k < n; k += blockDim.x) stab[k] = tabs[k];
 }
 
+// Offset k of the full stencil: self first (k = 0), then the other 26 in
+// lexicographic order (_offsets(False) of the TPU kernel, self moved to
+// the front so that a cell's own atoms open the candidate list);
+// tests/test_torch_realspace_pair.py mirrors it.  Divisions by constants
+// only.
+__device__ __forceinline__ void full_off(int k, int& o1, int& o2, int& o3) {
+    const int l = k == 0 ? 13 : k - 1 + (k >= 14);   // lexicographic index
+    o1 = l / 9 - 1;
+    o2 = (l / 3) % 3 - 1;
+    o3 = l % 3 - 1;
+}
+
+#define FULL_WARPS 8                // warps a block of kernel A
+#define FULL_THREADS (32 * FULL_WARPS)
+#define FULL_ILP 4                  // groups of 32 candidates a filter step
+#define FULL_RING 256               // a warp's survivor ring (> 31 + 32 ILP)
+#define FULL_BATCH 4                // slots a thread stages in one round
+
+// Shared memory of rs_full_kernel in bytes (the wrapper's check_full_smem
+// mirrors it).  With N = 27 ccap staged slots, R = max(ccap, FULL_WARPS)
+// partial rows and ceil(N / 32) occupancy words: T values [tables | x,
+// y, z, q (N each) | partial rows (8 R)], then ints [type, mol, occupied
+// list (N each) | occupancy words | rings (FULL_WARPS x FULL_RING)].
+// Nothing in it depends on the grid's size.
 template <typename T>
-__global__ void rs_pair_kernel(const T* __restrict__ cm,
-                               const T* __restrict__ tabs,
-                               const T* __restrict__ box,
-                               T* __restrict__ out,
-                               int nc1, int nc2, int nc3, int ccap,
-                               int T_, int n_tab, int has_sapt,
-                               T rcut2, T alpha, T conv) {
+static size_t full_smem_t(int n_tabv, int ccap) {
+    const size_t N = 27 * (size_t)ccap;
+    const size_t R = ccap > FULL_WARPS ? ccap : FULL_WARPS;
+    return ((size_t)n_tabv + 4 * N + 8 * R) * sizeof(T)
+           + (3 * N + (N + 31) / 32 + FULL_WARPS * FULL_RING) * sizeof(int);
+}
+
+// one packed row's [x y z q type mol] (16-byte loads: the wrapper checks
+// the alignment)
+__device__ __forceinline__ void load_row(const double* r, double& x,
+                                         double& y, double& z, double& q,
+                                         double& t, double& m) {
+    const double2 a = __ldg(reinterpret_cast<const double2*>(r));
+    const double2 b = __ldg(reinterpret_cast<const double2*>(r) + 1);
+    const double2 c = __ldg(reinterpret_cast<const double2*>(r) + 2);
+    x = a.x; y = a.y; z = b.x; q = b.y; t = c.x; m = c.y;
+}
+__device__ __forceinline__ void load_row(const float* r, float& x, float& y,
+                                         float& z, float& q, float& t,
+                                         float& m) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(r));
+    const float2 b = __ldg(reinterpret_cast<const float2*>(r) + 2);
+    x = a.x; y = a.y; z = a.z; q = a.w; t = b.x; m = b.y;
+}
+
+// (c + o) mod n for c in [0, n), o in {-1, 0, 1}
+__device__ __forceinline__ int wrap1(int c, int o, int n) {
+    const int a = c + o;
+    return a < 0 ? a + n : a >= n ? a - n : a;
+}
+
+// Kernel A: block (c, part) over the full stencil of cell c, for the
+// atoms i = part, part + parts, ... of the cell's occupied slots.
+//  - stage: staged slot u = k ccap + s is slot s of stencil cell k (self
+//    first); every thread walks its slots with no division by a run-time
+//    value, finds the cell by full_off and a wrap, and loads the rows of
+//    FULL_BATCH slots with 16-byte loads before storing any (one round
+//    of independent loads at ccap <= 37); a ballot a warp keeps each 32
+//    slots' occupancy;
+//  - list: every warp scans the occupancy words' counts (shuffles), and
+//    the occupied slots are listed in u order (one barrier in all);
+//  - items: m atoms a block; an atom's candidate list is cut into P
+//    32-aligned parts when m < FULL_WARPS (P = FULL_WARPS / m), so that
+//    every warp has work; warp w takes items w, w + FULL_WARPS, ...;
+//  - per item: filter FULL_ILP x 32 candidates a step (ballots -> ring),
+//    pair_math on 32 ring entries whenever 32 wait, and on the rest at
+//    the end; the warp's 8 sums by butterfly into the item's partial row;
+//  - out: each atom's row = its P partial rows in order (energies
+//    halved), to its slot; part 0 writes the empty slots' zeros.
+template <typename T>
+__global__ void __launch_bounds__(FULL_THREADS)
+rs_full_kernel(const T* __restrict__ cm, const T* __restrict__ tabs,
+               const T* __restrict__ box, T* __restrict__ out, int nc1,
+               int nc2, int nc3, int ccap, int T_, int n_tab, int has_sapt,
+               T rcut2, T alpha, T conv) {
     extern __shared__ unsigned char smem_raw[];
+    const int n_tabv = n_tab * T_ * T_, N = 27 * ccap, NW = (N + 31) >> 5;
+    const int R = ccap > FULL_WARPS ? ccap : FULL_WARPS;
     T* stab = reinterpret_cast<T*>(smem_raw);
-    load_tabs(tabs, stab, n_tab * T_ * T_);
-    __syncthreads();
-    const PairConst<T> P = pair_const(stab, box, T_, has_sapt, rcut2, alpha,
-                                      conv);
-
-    const int lane = threadIdx.x & 31;
-    const int i = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-    const int n_slots = nc1 * nc2 * nc3 * ccap;
-    if (i >= n_slots) return;
-
-    const T* own = cm + (size_t)i * 8;
-    const T xi = own[0], yi = own[1], zi = own[2], qi = own[3];
-    const int ti = (int)t_rint(own[4]);
-    const T moli = own[5];
-    const int c = i / ccap;
+    T* sx = stab + n_tabv;
+    T* sy = sx + N;
+    T* sz = sy + N;
+    T* sq = sz + N;
+    T* prow = sq + N;
+    int* sty = reinterpret_cast<int*>(prow + 8 * R);
+    int* smol = sty + N;
+    int* lst = smol + N;
+    unsigned* occw = reinterpret_cast<unsigned*>(lst + N);
+    int* ring = reinterpret_cast<int*>(occw + NW);
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const unsigned lt = (1u << lane) - 1u;
+    const int c = blockIdx.x, part = blockIdx.y, parts = gridDim.y;
     const int c1 = c / (nc2 * nc3), c2 = (c / nc3) % nc2, c3 = c % nc3;
 
-    T g[6] = {0, 0, 0, 0, 0, 0};
-    T e_el = 0, e_vdw = 0;
-    const int J = 27 * ccap;
-    if (moli >= (T)0) {
-        for (int jj = lane; jj < J; jj += 32) {
-            const int k = jj / ccap;
-            const int o1 = k / 9 - 1, o2 = (k / 3) % 3 - 1, o3 = k % 3 - 1;
-            const int nb = (((c1 + o1 + nc1) % nc1) * nc2
-                            + (c2 + o2 + nc2) % nc2) * nc3
-                           + (c3 + o3 + nc3) % nc3;
-            const int j = nb * ccap + (jj - k * ccap);
-            if (j == i) continue;
-            T dx, dy, dz, s_el, s_v, ee, ev;
-            if (!pair_eval(cm + (size_t)j * 8, xi, yi, zi, qi, ti, moli, P,
-                           dx, dy, dz, s_el, s_v, ee, ev))
-                continue;
-            e_el += ee;
-            e_vdw += ev;
-            g[0] -= s_el * dx; g[1] -= s_el * dy; g[2] -= s_el * dz;
-            g[3] -= s_v * dx;  g[4] -= s_v * dy;  g[5] -= s_v * dz;
+    // stage: thread tid takes u = tid, tid + FULL_THREADS, ..., the rows
+    // of FULL_BATCH of them loaded before any is stored, and before the
+    // tables and the box (a warp issues in order: a store that waits for
+    // its load would hold back the loads behind it)
+    const int dk = FULL_THREADS / ccap, ds = FULL_THREADS - dk * ccap;
+    int k = tid / ccap, s = tid - k * ccap;
+    PairConst<T> P;
+    for (int u0 = 0; u0 < N; u0 += FULL_BATCH * FULL_THREADS) {
+        T v[FULL_BATCH][6];
+#pragma unroll
+        for (int r = 0; r < FULL_BATCH; ++r) {
+            v[r][5] = (T)-1;
+            if (u0 + r * FULL_THREADS + tid < N) {
+                int o1, o2, o3;
+                full_off(k, o1, o2, o3);
+                const int nb = (wrap1(c1, o1, nc1) * nc2
+                                + wrap1(c2, o2, nc2)) * nc3
+                               + wrap1(c3, o3, nc3);
+                load_row(cm + ((size_t)nb * ccap + s) * 8, v[r][0], v[r][1],
+                         v[r][2], v[r][3], v[r][4], v[r][5]);
+            }
+            k += dk;
+            s += ds;
+            if (s >= ccap) {
+                s -= ccap;
+                ++k;
+            }
+        }
+        if (u0 == 0) {
+            load_tabs(tabs, stab, n_tabv);
+            P = pair_const(stab, box, T_, has_sapt, rcut2, alpha, conv);
+        }
+#pragma unroll
+        for (int r = 0; r < FULL_BATCH; ++r) {
+            const int u = u0 + r * FULL_THREADS + tid;
+            const bool occ = v[r][5] >= (T)0;
+            if (u < N) {
+                sx[u] = v[r][0];
+                sy[u] = v[r][1];
+                sz[u] = v[r][2];
+                sq[u] = v[r][3];
+                sty[u] = (int)t_rint(v[r][4]);
+                smol[u] = occ ? (int)t_rint(v[r][5]) : -1;
+            }
+            const unsigned bal = __ballot_sync(0xffffffffu, occ);
+            const int w = ((u0 + r * FULL_THREADS) >> 5) + warp;
+            if (lane == 0 && w < NW) occw[w] = bal;
         }
     }
-    for (int m = 0; m < 6; ++m) g[m] = warp_sum(g[m]);
-    e_el = warp_sum(e_el);
-    e_vdw = warp_sum(e_vdw);
-    if (lane == 0) {
-        T* o = out + (size_t)i * 8;
-        for (int m = 0; m < 6; ++m) o[m] = g[m];
-        o[6] = (T)0.5 * e_el;
-        o[7] = (T)0.5 * e_vdw;
+    __syncthreads();
+
+    // list: the occupied u in order, each at the occupied count of the
+    // words before its own (a warp scan of 32 words at a time, in every
+    // warp) plus its rank in its word; n0 of them in the self cell (u <
+    // ccap), Nj in all
+    int Nj = 0, n0 = 0;
+    for (int g = 0, u0 = 0; g < NW; g += 32) {
+        const int w = g + lane, lo = w << 5;
+        const unsigned b = w < NW ? occw[w] : 0u;
+        const int cnt = __popc(b);
+        int incl = cnt;
+        for (int o = 1; o < 32; o <<= 1) {
+            const int t = __shfl_up_sync(0xffffffffu, incl, o);
+            if (lane >= o) incl += t;
+        }
+        n0 += warp_allsum(lo >= ccap ? 0
+                          : __popc(ccap - lo >= 32
+                                   ? b : b & ((1u << (ccap - lo)) - 1u)));
+        // this thread's words in the group: (u0 >> 5) + warp
+        for (; u0 < N && (u0 >> 5) + warp < g + 32; u0 += FULL_THREADS) {
+            const int q = (u0 >> 5) + warp - g;
+            const int start = Nj + __shfl_sync(0xffffffffu, incl - cnt, q);
+            const unsigned bq = __shfl_sync(0xffffffffu, b, q);
+            if (bq >> lane & 1u) lst[start + __popc(bq & lt)] = u0 + tid;
+        }
+        Nj += __shfl_sync(0xffffffffu, incl, 31);
     }
+    __syncthreads();
+
+    // items: this block's m atoms, each cut into np parts of the list
+    const int m = part < n0 ? (n0 - part + parts - 1) / parts : 0;
+    const int np = m > 0 && m < FULL_WARPS ? FULL_WARPS / m : 1;
+    const int passes = (Nj + 31) >> 5;
+    const int chunk = ((passes + np - 1) / np) << 5;
+    int* rg = ring + warp * FULL_RING;
+    for (int item = warp; item < m * np; item += FULL_WARPS) {
+        const int a = item / np, pc = item - a * np;
+        const int ui = lst[part + parts * a];   // self cell: ui = its slot
+        const T xi = sx[ui], yi = sy[ui], zi = sz[ui], qi = sq[ui];
+        const int ti = sty[ui], moli = smol[ui];
+        const int lo = pc * chunk, hi = min(Nj, lo + chunk);
+        T acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+        int head = 0, nq = 0;
+        auto add = [&](int u) {
+            T dx, dy, dz, s_el, s_v, ee, ev;
+            const T r2 = pair_r2(xi, yi, zi, sx[u], sy[u], sz[u], P, dx,
+                                 dy, dz);
+            pair_math(r2, qi, sq[u], ti, sty[u], P, s_el, s_v, ee, ev);
+            acc[0] -= s_el * dx;
+            acc[1] -= s_el * dy;
+            acc[2] -= s_el * dz;
+            acc[3] -= s_v * dx;
+            acc[4] -= s_v * dy;
+            acc[5] -= s_v * dz;
+            acc[6] += ee;
+            acc[7] += ev;
+        };
+        // FULL_ILP groups of 32 candidates a step, tested with no branch
+        // (indices clamped, then masked) so that their chains overlap;
+        // survivors appended in candidate order
+        for (int b = lo; b < hi; b += 32 * FULL_ILP) {
+            int uu[FULL_ILP];
+            bool keep[FULL_ILP];
+#pragma unroll
+            for (int g = 0; g < FULL_ILP; ++g) {
+                const int n = b + 32 * g + lane;
+                uu[g] = lst[min(n, hi - 1)];
+                T dx, dy, dz;
+                const T r2 = pair_r2(xi, yi, zi, sx[uu[g]], sy[uu[g]],
+                                     sz[uu[g]], P, dx, dy, dz);
+                keep[g] = n < hi && smol[uu[g]] != moli && r2 < P.rcut2;
+            }
+#pragma unroll
+            for (int g = 0; g < FULL_ILP; ++g) {
+                const unsigned bal = __ballot_sync(0xffffffffu, keep[g]);
+                if (keep[g])
+                    rg[(head + nq + __popc(bal & lt)) & (FULL_RING - 1)] =
+                        uu[g];
+                nq += __popc(bal);
+            }
+            __syncwarp();
+            while (nq >= 32) {                  // a full warp of pairs
+                add(rg[(head + lane) & (FULL_RING - 1)]);
+                head = (head + 32) & (FULL_RING - 1);
+                nq -= 32;
+                __syncwarp();
+            }
+        }
+        if (lane < nq) add(rg[(head + lane) & (FULL_RING - 1)]);
+        __syncwarp();
+        T v = 0;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+            const T t = warp_allsum(acc[k]);
+            v = lane == k ? t : v;
+        }
+        if (lane < 8) prow[item * 8 + lane] = v;
+    }
+    __syncthreads();
+
+    // out: rows in order of their parts; part 0 zeros the empty slots
+    T* orow = out + (size_t)c * ccap * 8;
+    for (int e = tid; e < m * 8; e += FULL_THREADS) {
+        const int a = e >> 3, k = e & 7;
+        T v = 0;
+        for (int pc = 0; pc < np; ++pc) v += prow[(a * np + pc) * 8 + k];
+        orow[lst[part + parts * a] * 8 + k] = k < 6 ? v : (T)0.5 * v;
+    }
+    if (part == 0)
+        for (int e = tid; e < ccap * 8; e += FULL_THREADS)
+            if (smol[e >> 3] < 0) orow[e] = (T)0;
 }
 
 // the half stencil: self first, then the 13 lexicographically positive
@@ -505,13 +710,14 @@ __global__ void rs_fold_kernel(const T* __restrict__ own,
 template <typename T>
 static int rs_pair_launch(const void* cm, const void* tabs, const void* box,
                           void* out, void* stream, int nc1, int nc2, int nc3,
-                          int ccap, int T_, int n_tab, int has_sapt,
-                          double rcut2, double alpha, double conv) {
-    const int n_slots = nc1 * nc2 * nc3 * ccap;
-    const int threads = 256;                    // 8 warps = 8 slots
-    const int blocks = (n_slots * 32 + threads - 1) / threads;
-    const size_t shm = (size_t)n_tab * T_ * T_ * sizeof(T);
-    rs_pair_kernel<T><<<blocks, threads, shm, (cudaStream_t)stream>>>(
+                          int ccap, int parts, int T_, int n_tab,
+                          int has_sapt, double rcut2, double alpha,
+                          double conv) {
+    const size_t shm = full_smem_t<T>(n_tab * T_ * T_, ccap);
+    int err = allow_smem((const void*)rs_full_kernel<T>, shm);
+    if (err) return err;
+    rs_full_kernel<T><<<dim3(nc1 * nc2 * nc3, parts), FULL_THREADS, shm,
+                        (cudaStream_t)stream>>>(
         (const T*)cm, (const T*)tabs, (const T*)box, (T*)out, nc1, nc2, nc3,
         ccap, T_, n_tab, has_sapt, (T)rcut2, (T)alpha, (T)conv);
     return (int)cudaGetLastError();
@@ -553,25 +759,18 @@ static int rs_half_launch(const void* cm, const void* tabs, const void* box,
 RS_ENTRY(rs_half_f32, float)
 RS_ENTRY(rs_half_f64, double)
 
-KERNELS_API int rs_pair_f32(const void* cm, const void* tabs,
-                            const void* box, void* out, void* stream,
-                            int nc1, int nc2, int nc3, int ccap, int T_,
-                            int n_tab, int has_sapt, double rcut2,
-                            double alpha, double conv) {
-    return rs_pair_launch<float>(cm, tabs, box, out, stream, nc1, nc2, nc3,
-                               ccap, T_, n_tab, has_sapt, rcut2, alpha,
-                               conv);
-}
-
-KERNELS_API int rs_pair_f64(const void* cm, const void* tabs,
-                            const void* box, void* out, void* stream,
-                            int nc1, int nc2, int nc3, int ccap, int T_,
-                            int n_tab, int has_sapt, double rcut2,
-                            double alpha, double conv) {
-    return rs_pair_launch<double>(cm, tabs, box, out, stream, nc1, nc2, nc3,
-                               ccap, T_, n_tab, has_sapt, rcut2, alpha,
-                               conv);
-}
+#define RS_PAIR_ENTRY(NAME, T)                                               \
+    KERNELS_API int NAME(const void* cm, const void* tabs, const void* box, \
+                         void* out, void* stream, int nc1, int nc2, int nc3, \
+                         int ccap, int parts, int T_, int n_tab,             \
+                         int has_sapt, double rcut2, double alpha,           \
+                         double conv) {                                      \
+        return rs_pair_launch<T>(cm, tabs, box, out, stream, nc1, nc2, nc3,  \
+                                 ccap, parts, T_, n_tab, has_sapt, rcut2,    \
+                                 alpha, conv);                               \
+    }
+RS_PAIR_ENTRY(rs_pair_f32, float)
+RS_PAIR_ENTRY(rs_pair_f64, double)
 
 KERNELS_API const char* kernels_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);

@@ -36,6 +36,16 @@ def geometric_factor(func, p, q_vec, r_OO_vec):
                        torch.where(func == 2, a2, torch.zeros_like(a1)))
 
 
+# |r|^2 (A^2) below which a Zundel atom and a pack entry are one atom:
+# its two routes (a minimum image against the molecule's first atom, the
+# pack minus its lattice shift) agree to a few ulps only, ~1e-6 A at 20 A
+# in fp32, where the JAX package's 1e-12 kept such pairs and their 1/r^2
+# gradients, which cancel between the sweeps only to fp32 rounding
+# (thousands of kJ/mol/A on one atom).  Distinct atoms are never within
+# 1e-3 A, so fp64 results are unchanged.
+_COINCIDENT_R2 = 1e-6
+
+
 def _vex_sum(zx, zq, xg, qg, mask):
     """sum_z sum_g zq_z qg / |zx_z - xg| per state: zx (S, Z, 3), zq
     (S, Z), xg (S, G1, G2, 3) shifted positions, qg / mask broadcastable
@@ -43,7 +53,8 @@ def _vex_sum(zx, zq, xg, qg, mask):
     full and subtraction sweeps)."""
     dr = zx[:, :, None, None, :] - xg[:, None]
     r2 = (dr * dr).sum(-1)                                      # (S, Z, G1, G2)
-    pair = (zq != 0.0)[:, :, None, None] & mask[:, None] & (r2 > 1e-12)
+    pair = ((zq != 0.0)[:, :, None, None] & mask[:, None]
+            & (r2 > _COINCIDENT_R2))
     r2 = torch.where(pair, r2, torch.ones_like(r2))
     t = zq[:, :, None, None] * qg[:, None] / torch.sqrt(r2)
     return torch.where(pair, t, torch.zeros_like(t)).sum((1, 2, 3))

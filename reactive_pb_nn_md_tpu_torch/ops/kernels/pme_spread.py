@@ -7,7 +7,9 @@ _charge_grid_bwd fused in), source ``csrc/pme_spread.cu``.
 The B-spline weights and derivatives come from ops/bspline.py in torch;
 the kernels scatter and gather.  B1 adds each atom's order^3 brick into
 the K^3 grid with atomics under modular wrap (no halo); B2 gives
-dE/dq (N,) and dE/dx (N, 3) from the grid cotangent in one pass.  What
+dE/dq (N,) and dE/dx (N, 3) from the grid cotangent in one pass, one
+warp an atom, with the order compiled in for 4 and 6 and a generic path
+(per-atom tables in shared memory, ``gather_smem``) for any other.  What
 bounds each on the H100 is in the source.  ``spread`` / ``gather`` run the
 kernels for CUDA tensors and the plain versions below for CPU tensors.
 """
@@ -17,6 +19,9 @@ import torch
 from ...utils import pbc
 from ..bspline import bspline_weights_and_derivs
 from . import _build
+
+SMEM_LIMIT = 227 * 1024                 # shared memory a block can use
+_GATHER_WARPS = 4                       # atoms a block of B2
 
 
 def spread_plain(w, nearpt, q, K):
@@ -74,6 +79,22 @@ def spread_cuda(w, nearpt, q, K):
     return grid
 
 
+def gather_smem(order, K, itemsize):
+    """Bytes of shared memory kernel B2 takes: none where the order is
+    compiled in (4 and 6, at most K), else csrc/pme_spread.cu's
+    gather_smem_t (per warp the atom's weights, derivatives and wrapped
+    indices, 3 order each).  ValueError with the numbers when it does not
+    fit one block."""
+    if order in (4, 6) and order <= K:
+        return 0
+    smem = _GATHER_WARPS * 3 * order * (2 * itemsize + 4)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"kernel B2 needs {smem} B of shared memory at "
+                         f"spline order {order} ({itemsize}-byte values), "
+                         f"over the {SMEM_LIMIT} B a block can use")
+    return smem
+
+
 def gather_cuda(gQ, w, dw, nearpt, q, recip, K):
     n, _, order = w.shape
     f = w.dtype
@@ -83,6 +104,7 @@ def gather_cuda(gQ, w, dw, nearpt, q, recip, K):
     _build.require(nearpt, torch.int64, (n, 3), "nearpt")
     _build.require(q, f, (n,), "q")
     _build.require(recip, f, (3, 3), "recip")
+    gather_smem(order, K, w.element_size())
     gq = torch.empty(n, dtype=f, device=w.device)
     gx = torch.empty((n, 3), dtype=f, device=w.device)
     fn = _build.function("pme_gather_" + _build.suffix(f), 9, 3)

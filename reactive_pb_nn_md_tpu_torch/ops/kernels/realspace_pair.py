@@ -44,6 +44,14 @@ _HALF_MIN_CELLS = 200
 # block (csrc/realspace_pair.cu's PAIR_LIST, HALF_THREADS)
 _PAIR_LIST = 256
 _HALF_THREADS = 128
+# A: warps a block and each warp's survivor ring (FULL_WARPS, FULL_RING),
+# and the blocks a launch should at least have: a grid of fewer cells
+# cuts each cell's atoms into parts.  128 (2 parts a cell at the
+# flagship's 64) ran faster than 192 or 256 on the H100, whose 132 SMs
+# then take one block each (tools/time_pair.py --min-blocks; PERF.md)
+_FULL_WARPS = 8
+_FULL_RING = 256
+_FULL_MIN_BLOCKS = 128
 SMEM_LIMIT = 227 * 1024                 # shared memory a block can use
 _STENCIL_IMPL = "auto"                  # "auto" | "full" | "half" | "column"
 # kernel launched by each stencil implementation
@@ -221,17 +229,49 @@ def _check(cm, tabs, cells, box, name):
     return n_tab, T
 
 
+def full_parts(cells):
+    """Blocks per cell of kernel A (the launch is (n_cells, parts)): enough
+    for _FULL_MIN_BLOCKS blocks, at most ccap.  Block (c, p) takes cell
+    c's occupied slots p, p + parts, ...; 2 at the flagship's (4, 4, 4,
+    24), 1 at the 10k lattice's (10, 10, 10, 24)."""
+    nc1, nc2, nc3, ccap = cells
+    return max(1, min(ccap, -(-_FULL_MIN_BLOCKS // (nc1 * nc2 * nc3))))
+
+
+def check_full_smem(n_tabv, cells, itemsize, name="A"):
+    """Bytes of shared memory kernel A takes at `cells`, the layout of
+    csrc/realspace_pair.cu's full_smem_t: per block the 27 stencil cells'
+    staged slots (x, y, z, q: 4 values; type, mol, the occupied list: 3
+    ints), the partial rows (8 values for each of max(ccap, warps)), the
+    occupancy words (one a 32 slots) and the warps' survivor rings.  It
+    grows with ccap, not with the grid.  ValueError with the numbers when
+    it does not fit one block."""
+    ccap = cells[3]
+    n = 27 * ccap
+    smem = ((n_tabv + 4 * n + 8 * max(ccap, _FULL_WARPS)) * itemsize
+            + (3 * n + -(-n // 32) + _FULL_WARPS * _FULL_RING) * 4)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"kernel {name} needs {smem} B of shared memory at "
+                         f"cells {tuple(cells)} ({itemsize}-byte values), "
+                         f"over the {SMEM_LIMIT} B a block can use")
+    return smem
+
+
 def pair_rows_cuda(cm, tabs, cells, box, rcut, alpha, has_sapt):
     """Launch kernel A (box: (3, 3), orthorhombic)."""
     n_tab, T = _check(cm, tabs, cells, box, "A")
     nc1, nc2, nc3, ccap = cells
+    check_full_smem(n_tab * T * T, cells, cm.element_size())
+    if cm.data_ptr() % 16:
+        raise ValueError("kernel A reads cm rows in 16-byte loads: cm must "
+                         "be 16-byte aligned")
     f = cm.dtype
     out = torch.empty_like(cm)
-    fn = _build.function("rs_pair_" + _build.suffix(f), 5, 7, 3)
+    fn = _build.function("rs_pair_" + _build.suffix(f), 5, 8, 3)
     _build.check(fn(cm.data_ptr(), tabs.data_ptr(), box.data_ptr(),
                     out.data_ptr(), _build.stream_ptr(cm), nc1, nc2, nc3,
-                    ccap, T, n_tab, int(bool(has_sapt)), float(rcut) ** 2,
-                    float(alpha), CONV_E2A_KJMOL), "A")
+                    ccap, full_parts(cells), T, n_tab, int(bool(has_sapt)),
+                    float(rcut) ** 2, float(alpha), CONV_E2A_KJMOL), "A")
     _build.launches["A"] += 1
     return out
 

@@ -18,6 +18,7 @@ import torch
 
 from torch_bridge import fixture_deck
 from reactive_pb_nn_md_tpu_torch.topology import build_system, State
+from reactive_pb_nn_md_tpu_torch.convert import load_equilibrated_npz
 from reactive_pb_nn_md_tpu_torch.models import pme
 from reactive_pb_nn_md_tpu_torch.ops import neighbors
 from reactive_pb_nn_md_tpu_torch.ops.kernels import (
@@ -41,27 +42,86 @@ def _close(got, ref, rtol):
                                rtol=rtol, atol=rtol * np.abs(ref).max())
 
 
-@pytest.mark.parametrize("ff", ["lj", "sapt"])
-def test_pair_kernel_matches_plain(tmp_path, ff):
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+EQ_STATE = ROOT / "benchdata" / "eq_flagship_s80.npz"
+
+
+def _deck(name, f):
+    d = ROOT / "examples" / name
+    return load_deck(d / "in.gro", d / "ff.pmt", d / "top.top",
+                     d / "sim.pmt", torch.device("cuda"),
+                     precision="fp64" if f == torch.float64 else "fp32")
+
+
+def _flagship_x(f, fill_cell=False):
+    """(system, x, box, topo) of the equilibrated flagship at its cells
+    (4, 4, 4, 24); fill_cell: 24 atoms moved onto 24 of the 27 sites of a
+    3 x 3 x 3 lattice in cell 0 (1.55 A apart), which fills it to ccap."""
+    _, _, system, _ = _deck("water_msevb", f)
+    state, topo, meta = load_equilibrated_npz(EQ_STATE, "cuda", f)
+    system = system.replace(rs_cells=meta["rs_cells"])
+    x, box = state.x.clone(), state.box
+    if fill_cell:
+        cells = system.rs_cells
+        h = torch.diagonal(box) / torch.tensor(cells[:3], dtype=f,
+                                               device="cuda")
+        slot, _ = rsp.bin_atoms(x, box, cells, system.real_space_cutoff)
+        own = torch.nonzero(slot < cells[3]).flatten()
+        rest = torch.nonzero(slot >= cells[3]).flatten()
+        pick = torch.cat([own, rest[:cells[3] - own.numel()]])
+        g = torch.tensor([(i, j, k) for i in range(3) for j in range(3)
+                          for k in range(3)][:cells[3]], dtype=f,
+                         device="cuda")
+        x[pick] = (g + 0.5) / 3.0 * h
+    return system, x, box, topo
+
+
+# kernel A: the 63-water fixture at cutoff 3.0 (LJ and SAPT), the
+# flagship at its cells, the flagship with one cell filled to ccap, the
+# 10k lattice at (10, 10, 10, 24) under the full stencil
+PAIR_CASES = ["lj", "sapt", "flagship", "full_cell", "10k"]
+
+
+@pytest.mark.parametrize("case", PAIR_CASES)
+def test_pair_kernel_matches_plain(tmp_path, case):
+    """A against the plain sweep (per-slot rows at DTYPES' tolerances),
+    and two calls give the same bits."""
     _need_card()
-    frame, ffr, topr, cfg = fixture_deck(tmp_path, 63, seed=4, cutoff=3.0,
-                                         verlet_cutoff=4.0,
-                                         sapt=ff == "sapt")
-    tsys, topo = build_system(frame, ffr, topr, cfg, device="cuda")
+    if case in ("lj", "sapt"):
+        frame, ffr, topr, cfg = fixture_deck(tmp_path, 63, seed=4,
+                                             cutoff=3.0, verlet_cutoff=4.0,
+                                             sapt=case == "sapt")
+        tsys, topo = build_system(frame, ffr, topr, cfg, device="cuda")
     for f, rtol, _ in DTYPES:
-        x = torch.tensor(frame.xyz, dtype=f, device="cuda")
-        box = torch.tensor(frame.box, dtype=f, device="cuda")
-        slot, over = rsp.bin_atoms(x, box, tsys.rs_cells, 3.0)
+        if case in ("lj", "sapt"):
+            system = tsys
+            x = torch.tensor(frame.xyz, dtype=f, device="cuda")
+            box = torch.tensor(frame.box, dtype=f, device="cuda")
+            charge = topo.charge.to(f)
+        else:
+            if case == "10k":
+                _, frame, system, topo = _deck("water_10k", f)
+                x = torch.as_tensor(frame.xyz, dtype=f, device="cuda")
+                box = torch.as_tensor(frame.box, dtype=f, device="cuda")
+            else:
+                system, x, box, topo = _flagship_x(f, case == "full_cell")
+            charge = topo.charge
+        cells, rcut = system.rs_cells, system.real_space_cutoff
+        slot, over = rsp.bin_atoms(x, box, cells, rcut)
         assert not bool(over)
-        cm = rsp.pack_cells(x, topo.charge.to(f), topo.atom_type,
-                            topo.atom_mol, slot, tsys.rs_cells)
-        tabs = rsp.build_tabs(tsys, f)
-        args = (cm, tabs, tsys.rs_cells)
-        kw = dict(rcut=3.0, alpha=tsys.alpha_sqrt, has_sapt=tsys.has_sapt)
-        got = rsp.pair_rows_cuda(*args, box, **kw)
-        ref = rsp.pair_rows_plain(*args, torch.diagonal(box), **kw)
+        if case == "full_cell":
+            assert int((slot < cells[3]).sum()) == cells[3]
+        cm = rsp.pack_cells(x, charge, topo.atom_type, topo.atom_mol, slot,
+                            cells)
+        tabs = rsp.build_tabs(system, f)
+        kw = dict(rcut=rcut, alpha=system.alpha_sqrt,
+                  has_sapt=system.has_sapt)
+        got = rsp.pair_rows_cuda(cm, tabs, cells, box, **kw)
+        ref = rsp.pair_rows_plain(cm, tabs, cells, torch.diagonal(box), **kw)
         torch.cuda.synchronize()
         _close(got, ref, rtol)
+        assert torch.equal(got, rsp.pair_rows_cuda(cm, tabs, cells, box,
+                                                   **kw))
 
 
 @pytest.mark.parametrize("ff", ["lj", "sapt"])
@@ -275,6 +335,40 @@ def test_spread_and_gather_kernels_match_plain():
         for a, b in zip(pme_spread.gather_cuda(*args),
                         pme_spread.gather_plain(*args)):
             _close(a, b, grtol)
+
+
+@pytest.mark.parametrize("order", [4, 5, 6])
+@pytest.mark.parametrize("K", [16, 32])
+@pytest.mark.parametrize("n", [1, 31, 649])
+def test_gather_kernel_orders_sizes_and_wrap(order, K, n):
+    """B2 against its plain version at the orders compiled in (4, 6) and
+    one the generic path takes (5): atoms spread over the box, a third of
+    them within a grid spacing of a face (their bricks straddle the
+    periodic wrap), and base points moved by -K, +K and +2K (the
+    wrapping of an index off [0, K)); two calls give the same bits."""
+    _need_card()
+    rng = np.random.default_rng(order * 1000 + K * 10 + n)
+    L = 18.6
+    x0 = rng.uniform(0, L, (n, 3))
+    edge = rng.random((n, 3)) < 0.3
+    x0 = np.where(edge, rng.uniform(-0.5, 0.5, (n, 3)) * L / K % L, x0)
+    q0 = rng.uniform(-1, 1, n)
+    gQ0 = rng.standard_normal(K ** 3)
+    shift = torch.tensor(rng.choice([0, 0, -K, K, 2 * K], (n, 3)),
+                         device="cuda")
+    for f, _, grtol in DTYPES:
+        box = torch.eye(3, dtype=f, device="cuda") * L
+        w, dw, nearpt = pme_spread.spline_setup(
+            torch.tensor(x0, dtype=f, device="cuda"), box, K, order)
+        args = (torch.tensor(gQ0, dtype=f, device="cuda"), w, dw,
+                (nearpt + shift).contiguous(),
+                torch.tensor(q0, dtype=f, device="cuda"),
+                pbc.recip_vectors(box).contiguous(), K)
+        got = pme_spread.gather_cuda(*args)
+        for a, b in zip(got, pme_spread.gather_plain(*args)):
+            _close(a, b, grtol)
+        for a, b in zip(got, pme_spread.gather_cuda(*args)):
+            assert torch.equal(a, b)
 
 
 def _perstate_inputs(S, U, K, f, seed=0):

@@ -9,6 +9,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from torch_bridge import example_deck
 from reactive_pb_nn_md_tpu.topology import build_system as jax_build
@@ -97,3 +98,29 @@ def test_hamiltonian_and_forces_match_jax(flagship_evb):
     assert np.abs(tres.force.numpy() - F_j).max() <= 1e-9 * np.abs(F_j).max()
     c_j, c_p = np.asarray(jres.eigenvector), tres.eigenvector.numpy()
     assert min(np.abs(c_p - c_j).max(), np.abs(c_p + c_j).max()) < 1e-9
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_vex_sum_masks_a_coincident_pair_off_by_rounding(dtype):
+    """A Zundel atom meets its own molecule-pack entry through two routes
+    that agree only to a few fp32 ulps (~1e-6 A at 20 A): the pair is one
+    atom and stays masked, value and gradient, as an exact coincidence is.
+    (Kept with the JAX package's 1e-12 A^2, such a pair put thousands of
+    kJ/mol/A on one atom in fp32 on the card, and NVE runs jumped.)"""
+    from reactive_pb_nn_md_tpu_torch.models import coupling
+    zx = torch.tensor([[[20.0, 10.0, 5.0]]], dtype=dtype,
+                      requires_grad=True)                      # (S, Z, 3)
+    zq = torch.tensor([[0.5]], dtype=dtype)
+    far = torch.tensor([21.0, 11.5, 5.5], dtype=dtype)
+    for off in (0.0, 2e-6, 4e-6):
+        near = zx.detach()[0, 0] + torch.tensor([0.0, off, 0.0], dtype=dtype)
+        xg = torch.stack([near, far])[None, None]              # (S, 1, 2, 3)
+        qg = torch.tensor([[[-0.8, 0.4]]], dtype=dtype)
+        mask = torch.ones((1, 1, 2), dtype=torch.bool)
+        v = coupling._vex_sum(zx, zq, xg, qg, mask)
+        g, = torch.autograd.grad(v.sum(), zx)
+        r = torch.linalg.norm(zx.detach()[0, 0] - far)
+        np.testing.assert_allclose(float(v.detach()), 0.5 * 0.4 / float(r),
+                                   rtol=1e-6)
+        ref = -0.5 * 0.4 * (zx.detach()[0, 0] - far) / r ** 3
+        np.testing.assert_allclose(g[0, 0].numpy(), ref.numpy(), rtol=1e-5)

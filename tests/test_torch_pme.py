@@ -92,6 +92,34 @@ def test_gather_plain_matches_autograd():
                                atol=1e-12)
 
 
+def test_gather_shared_memory_and_index_wrap():
+    """Kernel B2's host-side rules: no shared memory where the order is
+    compiled in (4, 6, at most K), the generic path's per-warp tables
+    otherwise, a ValueError with the numbers past a block's limit; and
+    base points off [0, K) wrap as the kernel's wrap_index does (the plain
+    gather, which the kernel is held to, is periodic in them)."""
+    assert pme_spread.gather_smem(6, 32, 8) == 0
+    assert pme_spread.gather_smem(4, 16, 4) == 0
+    assert pme_spread.gather_smem(5, 32, 8) == 4 * 3 * 5 * (2 * 8 + 4)
+    assert pme_spread.gather_smem(6, 4, 8) == 4 * 3 * 6 * (2 * 8 + 4)
+    with pytest.raises(ValueError, match=r"kernel B2 needs \d+ B of shared "
+                                         r"memory at spline order 2000"):
+        pme_spread.gather_smem(2000, 32, 8)
+    x, q, box = _random_system(n=20, seed=7)
+    K, order = 8, 5
+    w, dw, nearpt = pme_spread.spline_setup(torch.tensor(x),
+                                            torch.tensor(box), K, order)
+    rng = np.random.default_rng(8)
+    gQ = torch.tensor(rng.standard_normal(K ** 3))
+    recip = torch.linalg.inv(torch.tensor(box)).T.contiguous()
+    shift = torch.tensor(rng.choice([-2 * K, -K, 0, K, 3 * K], (20, 3)))
+    for a, b in zip(pme_spread.gather_plain(gQ, w, dw, nearpt + shift,
+                                            torch.tensor(q), recip, K),
+                    pme_spread.gather_plain(gQ, w, dw, nearpt,
+                                            torch.tensor(q), recip, K)):
+        assert torch.equal(a, b)
+
+
 def test_delta_charge_grid_matches_jax():
     x, _, box = _random_system(n=30, seed=4)
     K, order = 16, 6

@@ -194,3 +194,67 @@ def test_half_kernel_shared_memory_fits_and_raises():
     with pytest.raises(ValueError, match=r"needs \d+ B of shared memory at "
                                          r"cells \(10, 10, 10, 200\)"):
         rsp.check_half_smem(n_tabv, (10, 10, 10, 200), 8, "A''")
+
+
+def test_full_kernel_shared_memory_fits_and_raises():
+    """Kernel A takes shared memory by ccap alone: it fits one block at the
+    flagship's and the 10k lattice's cells in both dtypes, and at every
+    capacity a cell regrow reaches from them (24 -> 40 -> 64 -> 96), on
+    grids of any length; the check raises with the numbers where a
+    capacity does not fit."""
+    n_tabv = 8 * 4 * 4                     # SAPT tables of 4 types
+    for itemsize in (8, 4):
+        for ccap in (24, 40, 64, 96):
+            sizes = {rsp.check_full_smem(n_tabv, (n, n, n, ccap), itemsize)
+                     for n in (3, 4, 10, 16)}
+            assert len(sizes) == 1 and sizes.pop() <= rsp.SMEM_LIMIT
+    # at the flagship's cells, several blocks fit an SM in fp64
+    assert 5 * rsp.check_full_smem(n_tabv, (4, 4, 4, 24), 8) <= \
+        rsp.SMEM_LIMIT
+    assert rsp.check_full_smem(n_tabv, (4, 4, 4, 24), 8) == (
+        (n_tabv + 4 * 648 + 8 * 24) * 8 + (3 * 648 + 21 + 8 * 256) * 4)
+    with pytest.raises(ValueError, match=r"kernel A needs \d+ B of shared "
+                                         r"memory at cells \(4, 4, 4, 200\)"):
+        rsp.check_full_smem(n_tabv, (4, 4, 4, 200), 8)
+
+
+def test_full_kernel_launch_shape():
+    """Kernel A's blocks per cell: 128 blocks (about one an SM of the
+    H100, measured faster than two) on the flagship's 64 cells, one a cell
+    on grids of 128 cells or more, never more parts than slots; and every
+    occupied slot of a cell goes to exactly one (part, item) of the
+    launch."""
+    assert rsp.full_parts((4, 4, 4, 24)) == 2
+    assert rsp.full_parts((10, 10, 10, 24)) == 1
+    assert rsp.full_parts((3, 3, 3, 2)) == 2
+    assert rsp.full_parts((3, 3, 3, 8)) == 5
+    for cells in ((4, 4, 4, 24), (3, 3, 3, 8), (5, 5, 8, 16)):
+        parts = rsp.full_parts(cells)
+        for n0 in range(cells[3] + 1):
+            seen = []
+            for p in range(parts):           # the kernel's item arithmetic
+                m = -(-(n0 - p) // parts) if p < n0 else 0
+                seen += [p + parts * a for a in range(m)]
+            assert sorted(seen) == list(range(n0))
+
+
+def test_kernel_stencil_orders_follow_jax():
+    """The stencil offsets the CUDA kernels walk are the JAX kernel's
+    (_offsets): the full stencil as a permutation with the cell itself
+    first (the arithmetic of csrc's full_off, mirrored here), and the half
+    stencil in its order (csrc's HALF_OFF table)."""
+    import pathlib
+    import re
+    full = []
+    for k in range(27):
+        m = 13 if k == 0 else k - 1 + (k >= 14)     # lexicographic index
+        full.append((m // 9 - 1, (m // 3) % 3 - 1, m % 3 - 1))
+    ref = [tuple(o) for o in jax_rsp._offsets(False)]
+    assert full == [(0, 0, 0)] + [o for o in ref if o != (0, 0, 0)]
+    src = (pathlib.Path(rsp.__file__).resolve().parents[2] / "csrc"
+           / "realspace_pair.cu").read_text()
+    body = re.search(r"HALF_OFF\[14\]\[3\] = \{(.*?)\};", src,
+                     re.S).group(1)
+    assert [tuple(int(v) for v in t.split(","))
+            for t in re.findall(r"\{([-\d, ]+)\}", body)] == [
+        tuple(o) for o in jax_rsp._offsets(True)]
