@@ -16,9 +16,8 @@ Phases, in order, one line each (any failure raises, exit code != 0):
      the 10,000-atom shapes (the lattice of examples/water_10k/, cells
      (10, 10, 10, 24), K = 64, scap 280, S = 32), A' under
      set_stencil_impl("half"), B beside D on the same atoms; two calls
-     of A, A', A'', B2, C2, D1 and D2 must agree bit for bit (B1 adds
-     with atomics); an empty kernel's device_ms, the launch floor, is
-     printed beside them;
+     of A, A', A'', B1, B2, C2, D1 and D2 must agree bit for bit; an
+     empty kernel's device_ms, the launch floor, is printed beside them;
   4. full force evaluations in fp64, CUDA (kernels) against CPU (plain):
      the flagship and the 10k lattice;
   5. the main paths through the CLI, each with the launch counts set to 0
@@ -102,11 +101,11 @@ NVE_STEPS = 512                 # phase 6, past the reference's fp32 pump
 #  fp64: 1e-10 relative for every kernel.
 #  fp32: kernel A as tests/test_pallas_realspace.py (energies rtol 1e-6 /
 #  atol 5e-3, gradients rtol 1e-5 / atol 1e-4).  B and C sum 216 (B) or
-#  U x Mh (C) terms in another order (atomics, tiles) than the plain
-#  version: B1 takes rtol 1e-5, C1 tests/test_recip_perstate.py's forward
-#  bound (5e-5), and the gradients, which cancel heavily (spline-derivative
-#  rows, dG contractions), rtol 2e-3 with atol 2e-5 of their scale -- that
-#  file's gradient bound.
+#  U x Mh (C) terms in another order (tiles; the plain spread's atomics on
+#  the card) than their plain versions: B1 takes rtol 1e-5, C1
+#  tests/test_recip_perstate.py's forward bound (5e-5), and the gradients,
+#  which cancel heavily (spline-derivative rows, dG contractions), rtol
+#  2e-3 with atol 2e-5 of their scale -- that file's gradient bound.
 TOL64 = dict(rtol=1e-10, scale_atol=1e-10)
 TOL32 = {"pair_e": dict(rtol=1e-6, atol=5e-3), "pair_g": dict(rtol=1e-5,
                                                               atol=1e-4),
@@ -400,9 +399,13 @@ def spread_kernels(out, tag, x, box, topo, K, order, rng, key):
     w, dw, nearpt = sp.spline_setup(x, box, K, order)
     q = topo.charge.contiguous()
     n = x.shape[0]
-    err = close(sp.spread_cuda(w, nearpt, q, K),
-                sp.spread_plain(w, nearpt, q, K),
+    grid = sp.spread_cuda(w, nearpt, q, K)
+    err = close(grid, sp.spread_plain(w, nearpt, q, K),
                 **(TOL64 if fp64 else TOL32["spread"]))
+    # B1 writes each element once, its atoms summed in ascending order: a
+    # second call gives the same bits
+    check(torch.equal(grid, sp.spread_cuda(w, nearpt, q, K)),
+          f"kernel B1{key} ({tag}) differs between two calls")
     record(out, "B1" + key, err[:2], err[2],
            lambda: sp.spread_cuda(w, nearpt, q, K),
            lambda: sp.spread_plain(w, nearpt, q, K),

@@ -22,6 +22,13 @@ __device__ __forceinline__ float t_fma(float a, float b, float c) {
 __device__ __forceinline__ double t_fma(double a, double b, double c) {
     return fma(a, b, c);
 }
+// a product that is never fused into a multiply-add
+__device__ __forceinline__ float t_mul(float a, float b) {
+    return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double t_mul(double a, double b) {
+    return __dmul_rn(a, b);
+}
 // round half to even, like torch.round
 __device__ __forceinline__ float t_rint(float x) { return rintf(x); }
 __device__ __forceinline__ double t_rint(double x) { return rint(x); }

@@ -5,8 +5,10 @@ _spread_kernel and _gather -> _gather_kernel (with the contraction of
 _charge_grid_bwd fused in), source ``csrc/pme_spread.cu``.
 
 The B-spline weights and derivatives come from ops/bspline.py in torch;
-the kernels scatter and gather.  B1 adds each atom's order^3 brick into
-the K^3 grid with atomics under modular wrap (no halo); B2 gives
+the kernels scatter and gather.  B1 writes each element of the K^3 grid
+once, from one lane that sums the atoms whose spline windows hold it in
+ascending atom order (modular wrap, no halo; the order compiled in for
+4 and 6 and a generic path, ``spread_smem``, for any other); B2 gives
 dE/dq (N,) and dE/dx (N, 3) from the grid cotangent in one pass, one
 warp an atom, with the order compiled in for 4 and 6 and a generic path
 (per-atom tables in shared memory, ``gather_smem``) for any other.  What
@@ -22,6 +24,7 @@ from . import _build
 
 SMEM_LIMIT = 227 * 1024                 # shared memory a block can use
 _GATHER_WARPS = 4                       # atoms a block of B2
+_SPREAD_COUNTS = 64                     # B1's scan counts
 
 
 def spread_plain(w, nearpt, q, K):
@@ -62,6 +65,28 @@ def gather_plain(gQ, w, dw, nearpt, q, recip, K):
     return gq, K * ((q[:, None] * s) @ recip)
 
 
+def spread_smem(order, K, itemsize):
+    """Bytes of dynamic shared memory kernel B1 takes: none where the
+    order is compiled in (4 and 6, at most K), else csrc/pme_spread.cu's
+    spread_smem_t for the tile K picks: 256 staged rows of 2 order + 1
+    values for K <= 32 (one plane), 128 rows of 3 order + 1 above (four
+    planes), each row with three base points; the scan counts; 32 hits a
+    warp for 16 warps.  It does not depend on n.  ValueError with the
+    numbers when it does not fit one block."""
+    if order in (4, 6) and order <= K:
+        return 0
+    planes, stage, width = ((1, 256, 2 * order + 1) if K <= 32
+                            else (4, 128, 3 * order + 1))
+    hit = -(-(planes * itemsize + 8) // itemsize) * itemsize
+    smem = (stage * (width * itemsize + 3 * 4) + _SPREAD_COUNTS * 4
+            + 16 * 32 * hit)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"kernel B1 needs {smem} B of shared memory at "
+                         f"spline order {order} ({itemsize}-byte values), "
+                         f"over the {SMEM_LIMIT} B a block can use")
+    return smem
+
+
 def spread_cuda(w, nearpt, q, K):
     n, _, order = w.shape
     f = w.dtype
@@ -70,7 +95,9 @@ def spread_cuda(w, nearpt, q, K):
     _build.require(q, f, (n,), "q")
     if order > K:
         raise ValueError("spline order exceeds the PME grid")
-    grid = torch.zeros(K ** 3, dtype=f, device=w.device)
+    spread_smem(order, K, w.element_size())
+    # the kernel writes every element (zeros for n = 0): no fill
+    grid = torch.empty(K ** 3, dtype=f, device=w.device)
     fn = _build.function("pme_spread_" + _build.suffix(f), 5, 3)
     _build.check(fn(w.data_ptr(), nearpt.data_ptr(), q.data_ptr(),
                     grid.data_ptr(), _build.stream_ptr(w), n, K, order),

@@ -371,6 +371,60 @@ def test_gather_kernel_orders_sizes_and_wrap(order, K, n):
             assert torch.equal(a, b)
 
 
+def _poisoned(fn, numel, dtype):
+    """fn() just after a tensor of `numel` elements was filled with NaN and
+    freed: the caching allocator hands that block to the next allocation
+    of its size (the grid), so an element the kernel never writes shows
+    as NaN.  Returns (fn's output, whether it took the poisoned block)."""
+    t = torch.full((numel,), float("nan"), dtype=dtype, device="cuda")
+    ptr = t.data_ptr()
+    del t
+    out = fn()
+    return out, out.data_ptr() == ptr
+
+
+@pytest.mark.parametrize("order", [4, 5, 6])
+@pytest.mark.parametrize("K", ["order", 13, 32, 40, 70])
+@pytest.mark.parametrize("n", [0, 1, 31, 649])
+def test_spread_kernel_orders_sizes_and_wrap(order, K, n):
+    """B1 against its plain version at the orders compiled in (4, 6) and
+    one the generic path takes (5), at K = order (every window covers the
+    whole axis), 13 (no multiple of a tile), 32 (the one-plane tile), 40
+    and 70 (the four-plane tile; 70 in two z tiles), for no atom, one, and
+    many: atoms spread over the box, a third of them within a grid
+    spacing of a face (their bricks straddle the periodic wrap), base
+    points moved by -K, +K and +2K, a fifth of the charges 0 (the masked
+    atoms of delta_charge_grid).  The grid is allocated where a NaN-filled
+    block was just freed, so an element the kernel misses fails; two
+    calls give the same bits."""
+    _need_card()
+    K = order if K == "order" else K
+    rng = np.random.default_rng(order * 1000 + K * 10 + n)
+    L = 18.6
+    x0 = rng.uniform(0, L, (n, 3))
+    edge = rng.random((n, 3)) < 0.3
+    x0 = np.where(edge, rng.uniform(-0.5, 0.5, (n, 3)) * L / K % L, x0)
+    q0 = np.where(rng.random(n) < 0.2, 0.0, rng.uniform(-1, 1, n))
+    shift = torch.tensor(rng.choice([0, 0, -K, K, 2 * K], (n, 3)),
+                         device="cuda").reshape(n, 3)
+    for f, rtol, _ in DTYPES:
+        box = torch.eye(3, dtype=f, device="cuda") * L
+        w, _, nearpt = pme_spread.spline_setup(
+            torch.tensor(x0, dtype=f, device="cuda").reshape(n, 3), box, K,
+            order)
+        args = (w, (nearpt + shift).contiguous(),
+                torch.tensor(q0, dtype=f, device="cuda"), K)
+        ref = pme_spread.spread_plain(*args)
+        for _ in range(2):
+            got, poisoned = _poisoned(lambda: pme_spread.spread_cuda(*args),
+                                      K ** 3, f)
+            torch.cuda.synchronize()
+            assert poisoned
+            assert not got.isnan().any()
+            _close(got, ref, rtol)
+        assert torch.equal(got, pme_spread.spread_cuda(*args))
+
+
 def _perstate_inputs(S, U, K, f, seed=0):
     rng = np.random.default_rng(seed)
     Mh = K * (K // 2 + 1)

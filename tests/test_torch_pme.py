@@ -11,6 +11,9 @@ C: the per-state reciprocal delta energies against JAX
    the Pallas kernel's VJP in interpret mode."""
 
 import functools
+import inspect
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -118,6 +121,47 @@ def test_gather_shared_memory_and_index_wrap():
                     pme_spread.gather_plain(gQ, w, dw, nearpt,
                                             torch.tensor(q), recip, K)):
         assert torch.equal(a, b)
+
+
+def test_spread_shared_memory_and_index_wrap():
+    """Kernel B1's host-side rules: no dynamic shared memory where the
+    order is compiled in (4, 6, at most K), the generic path's staged
+    rows, scan counts and hit lists otherwise (by the tile K picks,
+    whatever n), a ValueError with the numbers past a block's limit; and
+    the plain spread, which the kernel is held to, gives the same bits
+    for base points moved by multiples of K (the kernel wraps them
+    once).  The kernel source has no atomic operation and the wrapper no
+    zero fill."""
+    assert pme_spread.spread_smem(6, 32, 8) == 0
+    assert pme_spread.spread_smem(4, 13, 4) == 0
+    def tile(stage, width, itemsize, hit):          # spread_smem_t
+        return stage * (width * itemsize + 12) + 64 * 4 + 16 * 32 * hit
+    assert pme_spread.spread_smem(5, 32, 8) == tile(256, 11, 8, 16)
+    assert pme_spread.spread_smem(5, 64, 8) == tile(128, 16, 8, 40)
+    assert pme_spread.spread_smem(5, 200, 8) == tile(128, 16, 8, 40)
+    assert pme_spread.spread_smem(6, 4, 8) == tile(256, 13, 8, 16)
+    assert pme_spread.spread_smem(5, 13, 4) == tile(256, 11, 4, 12)
+    assert pme_spread.spread_smem(7, 40, 4) == tile(128, 22, 4, 24)
+    with pytest.raises(ValueError, match=r"kernel B1 needs \d+ B of shared "
+                                         r"memory at spline order 2000"):
+        pme_spread.spread_smem(2000, 4096, 8)
+    # one writer per grid element: no atomic operation in the kernels'
+    # code (comments stripped), and the wrapper allocates the grid without
+    # a fill
+    src = pathlib.Path(pme_spread.__file__).parents[2] / "csrc" / "pme_spread.cu"
+    code = re.sub(r"//[^\n]*|/\*.*?\*/", "", src.read_text(), flags=re.S)
+    assert not re.search(r"atomic|\bred\.|\batom\.", code)
+    wrapper = inspect.getsource(pme_spread.spread_cuda)
+    assert "torch.empty" in wrapper and "torch.zeros" not in wrapper
+    x, q, box = _random_system(n=20, seed=9)
+    K, order = 8, 5
+    w, _, nearpt = pme_spread.spline_setup(torch.tensor(x),
+                                           torch.tensor(box), K, order)
+    rng = np.random.default_rng(10)
+    shift = torch.tensor(rng.choice([-2 * K, -K, 0, K, 3 * K], (20, 3)))
+    assert torch.equal(
+        pme_spread.spread_plain(w, nearpt + shift, torch.tensor(q), K),
+        pme_spread.spread_plain(w, nearpt, torch.tensor(q), K))
 
 
 def test_delta_charge_grid_matches_jax():

@@ -20,9 +20,11 @@ For fp64 and fp32, from the same starting state:
      device ops;
   3. reproducibility: two runs of REPEAT steps from one state; the
      largest |Etot| and |x| difference between them, and the first step
-     whose diabat counts differ.  Atomic additions (kernel B1's spread,
-     torch's index_put / index_add backward) sum in launch order, so the
-     two runs differ by rounding.
+     whose diabat counts differ.  The hand-written kernels sum in fixed
+     orders; torch's accumulating ops on the card (index_put with
+     accumulate=True in evb/hamiltonian.py, scatter_add_ in
+     evb/topology_ops.py, the backward of indexing) add in the order
+     their threads arrive, so two runs can differ by rounding.
 
 Prints one summary line per precision and nvidia-smi's name and power
 limit; writes profile.json and the profiler tables to --out.

@@ -10,21 +10,26 @@ the 10,000-atom lattice (examples/water_10k/, K = 64, order 6):
 this repo).  Whatever the checkout, the times are this repo's
 chip_smoke.cuda_ms (the median of 25 runs of back-to-back launches over
 their count) and chip_smoke.device_ms (the profiler's device time of a
-call, every kernel summed), so that two versions are timed by one method:
-unpack the other version's package into a git-ignored directory (git
-archive <commit> reactive_pb_nn_md_tpu_torch | tar -x -C DIR) and run the
-two alternately, each in its own process (other, this, this, other), in
-one call on one card.  B1 (atomics) is the control: its code is the same
-in both.
+call, every kernel summed: a zero fill of the grid counts), so that two
+versions are timed by one method: unpack the other version's package
+into a git-ignored directory (git archive <commit>
+reactive_pb_nn_md_tpu_torch | tar -x -C DIR) and run the two
+alternately, each in its own process (other, this, this, other), in one
+call on one card.  B1 is the subject; B2 (the gather) is the control:
+its code is the same in both.
 
 Before it is timed, each kernel is held against its plain version at
 chip_smoke's tolerances (fp64 1e-10 relative; fp32 TOL32's spread for B1,
 gather for B2), and two B2 calls must give the same bits, or the script
-fails.
+fails.  For B1 it reports whether two calls give the same bits
+(same_bits) and whether the grid equals the plain version run on the
+CPU bit for bit (cpu_plain_bits: that version sums each element's atoms
+in ascending order).
 
 Prints one JSON object per dtype: {"root", "dtype", "floor_device_ms",
 "<kernel>": {"ms", "device_ms", "max_rel_err", "bound_ms"}} for B1, B2,
-B1@10k and B2@10k, where floor_device_ms is an empty kernel's device_ms
+B1@10k and B2@10k (B1's with same_bits and cpu_plain_bits), where
+floor_device_ms is an empty kernel's device_ms
 (chip_smoke.launch_floor_ms); then nvidia-smi's name and power limit.
 """
 
@@ -76,10 +81,14 @@ def main():
             w, dw, nearpt = sp.spline_setup(x, box, K, order)
             q = topo.charge.contiguous()
             n = x.shape[0]
-            err = cs.close(sp.spread_cuda(w, nearpt, q, K),
-                           sp.spread_plain(w, nearpt, q, K), **tol["spread"])
+            grid = sp.spread_cuda(w, nearpt, q, K)
+            err = cs.close(grid, sp.spread_plain(w, nearpt, q, K),
+                           **tol["spread"])
             cs.check(err[2], f"B1{key} ({tag}) disagrees: {err[:2]}")
+            cpu = sp.spread_plain(w.cpu(), nearpt.cpu(), q.cpu(), K)
             row["B1" + key] = dict(
+                same_bits=torch.equal(grid, sp.spread_cuda(w, nearpt, q, K)),
+                cpu_plain_bits=torch.equal(grid.cpu(), cpu),
                 ms=cs.cuda_ms(lambda: sp.spread_cuda(w, nearpt, q, K)),
                 device_ms=cs.device_ms(lambda: sp.spread_cuda(w, nearpt, q,
                                                               K)),
