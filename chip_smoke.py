@@ -32,7 +32,22 @@ Phases, in order, one line each (any failure raises, exit code != 0):
   6. NVE from the equilibrated flagship state through the simulation loop,
      512 steps in fp64 and fp32: fp64 |Etot(200) - Etot(0)| <= 5 kJ/mol;
      fp32 finite at every step and |dEtot(512)| within 10 kJ/mol of
-     fp64's; both drifts, the largest excursions and the rates reported.
+     fp64's; both drifts, the largest excursions and the rates reported;
+  7. ensembles and the run contract, on the flagship:
+     a. 256 Langevin NVT steps (friction 1.0 / ps, 300 K) from the
+        equilibrated state in fp64 and fp32 through the simulation loop,
+        launch counts from 0: Etot finite at every step, the mean kinetic
+        temperature of the last 128 steps within 300 +- 30 K; A, B1, B2,
+        C1, C2 launch, A', A'', D1, D2 do not;
+     b. fp64 NVT through the CLI with checkpoint_velocity 10: 20 steps
+        against 10 and an auto-detected restart of 10, positions within
+        1e-9 A and Etot within 1e-8 kJ/mol, the same step-11 draws;
+     c. the first three barostat trials from the equilibrated state on
+        the card and on the CPU (plain path), one numpy seed: the same dE
+        and decisions; then 30 NPT steps through the CLI, barofreq 3;
+     d. 4 steps through the CLI at debug 2 with --dump-forces: a Donor
+        block per non-principle diabat and an H-bond line at each output
+        step, the dump's rows equal to the forces.
 The line before the last is nvidia-smi's name and power limit, the one
 before it the per-kernel JSON (times, errors and bounds in fp64; fp32 in
 the fp32_ keys); the last line is the result JSON.
@@ -96,6 +111,8 @@ PEAK_GEMM_FLOPS = {"fp64": 67e12, "fp32": 67e12}
 # (~10), sqrt and the divides (~10), LJ (~10), force factors (~10)
 FLOP_PAIR = 60
 NVE_STEPS = 512                 # phase 6, past the reference's fp32 pump
+NVT_STEPS = 256                 # phase 7a
+NVT_DECK = "ensemble           NVT\nfriction_coeff     1.0\n"
 
 # Tolerances (|got - ref| <= atol + rtol |ref|, atol relative to max|ref|):
 #  fp64: 1e-10 relative for every kernel.
@@ -636,19 +653,21 @@ def main_path(name, fn, launched, absent=()):
     return counts
 
 
-def nve(tmp, dtype, steps):
-    """NVE from the equilibrated flagship state through the simulation
-    loop (capacities regrown, step redone); (Etot at every step, hops,
-    steps/s, regrow lines)."""
+def flagship_run(tmp, dtype, steps, extra=""):
+    """`steps` steps from the equilibrated flagship state through the
+    simulation loop (capacities regrown, step redone) of the flagship
+    deck with the parameter lines `extra`; (Etot and KE at every step,
+    hops, steps/s, the Simulation)."""
     import torch
     from reactive_pb_nn_md_tpu_torch.md.simulation import Simulation
     tag = "fp64" if dtype == torch.float64 else "fp32"
     system, state, topo, meta, cbw, _ = flagship(torch.device("cuda"), dtype)
-    sim = Simulation(*deck_copy(tmp, DECK, tag), device="cuda")
+    sim = Simulation(*deck_copy(tmp, DECK, tag, extra), device="cuda")
     sim.system, sim.cbw = system, cbw
     sim.capacity, sim.react_cap = meta["capacity"], meta["react_cap"]
     sim._init_state(state, topo)
     etot = [float(sim.ms.kinetic + sim.ms.potential)]
+    ke = [float(sim.ms.kinetic)]
     hops = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -656,8 +675,9 @@ def nve(tmp, dtype, steps):
         check(sim._step(k + 1), f"{tag}: the EVB state cap hit its ceiling")
         hops += sim.ms.hopped
         etot.append(float(sim.ms.kinetic + sim.ms.potential))
+        ke.append(float(sim.ms.kinetic))
     torch.cuda.synchronize()
-    return etot, hops, steps / (time.perf_counter() - t0), sim._log_lines
+    return etot, ke, hops, steps / (time.perf_counter() - t0), sim
 
 
 def phase_nve():
@@ -670,8 +690,9 @@ def phase_nve():
     with tempfile.TemporaryDirectory() as tmp:
         for dtype in (torch.float64, torch.float32):
             tag = "fp64" if dtype == torch.float64 else "fp32"
-            etot, hops, rate, regrows = nve(pathlib.Path(tmp), dtype,
-                                            NVE_STEPS)
+            etot, _, hops, rate, sim = flagship_run(
+                pathlib.Path(tmp), dtype, NVE_STEPS)
+            regrows = sim._log_lines
             bad = [i for i, e in enumerate(etot) if not math.isfinite(e)]
             check(not bad, f"{tag}: non-finite Etot from step {bad[:1]}")
             out[tag] = etot
@@ -688,6 +709,179 @@ def phase_nve():
     check(abs(d64) <= 5.0, "fp64 NVE drift exceeds 5 kJ/mol at step 200")
     check(abs(dd) <= 10.0, f"fp32 drift differs from fp64's by more than 10 "
                            f"kJ/mol at step {NVE_STEPS}")
+
+
+def phase_nvt(tmp):
+    """Phase 7a: NVT_STEPS Langevin steps (friction 1.0 / ps, 300 K) from
+    the equilibrated flagship in fp64 and fp32: Etot finite at every
+    step, the mean kinetic temperature 2 KE / (3 N kB) of the last half
+    within 300 +- 30 K.  Returns {tag: steps/s}."""
+    import torch
+    from reactive_pb_nn_md_tpu_torch.utils.constants import KB
+    rates = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = "fp64" if dtype == torch.float64 else "fp32"
+        etot, ke, hops, rate, sim = flagship_run(
+            tmp / "nvt", dtype, NVT_STEPS, NVT_DECK)
+        regrows = sim._log_lines
+        bad = [i for i, e in enumerate(etot) if not math.isfinite(e)]
+        check(not bad, f"7a {tag}: non-finite Etot from step {bad[:1]}")
+        temp = [2.0 * k / (3.0 * sim.system.n_atoms * KB) for k in ke]
+        t_mean = sum(temp[-NVT_STEPS // 2:]) / (NVT_STEPS // 2)
+        log(f"  7a {tag}: {NVT_STEPS} NVT steps, mean T(last "
+            f"{NVT_STEPS // 2}) {t_mean:.2f} K (T0 {temp[0]:.2f}), Etot "
+            f"{etot[0]:.3f} -> {etot[-1]:.3f}, {rate:.2f} steps/s, {hops} "
+            f"hops, {len(regrows)} regrows")
+        check(abs(t_mean - 300.0) <= 30.0,
+              f"7a {tag}: mean kinetic temperature {t_mean:.2f} K is not "
+              f"within 300 +- 30 K")
+        rates[tag] = rate
+    return rates
+
+
+def cli_in(files, steps, opts=()):
+    """The CLI on the deck `files` (deck_copy's) with the deck's directory
+    as the working directory, where its checkpoint lives; returns the
+    Simulation."""
+    import os
+    from reactive_pb_nn_md_tpu_torch.run import cli
+    cwd = os.getcwd()
+    os.chdir(pathlib.Path(files[0]).parent)
+    try:
+        return cli.main(files + ["--device", "cuda", "--steps", str(steps),
+                                 *opts])
+    finally:
+        os.chdir(cwd)
+
+
+def flagship_copy(tmp, name, extra):
+    """deck_copy of the flagship deck in fp64 under tmp / name."""
+    (tmp / name).mkdir()
+    return deck_copy(tmp / name, DECK, "fp64", extra)
+
+
+def phase_restart(tmp):
+    """Phase 7b: fp64 NVT through the CLI, checkpoint_velocity 10: 20
+    steps against 10 and an auto-detected restart of 10.  Positions at
+    step 20 within 1e-9 A, Etot within 1e-8 kJ/mol; the restored
+    generator gives step 11 the draws of the unbroken run (the card's
+    accumulating index ops are not deterministic, PERF.md)."""
+    import numpy as np
+    import torch
+    from reactive_pb_nn_md_tpu_torch.md.simulation import Simulation
+    extra = NVT_DECK + "checkpoint_velocity 10\n"
+    draw = Simulation._draw_noise
+    draws = []
+
+    def recorded(self):
+        g = draw(self)
+        draws.append(tuple(t.clone() for t in g))
+        return g
+
+    Simulation._draw_noise = recorded
+    try:
+        whole = cli_in(flagship_copy(tmp, "whole", extra), 20)
+        whole_draws, draws[:] = list(draws), []
+        files = flagship_copy(tmp, "broken", extra)
+        cli_in(files, 10)
+        broken = cli_in(files, 10)
+    finally:
+        Simulation._draw_noise = draw
+    check(broken.restart and broken.start_step == 10,
+          "7b: the second run did not restart from step 10")
+    same = all(torch.equal(a, b) for a, b in zip(whole_draws[10], draws[10]))
+    check(same, "7b: the restored generator's step-11 draws differ")
+    dx = float((broken.ms.state.x - whole.ms.state.x).abs().max())
+    de = abs(float(broken.ms.kinetic + broken.ms.potential)
+             - float(whole.ms.kinetic + whole.ms.potential))
+    chk = np.load(pathlib.Path(files[0]).parent / "velocity_checkpoint.npz")
+    log(f"  7b: 20 steps vs 10 + restart 10 (fp64 NVT): max|dx| {dx:.3e} A,"
+        f" |dEtot| {de:.3e} kJ/mol, step-11 draws equal {same}, checkpoint "
+        f"step {int(chk['step'])}, generator on {broken.gen.device}")
+    check(dx <= 1e-9 and de <= 1e-8, "7b: the restart does not continue the "
+                                     "unbroken run")
+
+
+def phase_npt(tmp):
+    """Phase 7c: the first three barostat trials from the equilibrated
+    flagship on the card and with the plain path on the CPU, from one
+    numpy seed: each dE within 1e-8 |dE| + 1e-12 |PE| (the CUDA vs CPU
+    potentials' own agreement), the same decisions.  Then 30 NPT steps
+    through the CLI at barofreq 3, fp64: finite, the box diagonal.
+    Returns the CLI's steps/s."""
+    import numpy as np
+    import torch
+    from reactive_pb_nn_md_tpu_torch.md import integrators
+    from reactive_pb_nn_md_tpu_torch.md.barostat import MCBarostat
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        system, state, topo, meta, cbw, cfg = flagship(torch.device(dev),
+                                                       torch.float64)
+        ms = integrators.initial_md_state(
+            state, topo, system, cbw, meta["capacity"],
+            react_cap=meta["react_cap"])
+        check(not ms.overflow, f"7c {dev}: {ms.overflow} overflow")
+        baro = MCBarostat(cfg.pressure, cfg.temperature, cfg.baroscale,
+                          cfg.seed)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            ms, cbw = baro.attempt(ms, system, cbw)
+        runs[dev] = (baro.history, float(ms.potential),
+                     time.perf_counter() - t0)
+    (h_g, pe_g, t_g), (h_c, pe_c, t_c) = runs["cuda"], runs["cpu"]
+    for k, ((dg, ag), (dc, ac)) in enumerate(zip(h_g, h_c)):
+        log(f"  7c trial {k + 1}: dE card {dg:.10f} cpu {dc:.10f} kJ/mol "
+            f"(|diff| {abs(dg - dc):.3e}), accepted {ag} / {ac}")
+        check(abs(dg - dc) <= 1e-8 * abs(dc) + 1e-12 * abs(pe_c) and ag == ac,
+              f"7c: barostat trial {k + 1} differs between card and CPU")
+    log(f"  7c: three trials {t_g:.2f} s on the card, {t_c:.2f} s on the "
+        f"CPU; PE after them {pe_g:.6f} / {pe_c:.6f}")
+    files = flagship_copy(tmp, "npt", "ensemble           NPT\n")
+    sim = cli_in(files, 30)
+    box = sim.ms.state.box.cpu().numpy()
+    text = pathlib.Path(files[5]).read_text()
+    etot = [float(ln.split()[5]) for ln in text.splitlines()
+            if ln.startswith(" KE")]
+    vols = [float(ln.split()[1]) for ln in text.splitlines()
+            if ln.startswith(" volume(A^3)")]
+    rate = float(text.strip().splitlines()[-1].split("(")[1].split()[0])
+    acc = [a for _, a in sim.barostat.history]
+    log(f"  7c: 30 NPT steps (CLI, fp64, barofreq 3): {len(acc)} trials, "
+        f"{sum(acc)} accepted, volume {vols[0]:.4f} -> "
+        f"{float(np.linalg.det(box)):.4f} A^3, {rate:.2f} steps/s")
+    check(all(math.isfinite(e) for e in etot) and len(acc) == 9,
+          f"7c: NPT run: Etot {etot}, {len(acc)} trials")
+    check(np.allclose(np.diag(np.diag(box)), box), "7c: box not diagonal")
+    return rate
+
+
+def phase_debug(tmp):
+    """Phase 7d: 4 reactive steps through the CLI at debug 2, output every
+    2 steps, with --dump-forces: a Donor block per non-principle diabat
+    at each output step, the hop-file H-bond lines, and the dump's last
+    rows equal to the final forces to its printed precision (1e-6)."""
+    import numpy as np
+    dump = tmp / "forces.out"
+    files = flagship_copy(tmp, "debug", "debug              2\n"
+                          "n_output           2\n")
+    sim = cli_in(files, 4, ("--dump-forces", str(dump)))
+    log_text = pathlib.Path(files[5]).read_text()
+    n_states = [int(ln.split()[1]) for ln in log_text.splitlines()
+                if ln.startswith(" diabats ")]
+    blocks = pathlib.Path(files[7]).read_text().split("step ")[1:]
+    donors = [b.count("Donor Coordinates") for b in blocks]
+    hb = [ln for ln in pathlib.Path(files[6]).read_text().splitlines()
+          if "number of acceptors" in ln]
+    n = sim.system.n_atoms
+    rows = np.array([ln.split()[2:5] for ln in
+                     dump.read_text().splitlines()[-n:]], dtype=float)
+    df = float(np.abs(rows - sim.ms.force.cpu().numpy()).max())
+    log(f"  7d: diabats at steps 0, 2, 4 {n_states}, Donor blocks {donors},"
+        f" H-bond lines {len(hb)}, force dump max|row - F| {df:.2e}")
+    check(donors == [s - 1 for s in n_states] and len(donors) == 3,
+          "7d: one Donor block per non-principle diabat at each output step")
+    check(len(hb) == 3, "7d: hop-file H-bond lines")
+    check(df <= 1e-6, "7d: the force dump differs from the forces")
 
 
 def main():
@@ -767,13 +961,26 @@ def main():
     log(f"[6 nve] {NVE_STEPS} steps from benchdata/eq_flagship_s80.npz")
     phase_nve()
 
+    log("[7 ensembles and run contract] NVT, restart, NPT, debug 2")
+    t7 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        nvt = main_path("7a flagship NVT", lambda: phase_nvt(tmp),
+                        ("A", "B1", "B2", "C1", "C2"),
+                        ("A'", "A''", "D1", "D2"))
+        phase_restart(tmp)
+        phase_npt(tmp)
+        phase_debug(tmp)
+    log(f"  phase 7: {time.perf_counter() - t7:.1f} s")
+
     k64, k32 = measured["fp64"], measured["fp32"]
     kernels = []
     for k, (src, rep) in KERNELS.items():
         m64, m32 = k64[k], k32[k]
         kernels.append(dict(
             name=k, route="cuda", source=src, replaces=rep,
-            launches=launches[k], max_abs_err=m64["max_abs_err"],
+            launches=launches[k], nvt_launches=nvt.get(k, 0),
+            max_abs_err=m64["max_abs_err"],
             ms=m64["ms"], device_ms=m64["device_ms"],
             plain_ms=m64["plain_ms"],
             bound_ms=m64["bound_ms"], bound_by=m64["bound_by"],

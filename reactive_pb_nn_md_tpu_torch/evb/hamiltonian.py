@@ -27,7 +27,8 @@ from ..ops.neighbors import CellTable, rows_on_demand
 from ..topology import Topology
 from ..utils import pbc
 from .enumerate import DiabatSet, enumerate_diabats, molecule_com
-from .topology_ops import DiabatBatch, build_diabat_topologies
+from .topology_ops import (DiabatBatch, build_diabat_topologies,
+                           state_topology)
 
 # span of the inactive-state park above the principle diagonal (relative,
 # so it does not inflate ||H|| past what fp32 couplings survive)
@@ -236,6 +237,40 @@ def diabat_diagonal_energies(x, box, batch: DiabatBatch, system, pairs, cbw,
     return diag, replace(bd0, slab_overflow=slab_over), e_recip, row_over
 
 
+def _recip_batched(x, box, batch: DiabatBatch, system, cbw, base_charge):
+    """(S,) per-diabat reciprocal energies by brute force: the base grid
+    plus each state's grid of its changed atoms' charge deltas, one FFT a
+    state.  The ground truth of recip_delta_perstate."""
+    K, order = system.pme_grid, system.spline_order
+    Q0, _ = pme.charge_grid(x, base_charge, box, K, order,
+                            scap=system.pme_scap)
+    e = []
+    for s in range(batch.changed_atoms.shape[0]):
+        changed = batch.changed_atoms[s]
+        safe = changed.clamp(min=0)
+        dq = batch.topo.charge[s, safe] - base_charge[safe]
+        e.append(pme.recip_energy(Q0 + pme.delta_charge_grid(
+            x, dq, changed, batch.changed_mask[s], box, K, order), cbw))
+    return torch.stack(e)
+
+
+def diabat_diagonal_energies_full(x, box, batch: DiabatBatch, system, pairs,
+                                  cbw, base_charge):
+    """Every diabat's energy recomputed in full in its own topology, a
+    state at a time: (diag (S,), principle breakdown, e_recip (S,)).  The
+    ground truth of diabat_diagonal_energies (held equal by the tests);
+    not on the MD path."""
+    tb = batch.topo
+    bds = [total_mod.energy_no_recip(x, box, state_topology(tb, s), system,
+                                     pairs)
+           for s in range(batch.changed_atoms.shape[0])]
+    extra = (repulsion.ms_evb_repulsion(x, box, tb, system)
+             + repulsion.reference_energy(tb, system))
+    e_recip = _recip_batched(x, box, batch, system, cbw, base_charge)
+    diag = torch.stack([bd.total for bd in bds]) + extra + e_recip
+    return diag, bds[0], e_recip
+
+
 def coupling_elements(x, box, batch: DiabatBatch, system, com0, xa_pc0,
                       topo0):
     """H_{parent(s), s} of every non-principle state."""
@@ -313,8 +348,7 @@ def _eval_at_cap(x, box, topo, system, pairs, cbw, full_idx, com,
         energy = c @ H @ c
         grad, = torch.autograd.grad(energy, xg)
     principle = torch.argmax(c.abs())
-    ptopo = Topology(**{k: getattr(batch.topo, k)[principle]
-                        for k in Topology.__dataclass_fields__})
+    ptopo = state_topology(batch.topo, principle)
     bds = replace(bds, **{k: getattr(bds, k).detach()
                           for k in ("total", "elec", "vdw", "bond", "angle",
                                     "dihedral")})

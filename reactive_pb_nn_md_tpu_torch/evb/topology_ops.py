@@ -25,6 +25,12 @@ class DiabatBatch:
     changed_mask: torch.Tensor    # (S, 2*C*A) bool
 
 
+def state_topology(topo_b: Topology, s) -> Topology:
+    """State s's topology out of a batch of diabat topologies."""
+    return Topology(**{k: getattr(topo_b, k)[s]
+                       for k in Topology.__dataclass_fields__})
+
+
 def _scatter_update(arr, idx, new_vals, mask):
     """(S, n) copies of arr (n,) with arr[idx] set to new_vals where mask,
     written as masked deltas (duplicate masked indices add zero)."""

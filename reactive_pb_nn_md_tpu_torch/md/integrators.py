@@ -1,24 +1,30 @@
-"""Velocity-Verlet NVE step (counterpart of the NVE path of
+"""MD step: velocity Verlet (NVE, and NPT between barostat moves) and
+Langevin leapfrog (NVT) (counterpart of
 reactive_pb_nn_md_tpu/md/integrators.py; md_integrate_atomic,
-md_integration.f90:438-541).
+md_integration.f90:438-541, langevin_integrator :186-228).
 
 One step = kick, drift, wrap whole molecules, neighbor rebuild when the
 displacements exceed the skin, force evaluation (the MS-EVB adiabatic
 surface in reactive mode, which also switches the principle topology on
-a hop), kick, COM-momentum removal.  The rebuild check and the step's
-flags are Python branches, one host sync each.  A capacity that did not
-hold (neighbor rows, cells, on-demand rows, kernel A's cells, the PME
-slab cap, the EVB state cap) is reported in MDState.overflow: the step's
-result is then not valid, and the simulation loop (md/simulation.py)
-regrows the capacities and redoes the step.
+a hop), kick, COM-momentum removal.  With System.compensated_sum the
+NVE/NPT kicks and the drift accumulate with Kahan carries (MDState.comp).
+The NVT step takes its two Gaussian draws as an argument, so a step
+redone after a capacity regrow reuses them.  The rebuild check and the
+step's flags are Python branches, one host sync each.  A capacity that
+did not hold (neighbor rows, cells, on-demand rows, kernel A's cells, the
+PME slab cap, the EVB state cap) is reported in MDState.overflow: the
+step's result is then not valid, and the simulation loop
+(md/simulation.py) regrows the capacities and redoes the step.
 """
 
 import dataclasses
+import math
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
-from ..utils.constants import CONV_KJMOL_A2PS2GMOL
+from ..utils.constants import CONV_KJMOL_A2PS2GMOL, KB
 from ..models import total as total_mod
 from ..ops import neighbors
 from ..evb import hamiltonian as ham
@@ -38,6 +44,38 @@ CAPACITIES = ("neighbor-list capacity", "on-demand row capacity",
               "kernel A cell capacity", "PME slab capacity",
               "EVB state cap")
 NEIGHBOR_CAP, ROW_CAP, RS_CELL_CAP, SLAB_CAP, EVB_STATE_CAP = CAPACITIES
+ENSEMBLES = ("NVE", "NVT", "NPT")
+
+
+@dataclass
+class CompCarry:
+    """Kahan residuals of the integrator's x / v sums
+    (System.compensated_sum)."""
+    x: torch.Tensor                # (N, 3) position-sum residual
+    v: torch.Tensor                # (N, 3) velocity-sum residual
+
+
+def two_sum_add(acc, delta, carry):
+    """acc += delta with the running residual `carry` (Kahan form);
+    returns (sum, new carry).  Eager torch evaluates each op as written,
+    with no algebraic simplifier to fold (t - acc) back to d, so the JAX
+    package's optimization barrier has no counterpart here."""
+    d = delta + carry
+    t = acc + d
+    return t, d - (t - acc)
+
+
+def langevin_half_kick(v, f, mass_col, noise, dt, friction, temperature):
+    """Langevin leapfrog half-update (langevin_integrator,
+    md_integration.f90:186-228, OpenMM convention) with the standard
+    normal draw `noise` (v's shape).  Two half-updates a step together
+    have the stationary variance kT conv / m per component."""
+    conv = CONV_KJMOL_A2PS2GMOL
+    decay = math.exp(-friction * dt / 2.0)
+    return (decay * v + (1.0 - decay) / friction * f / mass_col * conv
+            + torch.sqrt(2.0 * KB * temperature * friction * conv / mass_col)
+            * math.sqrt((1.0 - math.exp(-friction * dt)) / (2.0 * friction))
+            * noise)
 
 
 @dataclass
@@ -70,6 +108,7 @@ class MDState:
     hopped: bool = False           # hydronium changed this step
     force_overflow: bool = False   # |F| > 1e4: the reference aborts
     overflow: tuple = ()           # CAPACITIES that did not hold: not valid
+    comp: Optional[CompCarry] = None   # Kahan carries (compensated_sum)
 
 
 def wrap_molecules(x, box, topo, mass):
@@ -169,35 +208,70 @@ def neighbor_plan(system, box, capacity, cells=None, react_cap=None,
 
 
 def initial_md_state(state: State, topo, system, cbw, capacity, cells=None,
-                     react_cap=None, react_cells=None) -> MDState:
+                     react_cap=None, react_cells=None, comp=None) -> MDState:
     """The state before the first step: neighbor lists (neighbor_plan's
     configuration) and forces.  MDState.overflow lists the capacities
-    that did not hold."""
+    that did not hold.  comp: the Kahan carries to keep (zeros when None
+    and the system is compensated)."""
     nlist = neighbors.build_neighbors(
         state.x, state.box, **neighbor_plan(system, state.box, capacity,
                                             cells, react_cap, react_cells))
     fe = evaluate_forces(state.x, state.box, topo, system, nlist, cbw)
     over, _, _ = _sync_flags(nlist, fe, torch.zeros(
         (), dtype=torch.bool, device=state.x.device))
+    if comp is None and system.compensated_sum:
+        comp = CompCarry(x=torch.zeros_like(state.x),
+                         v=torch.zeros_like(state.v))
     return MDState(state=state, topo=fe.topo, nlist=nlist, force=fe.force,
                    potential=fe.potential, breakdown=fe.breakdown,
                    kinetic=velocities.kinetic_energy(state.v, system.mass),
                    n_states=fe.n_states, eigenvector=fe.eigenvector,
                    hydronium_of=fe.hydronium_of, n_hops_of=fe.n_hops_of,
-                   overflow=over)
+                   overflow=over, comp=comp)
 
 
-def md_step(ms: MDState, system, cbw, dt: float) -> MDState:
-    """One velocity-Verlet NVE step.  The result is valid only if its
-    `overflow` is empty; else regrow and redo it from `ms`."""
+def md_step(ms: MDState, system, cbw, dt: float, ensemble="NVE",
+            friction=0.1, temperature=300.0, noise=None) -> MDState:
+    """One step of `ensemble`: velocity Verlet for NVE and NPT (the
+    barostat moves between steps), Langevin for both half kicks under
+    NVT with the step's standard normal draws noise = (g1, g2), each
+    (N, 3) in the state's dtype.  Under NVE and NPT with
+    System.compensated_sum the kicks and the drift are Kahan sums
+    (ms.comp).  The result is valid only if its `overflow` is empty;
+    else regrow and redo it from `ms` with the same noise."""
+    if ensemble not in ENSEMBLES:
+        raise ValueError(f"ensemble {ensemble!r}: expected one of "
+                         f"{', '.join(ENSEMBLES)}")
+    if ensemble == "NVT" and noise is None:
+        raise ValueError("an NVT step needs its two Gaussian draws "
+                         "(noise=(g1, g2))")
     state, topo = ms.state, ms.topo
     box = state.box
     mass = system.mass[:, None]
     mobile = velocities.freeze_mask(system, topo)[:, None]
     conv = CONV_KJMOL_A2PS2GMOL
-    v = torch.where(mobile, state.v + dt / 2.0 * ms.force / mass * conv,
-                    state.v)
-    x = torch.where(mobile, state.x + v * dt, state.x)
+    g1, g2 = noise if ensemble == "NVT" else (None, None)
+    # the Langevin update is not a pure add, and its noise dwarfs fp32
+    # rounding: the compensated sum serves the Verlet kicks only
+    compensated = system.compensated_sum and ensemble != "NVT"
+
+    def kick(v, f, g):
+        if ensemble == "NVT":
+            return langevin_half_kick(v, f, mass, g, dt, friction,
+                                      temperature)
+        return v + dt / 2.0 * f / mass * conv
+
+    def masked_two_sum(acc, delta, carry):
+        t, c = two_sum_add(acc, delta, carry)
+        return torch.where(mobile, t, acc), torch.where(mobile, c, carry)
+
+    if compensated:
+        v, vc = masked_two_sum(state.v, dt / 2.0 * ms.force / mass * conv,
+                               ms.comp.v)
+        x, xc = masked_two_sum(state.x, v * dt, ms.comp.x)
+    else:
+        v = torch.where(mobile, kick(state.v, ms.force, g1), state.v)
+        x = torch.where(mobile, state.x + v * dt, state.x)
     x, com = wrap_molecules(x, box, topo, system.mass)
 
     nlist = ms.nlist
@@ -206,7 +280,12 @@ def md_step(ms: MDState, system, cbw, dt: float) -> MDState:
         nlist = neighbors.rebuild_like(nlist, x, box, system.verlet_cutoff)
 
     fe = evaluate_forces(x, box, topo, system, nlist, cbw, com=com)
-    v = torch.where(mobile, v + dt / 2.0 * fe.force / mass * conv, v)
+    if compensated:
+        v, vc = masked_two_sum(v, dt / 2.0 * fe.force / mass * conv, vc)
+        comp = CompCarry(x=xc, v=vc)
+    else:
+        v = torch.where(mobile, kick(v, fe.force, g2), v)
+        comp = ms.comp
     v = velocities.remove_com_momentum(v, system.mass, mobile[:, 0])
     over, hopped, force_overflow = _sync_flags(
         nlist, fe, fe.topo.hydronium_mol != topo.hydronium_mol)
@@ -217,4 +296,4 @@ def md_step(ms: MDState, system, cbw, dt: float) -> MDState:
                    n_states=fe.n_states, eigenvector=fe.eigenvector,
                    hydronium_of=fe.hydronium_of, n_hops_of=fe.n_hops_of,
                    hopped=hopped, force_overflow=force_overflow,
-                   overflow=over)
+                   overflow=over, comp=comp)

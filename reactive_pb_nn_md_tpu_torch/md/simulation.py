@@ -1,23 +1,33 @@
-"""Simulation loop, NVE (counterpart of reactive_pb_nn_md_tpu/md/simulation.py;
-main_ms_evb.f90:15-122, print_step general_routines.f90:870-945).
+"""Simulation loop (counterpart of reactive_pb_nn_md_tpu/md/simulation.py;
+main_ms_evb.f90:15-122, print_step general_routines.f90:870-945, the
+velocity checkpoint :997-1026 and the restart auto-detect :37-178).
 
 File contract of the reference CLI: in.gro ff.pmt top sim.pmt -> trajectory
-(.gro frames), log, hop file, A file.  A fixed capacity that does not hold
-(neighbor rows and cells, on-demand rows, kernel A's cells, the PME slab
-cap, the EVB state cap) is regrown by the JAX package's factors and the
-step is redone from the state before it, so no reported energy comes from
-truncated data; each regrow is one line of the log.  The EVB state cap
-grows to min(evb_hard_max_states, max(2S, S + 8)); an overflow at that
-ceiling ends the run with the JAX package's "aborting" line.
+(.gro frames), log, hop file, A file.  Ensembles NVE, NVT (Langevin, its
+Gaussian draws from a torch.Generator on the run's device, seeded from the
+deck's seed) and NPT (the MC barostat before every step k + 1 with
+k % barofreq == 0 past the first step of the run).
 
-Not ported yet, and refused with a ValueError naming the key or the file
-rather than ignored: NVT/NPT, the velocity checkpoints (checkpoint_velocity
-> 0), the debug >= 2 A-file stream, and restarts.  The JAX driver restarts
-when the trajectory exists beside its checkpoint; the port takes that
-checkpoint's default name, velocity_checkpoint.npz, and its text sibling
-velocity_checkpoint, in the trajectory's directory, and refuses to start
-(and overwrite the trajectory and log) when either is there.  The A file
-is created and left empty.
+A fixed capacity that does not hold (neighbor rows and cells, on-demand
+rows, kernel A's cells, the PME slab cap, the EVB state cap) is regrown by
+the JAX package's factors and the step is redone from the state before it,
+with the same draws, so no reported energy comes from truncated data; each
+regrow is one line of the log.  The EVB state cap grows to
+min(evb_hard_max_states, max(2S, S + 8)); an overflow at that ceiling ends
+the run with the JAX package's "aborting" line.  A cell grid whose cells a
+barostat move (or a restart's box) makes narrower than their cutoff is
+re-derived, with one log line.
+
+Checkpoints (every checkpoint_velocity steps): a text block in the
+reference's format appended to the text checkpoint, and an .npz with the
+JAX package's keys (x, v, box, step, the topology, comp_x / comp_v when
+compensated) plus the noise generator's state.  A run restarts when the
+trajectory exists beside the .npz (exact: positions, velocities,
+topology, carries and generator; a JAX-written .npz has no generator
+state, which is then reseeded from the deck's seed) or, failing that,
+beside the log and a non-empty text checkpoint (positions from the
+trajectory's last frame, velocities from the text block).  A restart
+appends to the outputs and writes no header or first frame.
 """
 
 import os
@@ -26,17 +36,23 @@ import time
 import numpy as np
 import torch
 
-from ..io.gro import read_gro, format_gro_frame
+from ..io.gro import (read_gro, format_gro_frame, read_last_gro_frame,
+                      frame_step, format_velocity_checkpoint,
+                      read_velocity_checkpoint)
 from ..io.ffpmt import read_ffpmt
 from ..io.topfile import read_top
 from ..io.simpmt import read_sim_params
-from ..topology import build_system, State
+from ..topology import build_system, suggest_rs_cells, State, Topology
+from ..evb import analysis
+from ..evb.enumerate import enumerate_diabats
+from ..evb.topology_ops import build_diabat_topologies, state_topology
 from ..models import pme
 from ..ops import neighbors
 from ..ops.kernels.realspace_pair import _impl_for
 from ..utils import pbc
 from ..utils.dtypes import float_dtype
 from . import integrators, velocities
+from .barostat import MCBarostat
 
 
 def load_deck(gro_file, ff_file, top_file, sim_file, device,
@@ -55,97 +71,197 @@ def load_deck(gro_file, ff_file, top_file, sim_file, device,
 
 # regrow rounds before a capacity that still overflows is an error
 _MAX_REGROWS = 16
-# the JAX driver's default checkpoint and its text sibling
+# the JAX driver's default checkpoint; its text sibling drops ".npz"
 CHECKPOINT_FILE = "velocity_checkpoint.npz"
-TEXT_CHECKPOINT_FILE = "velocity_checkpoint"
+# the .npz keys of the topology (the JAX driver's) and of the generator
+TOPO_KEYS = ("mol_mtype", "mol_natom", "mol_atoms", "atom_mol", "atom_slot",
+             "atom_type", "charge", "hydronium_mol")
+GENERATOR_KEY = "torch_generator_state"
+GENERATOR_DEVICE_KEY = "torch_generator_device"
 
 
-def _refuse_unported(cfg, traj_file, log_file):
-    """Raise ValueError on a deck key or file the JAX driver would act on
-    and the port cannot honour yet."""
-    if cfg.ensemble != "NVE":
-        raise ValueError(f"ensemble {cfg.ensemble} is not ported yet "
-                         f"(NVE only)")
-    if cfg.checkpoint_velocity > 0:
-        raise ValueError(f"checkpoint_velocity {cfg.checkpoint_velocity}: "
-                         f"velocity checkpoints are not ported yet (set it "
-                         f"to 0)")
-    if cfg.debug >= 2:
-        raise ValueError(f"debug {cfg.debug}: the debug >= 2 A-file stream "
-                         f"is not ported yet (use debug <= 1)")
-    # the JAX driver's restart conditions (md/simulation.py:64-70 there)
-    d = os.path.dirname(os.path.abspath(traj_file))
-    npz = os.path.join(d, CHECKPOINT_FILE)
-    text = os.path.join(d, TEXT_CHECKPOINT_FILE)
-    if os.path.exists(traj_file) and (
-            os.path.exists(npz)
-            or (os.path.exists(log_file) and os.path.exists(text)
-                and os.path.getsize(text) > 0)):
-        found = npz if os.path.exists(npz) else text
-        raise ValueError(f"checkpoint {found} beside the trajectory "
-                         f"{traj_file}: restarts are not ported yet (move "
-                         f"the checkpoint or the trajectory away)")
+def _noise_seed(seed):
+    """The NVT noise generator's seed for the deck's `seed`: a stream of
+    its own (the initial velocities take `seed` itself)."""
+    return int(np.random.SeedSequence([seed, 1]).generate_state(1)[0])
 
 
 class Simulation:
     """Owns the host loop around md_step."""
 
     def __init__(self, gro_file, ff_file, top_file, sim_file, traj_file,
-                 log_file, hop_file, a_file, device):
+                 log_file, hop_file, a_file, device,
+                 checkpoint_file=CHECKPOINT_FILE):
         self.device = torch.device(device)
-        _refuse_unported(read_sim_params(sim_file), traj_file, log_file)
-        self.cfg, frame, self.system, topo = load_deck(
-            gro_file, ff_file, top_file, sim_file, self.device)
-        cfg = self.cfg
+        self.cfg = cfg = read_sim_params(sim_file)
+        if cfg.ensemble not in integrators.ENSEMBLES:
+            raise ValueError(f"ensemble {cfg.ensemble!r}: expected one of "
+                             f"{', '.join(integrators.ENSEMBLES)}")
         self.files = dict(traj=traj_file, log=log_file, hop=hop_file,
-                          a=a_file)
-        f = float_dtype(cfg.precision)
-        box = torch.as_tensor(frame.box, dtype=f, device=self.device)
-        if frame.velocities is not None:
-            v = torch.as_tensor(frame.velocities, dtype=f, device=self.device)
+                          a=a_file, chk=checkpoint_file)
+        # per-atom force dump at every output step (print_forces,
+        # general_routines.f90:950-991; --dump-forces on the CLI)
+        self.dump_forces_path = None
+        self.text_chk = (checkpoint_file[:-4]
+                         if checkpoint_file.endswith(".npz")
+                         else checkpoint_file + ".vel")
+        self._log_lines = []            # written to the log when it opens
+        self.log_f = None
+
+        # restart auto-detect, the JAX driver's conditions and precedence
+        self.restart = (os.path.exists(traj_file)
+                        and os.path.exists(checkpoint_file))
+        self.text_restart = (not self.restart
+                             and os.path.exists(traj_file)
+                             and os.path.exists(log_file)
+                             and os.path.exists(self.text_chk)
+                             and os.path.getsize(self.text_chk) > 0)
+        if self.text_restart:
+            frame = read_last_gro_frame(traj_file)
+            step_traj = frame_step(frame)
+            step_vel, v_text = read_velocity_checkpoint(self.text_chk)
+            # the reference stops on a step mismatch (:85-93)
+            if step_traj != step_vel or step_vel <= 0:
+                raise ValueError(
+                    f"error restarting trajectory: last step differs "
+                    f"between trajectory ({step_traj}) and velocity "
+                    f"checkpoint ({step_vel})")
+            if v_text.shape[0] != frame.n_atoms:
+                raise ValueError("velocity checkpoint atom count does not "
+                                 "match the trajectory frame")
         else:
-            gen = torch.Generator().manual_seed(cfg.seed)
-            v = velocities.sample_velocities(
-                gen, self.system.mass, cfg.initial_temp,
-                velocities.freeze_mask(self.system, topo))
-        state = State(x=torch.as_tensor(frame.xyz, dtype=f,
-                                        device=self.device), v=v, box=box)
-        self.cbw = pme.cb_half(box, self.system.pme_grid,
+            frame = read_gro(gro_file)
+        self.system, topo = build_system(frame, read_ffpmt(ff_file),
+                                         read_top(top_file), cfg,
+                                         device=self.device)
+        f = float_dtype(cfg.precision)
+
+        def tensor(a):
+            return torch.as_tensor(np.asarray(a), dtype=f,
+                                   device=self.device)
+
+        self.gen = torch.Generator(device=self.device)
+        self.gen.manual_seed(_noise_seed(cfg.seed))
+        comp = None
+        if self.restart:
+            chk = np.load(checkpoint_file)
+            topo = Topology(**{k: torch.as_tensor(
+                np.asarray(chk[k]), device=self.device,
+                dtype=f if k == "charge" else torch.int64)
+                for k in TOPO_KEYS})
+            state = State(x=tensor(chk["x"]), v=tensor(chk["v"]),
+                          box=tensor(chk["box"]), step=int(chk["step"]))
+            if "comp_x" in chk.files and self.system.compensated_sum:
+                comp = integrators.CompCarry(x=tensor(chk["comp_x"]),
+                                             v=tensor(chk["comp_v"]))
+            if GENERATOR_KEY in chk.files and \
+                    str(chk[GENERATOR_DEVICE_KEY]) == self.device.type:
+                self.gen.set_state(torch.from_numpy(
+                    np.asarray(chk[GENERATOR_KEY])))
+            else:
+                self._log([f"restart from {checkpoint_file}: no noise "
+                           f"generator state for a {self.device.type} run "
+                           f"(a JAX-written checkpoint, or another device);"
+                           f" reseeded from seed {cfg.seed}\n"])
+        elif self.text_restart:
+            state = State(x=tensor(frame.xyz), v=tensor(v_text),
+                          box=tensor(frame.box), step=step_vel)
+        else:
+            if frame.velocities is not None:
+                v = tensor(frame.velocities)
+            else:
+                gen = torch.Generator().manual_seed(cfg.seed)
+                v = velocities.sample_velocities(
+                    gen, self.system.mass, cfg.initial_temp,
+                    velocities.freeze_mask(self.system, topo))
+            state = State(x=tensor(frame.xyz), v=v, box=tensor(frame.box))
+        self.start_step = state.step
+
+        self.cbw = pme.cb_half(state.box, self.system.pme_grid,
                                self.system.spline_order,
                                self.system.alpha_sqrt, dtype=f)
         self.capacity = neighbors.suggest_capacity(
-            self.system.n_atoms, float(pbc.box_volume(box)),
+            self.system.n_atoms, float(pbc.box_volume(state.box)),
             self.system.verlet_cutoff)
         # verlet_allpairs forces the dense O(N^2) build (the reference's
         # all-pairs fallback, general_routines.f90:1356)
         self.cells = () if cfg.verlet_allpairs else neighbors.suggest_cells(
-            self.system.n_atoms, frame.box, self.system.verlet_cutoff)
+            self.system.n_atoms, state.box.cpu().numpy(),
+            self.system.verlet_cutoff)
         self.react_cap = self.react_cells = None
-        self._log_lines = []            # written to the log when it opens
-        self.log_f = None
-        self._init_state(state, topo)
+        # the deck's box sized kernel A's grid; a restart's box may be
+        # smaller
+        self._log(self._fit_grids(state.box, state.step))
+        self._init_state(state, topo, state.step, comp=comp)
+        self.barostat = None
+        if cfg.ensemble == "NPT":
+            self.barostat = MCBarostat(cfg.pressure, cfg.temperature,
+                                       cfg.baroscale, cfg.seed)
 
-    def _init_state(self, state, topo, step=0):
-        """MDState at `state` with the current capacities, regrown until
-        they hold (regrow lines name `step`).  An EVB state-cap overflow
-        at the ceiling is left in the state: the next step reports it
-        and ends the run, as the JAX driver's first chunk does."""
+    def _settle(self, state, topo, step, cbw=None, comp=None):
+        """MDState at `state` (under `cbw`, default self.cbw) with the
+        current capacities, regrown until they hold (regrow lines name
+        `step`).  An EVB state-cap overflow at the ceiling is left in the
+        state: the next step reports it and ends the run, as the JAX
+        driver's first chunk does."""
+        cbw = self.cbw if cbw is None else cbw
         for _ in range(_MAX_REGROWS + 1):
-            self.ms = integrators.initial_md_state(
-                state, topo, self.system, self.cbw, self.capacity,
-                self.cells, react_cap=self.react_cap,
-                react_cells=self.react_cells)
-            self.react_cap = self.ms.nlist.react_cap or None
-            self.react_cells = self.ms.nlist.react_cells or None
-            over = tuple(n for n in self.ms.overflow
+            ms = integrators.initial_md_state(
+                state, topo, self.system, cbw, self.capacity, self.cells,
+                react_cap=self.react_cap, react_cells=self.react_cells,
+                comp=comp)
+            self.react_cap = ms.nlist.react_cap or None
+            self.react_cells = ms.nlist.react_cells or None
+            over = tuple(n for n in ms.overflow
                          if n != integrators.EVB_STATE_CAP
                          or not self._states_at_ceiling())
             if not over:
-                return
+                return ms
             self._grow(over, step)
         raise integrators.CapacityOverflow(
-            f"{', '.join(self.ms.overflow)} still exceeded after "
+            f"{', '.join(ms.overflow)} still exceeded after "
             f"{_MAX_REGROWS} regrows")
+
+    def _init_state(self, state, topo, step=0, comp=None):
+        """self.ms at `state`, every capacity held (_settle)."""
+        self.ms = self._settle(state, topo, step, comp=comp)
+
+    def _fit_grids(self, box, step):
+        """Re-derive by the suggest_* rules every cell grid (kernel A's
+        System.rs_cells, the neighbor cells, the react cells) whose cells
+        are narrower than its cutoff at `box`, where pairs would be
+        missed; one log line each.  The grids are fixed when the system
+        is built, from the deck's box."""
+        b = box.detach().cpu().numpy()
+        spacing = 1.0 / np.linalg.norm(np.linalg.inv(b).T, axis=1)
+        s, n = self.system, self.system.n_atoms
+        lines = []
+
+        def narrow(grid, cutoff):
+            return bool(grid) and any(w / c < cutoff
+                                      for w, c in zip(spacing, grid[:3]))
+
+        def note(name, old, new, cutoff):
+            lines.append(f"step {step}: {name} {old} has cells narrower "
+                         f"than its cutoff {cutoff} at box "
+                         f"{np.round(spacing, 4).tolist()}; re-derived as "
+                         f"{tuple(new or ())}\n")
+
+        if narrow(s.rs_cells, s.real_space_cutoff):
+            new = suggest_rs_cells(n, b, s.real_space_cutoff)
+            note("kernel A cell grid", s.rs_cells, new, s.real_space_cutoff)
+            self.system = s.replace(rs_cells=new)
+        if narrow(self.cells, s.verlet_cutoff):
+            new = neighbors.suggest_cells(n, b, s.verlet_cutoff)
+            note("neighbor cell grid", self.cells, new, s.verlet_cutoff)
+            self.cells = new
+        react_cutoff = (s.evb_reactive_pair_distance + s.verlet_cutoff
+                        - s.real_space_cutoff)
+        if narrow(self.react_cells, react_cutoff):
+            new = neighbors.suggest_cells(n, b, react_cutoff, min_atoms=0)
+            note("react cell grid", self.react_cells, new, react_cutoff)
+            self.react_cells = new or None
+        return lines
 
     def _states_at_ceiling(self):
         return self.system.evb_max_states >= self.cfg.evb_hard_max_states
@@ -202,14 +318,27 @@ class Simulation:
             self.log_f.writelines(lines)
             self.log_f.flush()
 
+    def _draw_noise(self):
+        """The NVT step's two standard normal draws, (N, 3) each in the
+        state's dtype, from the run's generator."""
+        x = self.ms.state.x
+        return tuple(torch.randn(x.shape, generator=self.gen,
+                                 device=x.device, dtype=x.dtype)
+                     for _ in range(2))
+
     def _step(self, step):
         """One md_step; a capacity that did not hold is regrown and the
-        step redone from the state before it.  Returns False when the
-        EVB state cap overflowed at evb_hard_max_states: the step is kept,
-        as the JAX driver keeps its chunk, and the run ends."""
+        step redone from the state before it, with the same draws.
+        Returns False when the EVB state cap overflowed at
+        evb_hard_max_states: the step is kept, as the JAX driver keeps
+        its chunk, and the run ends."""
+        cfg = self.cfg
+        noise = self._draw_noise() if cfg.ensemble == "NVT" else None
         for _ in range(_MAX_REGROWS):
             ms = integrators.md_step(self.ms, self.system, self.cbw,
-                                     self.cfg.delta_t)
+                                     cfg.delta_t, cfg.ensemble,
+                                     cfg.friction_coeff, cfg.temperature,
+                                     noise=noise)
             if not ms.overflow:
                 self.ms = ms
                 return True
@@ -217,17 +346,41 @@ class Simulation:
                     and self._states_at_ceiling():
                 self._log([f"step {step}: diabat enumeration exceeded "
                            f"evb_hard_max_states="
-                           f"{self.cfg.evb_hard_max_states} -- aborting "
+                           f"{cfg.evb_hard_max_states} -- aborting "
                            f"(reference behavior, ms_evb.f90:3107-3123)\n"])
                 self.ms = ms
                 return False
             self._grow(ms.overflow, step)
-            self._init_state(self.ms.state, self.ms.topo, step)
+            self._init_state(self.ms.state, self.ms.topo, step,
+                             comp=self.ms.comp)
         raise integrators.CapacityOverflow(
             f"step {step}: {', '.join(ms.overflow)} still exceeded after "
             f"{_MAX_REGROWS} regrows")
 
-    def _write_frame(self, step):
+    def _barostat_move(self, step):
+        """One MC volume move after step `step`.  The trial is settled
+        (regrown) with the cell grids fitted to its box; a rejected trial
+        leaves the grids as they were, an accepted one logs each grid it
+        re-derived."""
+        grids = (self.system.rs_cells, self.cells, self.react_cells)
+        notes = []
+
+        def settle(state, ms, system, cbw):
+            notes.extend(self._fit_grids(state.box, step))
+            return self._settle(state, ms.topo, step, cbw=cbw)
+
+        self.ms, self.cbw = self.barostat.attempt(self.ms, self.system,
+                                                  self.cbw, settle)
+        if self.barostat.history[-1][1]:
+            self._log(notes)
+        else:
+            rs, self.cells, self.react_cells = grids
+            self.system = self.system.replace(rs_cells=rs)
+
+    def _blocks(self):
+        """(molecule names, atoms per molecule, atom names, atom order)
+        of the current topology in molecule-slot order, the order of the
+        trajectory and the text checkpoint."""
         topo = self.ms.topo
         names = [self.system.mt.mtype_names[t]
                  for t in topo.mol_mtype.tolist()]
@@ -235,8 +388,12 @@ class Simulation:
         order = ma[ma >= 0]
         anames = np.asarray(self.system.ff.atype_names)[
             topo.atom_type.cpu().numpy()[order]].tolist()
+        return names, topo.mol_natom.cpu().numpy(), anames, order
+
+    def _write_frame(self, step):
+        names, natom, anames, order = self._blocks()
         self.traj_f.write(format_gro_frame(
-            f"step {step}", names, topo.mol_natom.cpu().numpy(), anames,
+            f"step {step}", names, natom, anames,
             self.ms.state.x.cpu().numpy()[order],
             self.ms.state.box.cpu().numpy()))
         self.traj_f.flush()
@@ -274,50 +431,119 @@ class Simulation:
                 f" Eelec {float(bd.elec):14.6f} Evdw {float(bd.vdw):14.6f}"
                 f" Ebond {float(bd.bond):12.6f} Eangle {float(bd.angle):12.6f}"
                 f" Edihedral {float(bd.dihedral):12.6f}\n")
+        if self.cfg.ensemble == "NPT":
+            vol = abs(float(np.linalg.det(ms.state.box.cpu().numpy())))
+            dens = float(self.system.mass.sum()) / vol / 6.022e23 * 1e24
+            line += f" volume(A^3) {vol:14.4f} density(g/cm3) {dens:10.6f}\n"
         if self.system.ms_evb and self.cfg.print_ms_evb_data:
-            c = ms.eigenvector.cpu().numpy()
-            n = int(ms.n_states)
-            hyd = ms.hydronium_of.cpu().numpy()
-            shell = ms.n_hops_of.cpu().numpy()
-            line += (f" diabats {n} max_ci2 {float(np.max(c ** 2)):8.5f} "
+            c2 = float((ms.eigenvector ** 2).max())
+            line += (f" diabats {int(ms.n_states)} max_ci2 {c2:8.5f} "
                      f"hydronium_mol {int(ms.topo.hydronium_mol) + 1}\n")
-            # per-diabat block (print_evb_trajectory_data)
-            line += f" i_step {step} number of diabats {n}\n"
-            for s in range(n):
-                line += (f"  diabat {s + 1:3d} hydronium_molecule "
-                         f"{int(hyd[s]) + 1:6d} ci^2 {float(c[s] ** 2):10.6f}"
-                         f" solvation_shell {int(shell[s]):2d}\n")
-            line += "\n"
+            line += analysis.format_diabat_report(step, analysis.diabat_report(
+                ms.hydronium_of, ms.n_hops_of, ms.eigenvector, ms.n_states))
+        if self.system.ms_evb and self.cfg.debug >= 2:
+            n_acc, n_don = analysis.hbond_network(
+                ms.state.x, ms.state.box, ms.topo, self.system)
+            self.hop_f.write(f"step {step} number of acceptors {n_acc} "
+                             f"number of donors {n_don}\n")
+            self.hop_f.flush()
+            self._write_a_file(step)
         self.log_f.write(line)
         self.log_f.flush()
 
+    def _write_a_file(self, step):
+        """The debug >= 2 A-file block of every non-principle diabat:
+        Zundel geometry and geometric factor A (write_geometry,
+        ms_evb.f90:3828-3848, called at :1079-1081).  The diabat set is
+        enumerated again at the output step, outside the MD step."""
+        ms, nl = self.ms, self.ms.nlist
+        ridx = next(t for t in (nl.react_tab, nl.react_idx, nl.full_idx)
+                    if t is not None)
+        x, box = ms.state.x, ms.state.box
+        dset = enumerate_diabats(x, box, ms.topo, self.system, ridx)
+        batch = build_diabat_topologies(ms.topo, dset, self.system)
+        hop_log = dset.hop_log.cpu().numpy()
+        n_hops = dset.n_hops.cpu().numpy()
+        self.a_f.write(f"step {step}\n")
+        for s in range(1, int(dset.n_states)):
+            hop = hop_log[s, max(int(n_hops[s]) - 1, 0)]
+            self.a_f.write(analysis.format_zundel_geometry(
+                *analysis.zundel_diagnostics(
+                    x, box, state_topology(batch.topo, s), self.system,
+                    hop[0], hop[3], hop[1], d_heavy=hop[2],
+                    a_heavy=hop[4])))
+        self.a_f.flush()
+
+    def dump_forces(self, path, step):
+        """Append the per-atom forces, global atom order (print_forces,
+        general_routines.f90:950-991)."""
+        f = self.ms.force.cpu().numpy()
+        names = [self.system.ff.atype_names[t]
+                 for t in self.ms.topo.atom_type.tolist()]
+        with open(path, "a") as fh:
+            fh.write(f"step {step}\n")
+            fh.writelines(f"{i + 1:6d} {nm:<5s} {f[i, 0]:14.6f} "
+                          f"{f[i, 1]:14.6f} {f[i, 2]:14.6f}\n"
+                          for i, nm in enumerate(names))
+
+    def _checkpoint(self, step):
+        """Append the text block (print_velocities_checkpoint) and
+        rewrite the .npz."""
+        ms, topo = self.ms, self.ms.topo
+        names, natom, anames, order = self._blocks()
+        with open(self.text_chk, "a") as fh:
+            fh.write(format_velocity_checkpoint(
+                step, names, natom, anames, ms.state.v.cpu().numpy()[order]))
+        extra = {}
+        if ms.comp is not None:
+            extra = dict(comp_x=ms.comp.x.cpu().numpy(),
+                         comp_v=ms.comp.v.cpu().numpy())
+        np.savez(self.files["chk"], x=ms.state.x.cpu().numpy(),
+                 v=ms.state.v.cpu().numpy(), box=ms.state.box.cpu().numpy(),
+                 step=step, **extra,
+                 **{k: getattr(topo, k).cpu().numpy() for k in TOPO_KEYS},
+                 **{GENERATOR_KEY: self.gen.get_state().numpy(),
+                    GENERATOR_DEVICE_KEY: self.device.type})
+
     def run(self, n_steps=None):
-        """Run n_steps NVE steps; returns the wall seconds of the loop."""
+        """Run n_steps steps from the start step; returns the wall seconds
+        of the loop."""
         cfg = self.cfg
         n_steps = cfg.n_step if n_steps is None else n_steps
-        with open(self.files["traj"], "w") as self.traj_f, \
-                open(self.files["log"], "w") as self.log_f, \
-                open(self.files["hop"], "w") as hop_f, \
-                open(self.files["a"], "w"):
-            self._log_header()
+        restarting = self.restart or self.text_restart
+        mode = "a" if restarting else "w"
+        if not restarting and cfg.checkpoint_velocity \
+                and os.path.exists(self.text_chk):
+            open(self.text_chk, "w").close()    # a fresh run: no stale blocks
+        start = self.start_step
+        with open(self.files["traj"], mode) as self.traj_f, \
+                open(self.files["log"], mode) as self.log_f, \
+                open(self.files["hop"], mode) as self.hop_f, \
+                open(self.files["a"], mode) as self.a_f:
+            if not restarting:
+                self._log_header()
             self.log_f.writelines(self._log_lines)
             self._log_lines = []
-            self._log_step(0)
-            self._write_frame(0)
+            if not restarting:
+                self._log_step(start)
+                self._write_frame(start)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             t0 = time.perf_counter()
-            step = 0
-            while step < n_steps:
+            step = start
+            while step < start + n_steps:
+                if self.barostat is not None and step % cfg.barofreq == 0 \
+                        and step > start:
+                    self._barostat_move(step)
                 prev_h = int(self.ms.topo.hydronium_mol) \
                     if self.system.ms_evb else -1
                 going = self._step(step + 1)
                 step += 1
                 if self.ms.hopped:
-                    hop_f.write(f"step  {step}\n proton hop from "
-                                f"{prev_h + 1} to "
-                                f"{int(self.ms.topo.hydronium_mol) + 1}\n")
-                    hop_f.flush()
+                    self.hop_f.write(
+                        f"step  {step}\n proton hop from {prev_h + 1} to "
+                        f"{int(self.ms.topo.hydronium_mol) + 1}\n")
+                    self.hop_f.flush()
                 if self.ms.force_overflow:
                     self.log_f.write(f"step {step}: force magnitude exceeded "
                                      f"1e4 kJ/mol/A -- aborting (reference "
@@ -326,12 +552,18 @@ class Simulation:
                 if step % cfg.n_output == 0:
                     self._log_step(step)
                     self._write_frame(step)
+                    if self.dump_forces_path:
+                        self.dump_forces(self.dump_forces_path, step)
+                if cfg.checkpoint_velocity and \
+                        step % cfg.checkpoint_velocity == 0:
+                    self._checkpoint(step)
                 if not going:
                     break
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             elapsed = time.perf_counter() - t0
-            self.log_f.write(f"completed {step} steps in {elapsed:.2f} s "
-                             f"({step / max(elapsed, 1e-9):.2f} steps/s)\n")
+            done = step - start
+            self.log_f.write(f"completed {done} steps in {elapsed:.2f} s "
+                             f"({done / max(elapsed, 1e-9):.2f} steps/s)\n")
         self.log_f = None
         return elapsed

@@ -2,11 +2,14 @@
 
     python -m reactive_pb_nn_md_tpu_torch.run.cli \\
         in.gro ff.pmt topology.top sim.pmt traj.out log.out hop.out A.out \\
-        [--device cuda|cpu] [--steps N]
+        [--device cuda|cpu] [--steps N] [--dump-forces PATH]
 
 ``--device`` defaults to ``cuda`` and fails when CUDA is absent; the CPU
 runs only when asked for.  The deck's ``precision fp64|fp32`` key picks
-the tensor dtype.
+the tensor dtype, its ``ensemble`` key NVE, NVT or NPT.  A run restarts
+by itself when ``velocity_checkpoint.npz`` (in the working directory)
+lies beside an existing trajectory; ``checkpoint_velocity N`` writes it
+every N steps.
 """
 
 import argparse
@@ -32,6 +35,10 @@ def main(argv=None):
                         "asked for)")
     p.add_argument("--steps", type=int, default=None,
                    help="override n_step from the parameter file")
+    p.add_argument("--dump-forces", default=None, metavar="PATH",
+                   help="write the per-atom forces to PATH (a fresh file "
+                        "each run) at every output step (print_forces, "
+                        "general_routines.f90:950-991)")
     args = p.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -41,6 +48,9 @@ def main(argv=None):
     from ..md.simulation import Simulation
     sim = Simulation(args.gro, args.ffpmt, args.top, args.simpmt, args.traj,
                      args.log, args.hop, args.afile, device)
+    if args.dump_forces:
+        sim.dump_forces_path = args.dump_forces
+        open(args.dump_forces, "w").close()
     n = args.steps if args.steps is not None else sim.cfg.n_step
     elapsed = sim.run(n)
     print(f"completed {n} steps in {elapsed:.2f} s "

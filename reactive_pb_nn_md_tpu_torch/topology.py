@@ -128,6 +128,7 @@ class System:
     rs_cells: tuple = ()                 # kernel A cell grid, () = half list
     pme_scap: int = 0                    # PME slab capacity (kernels D), 0 = B
     evb_rep_rc_max: float = 0.0
+    compensated_sum: bool = False        # Kahan x / v sums in md_step
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
@@ -212,8 +213,6 @@ def build_numpy_tree(gro: GroFrame, ff_raw: RawForceField,
                      top_raw: TopologyFileRaw, cfg: SimConfig) -> dict:
     """The system as nested dicts of numpy arrays, keyed like the
     containers above (the format ``convert.from_numpy_tree`` reads)."""
-    if getattr(cfg, "compensated_sum", False):
-        raise ValueError("compensated_sum is not ported yet")
     if getattr(cfg, "eigensolver", "eigh") != "eigh":
         raise ValueError("only the 'eigh' eigensolver is ported")
     T = ff_raw.n_types
@@ -564,7 +563,8 @@ def build_numpy_tree(gro: GroFrame, ff_raw: RawForceField,
         has_sapt=bool((vdw_type == 1).any()),
         rs_cells=suggest_rs_cells(N, gro.box, cfg.real_space_cutoff),
         pme_scap=suggest_pme_scap(N, int(cfg.pme_grid), gro.box),
-        evb_rep_rc_max=rep_rc_max)
+        evb_rep_rc_max=rep_rc_max,
+        compensated_sum=bool(cfg.compensated_sum))
     return dict(ff=ff, mt=mt, evb=evb, system=system, topo=topo)
 
 

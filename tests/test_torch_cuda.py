@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_bridge import fixture_deck
+from torch_bridge import driver_deck, fixture_deck
 from reactive_pb_nn_md_tpu_torch.topology import build_system, State
 from reactive_pb_nn_md_tpu_torch.convert import load_equilibrated_npz
 from reactive_pb_nn_md_tpu_torch.models import pme
@@ -495,3 +495,31 @@ def test_force_evaluation_cuda_matches_cpu(tmp_path):
     np.testing.assert_allclose(float(g.potential), float(c.potential),
                                rtol=1e-10)
     _close(g.force, c.force, 1e-9)
+
+
+def test_nvt_restart_on_the_card(tmp_path, monkeypatch):
+    """chip_smoke.py phase 7b at the 26-water reactive fixture: fp64 NVT
+    through the CLI, 20 steps against 10 and an auto-detected restart of
+    10; the generator on the card is restored from the checkpoint."""
+    _need_card()
+    from reactive_pb_nn_md_tpu_torch.run import cli
+    monkeypatch.chdir(tmp_path)
+    runs = {}
+    for name, legs in (("whole", (20,)), ("broken", (10, 10))):
+        files = driver_deck(tmp_path / name, msevb="yes", n_water=26,
+                            ensemble="NVT", n_output=10,
+                            extra="checkpoint_velocity 10\n")
+        for n in legs:
+            sim = cli.main(files + ["--device", "cuda", "--steps", str(n)])
+        runs[name] = (sim, dict(np.load("velocity_checkpoint.npz")))
+        pathlib.Path("velocity_checkpoint.npz").unlink()
+    (whole, w), (broken, b) = runs["whole"], runs["broken"]
+    assert broken.restart and broken.start_step == 10 and int(b["step"]) == 20
+    assert broken.gen.device.type == "cuda"
+    np.testing.assert_array_equal(b["torch_generator_state"],
+                                  w["torch_generator_state"])
+    np.testing.assert_allclose(b["x"], w["x"], rtol=0, atol=1e-9)
+    np.testing.assert_allclose(float(broken.ms.kinetic + broken.ms.potential),
+                               float(whole.ms.kinetic + whole.ms.potential),
+                               rtol=0, atol=1e-8)
+

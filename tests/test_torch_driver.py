@@ -1,6 +1,6 @@
 """The port's simulation loop against the JAX driver, fp64 on the CPU: the
-EVB state-cap regrow with the step redone, the abort at the cap's ceiling,
-and the deck keys the port refuses rather than ignores.
+EVB state-cap regrow with the step redone, and the abort at the cap's
+ceiling.
 
 The deck is the 26-water + H3O+ fixture of tests/test_driver_features.py
 (13 diabats), with velocities in the .gro so that both packages start from
@@ -9,12 +9,10 @@ the same ones, and a state cap of 12: one regrow, to min(80, max(24, 20))
 
 import pathlib
 
-import jax
 import numpy as np
 import pytest
 
-from fixtures import make_water_box, write_fixture_files
-from reactive_pb_nn_md_tpu.io.gro import format_gro_frame
+from torch_bridge import driver_deck, jax_compiled
 from reactive_pb_nn_md_tpu.md.simulation import Simulation as JaxSimulation
 from reactive_pb_nn_md_tpu_torch.md.simulation import Simulation
 
@@ -23,17 +21,8 @@ N_WATER, CAP0, CAP1, N_STEPS = 26, 12, 24, 4
 
 def _deck(tmp, extra, n_step=N_STEPS, n_output=2):
     """The fixture deck under `tmp`: the 8 file names of the CLI."""
-    tmp.mkdir(parents=True, exist_ok=True)
-    ff, top, sim = write_fixture_files(tmp, msevb="yes", n_step=n_step,
-                                       n_output=n_output, extra=extra)
-    frame = make_water_box(N_WATER, include_h3o=True, seed=5, jitter=0.05)
-    v = np.random.default_rng(7).standard_normal(frame.xyz.shape) * 5.0
-    gro = tmp / "box.gro"
-    gro.write_text(format_gro_frame(frame.title, frame.mol_names,
-                                    frame.mol_natom, frame.atom_names,
-                                    frame.xyz, frame.box, velocities=v))
-    return [str(gro), ff, top, sim] + [str(tmp / n) for n in (
-        "traj.gro", "log.out", "hop.out", "a.out")]
+    return driver_deck(tmp, n_water=N_WATER, msevb="yes", extra=extra,
+                       n_step=n_step, n_output=n_output)
 
 
 def _etot(log):
@@ -47,14 +36,11 @@ def regrow_runs(tmp_path_factory):
     steps from a cap of CAP0, each with its log text."""
     tmp = tmp_path_factory.mktemp("regrow")
     files = _deck(tmp / "jax", f"evb_max_states {CAP0}\n")
-    # optimizations off: the CPU compile of the reactive chunk is minutes
-    prev = jax.config.values["jax_disable_most_optimizations"]
-    jax.config.update("jax_disable_most_optimizations", True)
-    try:
+    # optimizations off, eager paths compiled: the CPU compile of the
+    # reactive chunk is minutes otherwise
+    with jax_compiled():
         jsim = JaxSimulation(*files, checkpoint_file=str(tmp / "chk.npz"))
         jsim.run(N_STEPS)
-    finally:
-        jax.config.update("jax_disable_most_optimizations", prev)
     out = [(jsim, pathlib.Path(files[5]).read_text())]
     for name, cap in (("port", CAP0), ("port_at_cap1", CAP1)):
         files = _deck(tmp / name, f"evb_max_states {cap}\n")
@@ -97,24 +83,3 @@ def test_state_cap_ceiling_aborts_without_raising(tmp_path):
             "aborting") in log
     assert "completed 1 steps" in log
     assert sim.system.evb_max_states == 3
-
-
-@pytest.mark.parametrize("case", ["checkpoint_velocity", "debug",
-                                  "velocity_checkpoint.npz",
-                                  "velocity_checkpoint"])
-def test_unported_deck_keys_are_refused(tmp_path, case):
-    """Deck keys and files the JAX driver acts on raise a ValueError that
-    names them, before anything is written."""
-    extra = {"checkpoint_velocity": "checkpoint_velocity 2\n",
-             "debug": "debug 2\n"}.get(case, "")
-    files = _deck(tmp_path, extra)
-    if case.startswith("velocity_checkpoint"):
-        # the JAX driver's restart conditions: the trajectory beside its
-        # .npz, or beside the log and a non-empty text checkpoint
-        for f in (files[4], files[5]):
-            pathlib.Path(f).write_text("step 2\n")
-        (tmp_path / case).write_text("step 2\n")
-    with pytest.raises(ValueError, match=case):
-        Simulation(*files, device="cpu")
-    if not case.startswith("velocity_checkpoint"):
-        assert not pathlib.Path(files[4]).exists()

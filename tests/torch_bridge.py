@@ -2,14 +2,16 @@
 built by the JAX package and by the PyTorch port, with the JAX side's
 containers flattened to numpy so the port never imports jax."""
 
+import contextlib
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
 
 from fixtures import make_water_box, write_fixture_files
 from reactive_pb_nn_md_tpu.io.ffpmt import read_ffpmt
-from reactive_pb_nn_md_tpu.io.gro import read_gro
+from reactive_pb_nn_md_tpu.io.gro import read_gro, format_gro_frame
 from reactive_pb_nn_md_tpu.io.simpmt import read_sim_params
 from reactive_pb_nn_md_tpu.io.topfile import read_top
 
@@ -80,3 +82,49 @@ def example_deck(root):
     d = root / "examples" / "water_msevb"
     return (read_gro(d / "in.gro"), read_ffpmt(d / "ff.pmt"),
             read_top(d / "top.top"), read_sim_params(d / "sim.pmt"))
+
+
+def driver_deck(tmp, n_water=16, msevb="no", ensemble="NVE", extra="",
+                n_step=6, n_output=2):
+    """The 8 CLI file names of the fixture deck under `tmp`, with
+    velocities in the .gro so that both packages start from the same
+    ones (tests/test_torch_driver.py's deck, any size and ensemble)."""
+    tmp.mkdir(parents=True, exist_ok=True)
+    ff, top, sim = write_fixture_files(tmp, ensemble=ensemble, msevb=msevb,
+                                       n_step=n_step, n_output=n_output,
+                                       extra=extra)
+    frame = make_water_box(n_water, include_h3o=msevb == "yes", seed=5,
+                           jitter=0.05)
+    v = np.random.default_rng(7).standard_normal(frame.xyz.shape) * 5.0
+    gro = tmp / "box.gro"
+    gro.write_text(format_gro_frame(frame.title, frame.mol_names,
+                                    frame.mol_natom, frame.atom_names,
+                                    frame.xyz, frame.box, velocities=v))
+    return [str(gro), ff, top, sim] + [str(tmp / n) for n in (
+        "traj.gro", "log.out", "hop.out", "a.out")]
+
+
+@contextlib.contextmanager
+def jax_compiled():
+    """The JAX driver on the CPU with its eager paths compiled whole and
+    optimizations off: the force evaluation of initial_md_state and the
+    barostat, and the debug >= 2 enumeration.  Eager, each of their
+    thousands of ops compiles on its own (minutes a deck); compiled, the
+    arithmetic is the same to rounding.  Everything is restored on
+    exit."""
+    import jax
+    from reactive_pb_nn_md_tpu.md import integrators as ji
+    from reactive_pb_nn_md_tpu.evb import enumerate as je
+    from reactive_pb_nn_md_tpu.evb import topology_ops as jt
+    prev = jax.config.values["jax_disable_most_optimizations"]
+    jax.config.update("jax_disable_most_optimizations", True)
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(ji, "evaluate_forces", ji._evaluate_forces_jit)
+            mp.setattr(je, "enumerate_diabats",
+                       jax.jit(je.enumerate_diabats))
+            mp.setattr(jt, "build_diabat_topologies",
+                       jax.jit(jt.build_diabat_topologies))
+            yield
+    finally:
+        jax.config.update("jax_disable_most_optimizations", prev)
