@@ -21,15 +21,20 @@ Phases, in order, one line each (any failure raises, exit code != 0):
   4. full force evaluations in fp64, CUDA (kernels) against CPU (plain):
      the flagship and the 10k lattice;
   5. the main paths through the CLI, each with the launch counts set to 0
-     just before it and read just after:
-     a. examples/water_msevb/, 30 steps fp64 and fp32: A, B1, B2, C1, C2;
+     just before it and read just after (a run goes in chunks, each chunk
+     replays of the step captured as a CUDA graph: a replay adds the
+     launches its capture counted):
+     a. examples/water_msevb/, 30 steps fp64 and fp32: A, B1, B2, C1, C2,
+        E;
      b. examples/water_10k/, 20 steps fp32 (the deck as shipped) and fp64:
-        A'', D1, D2, C1, C2 launch, and A, B1, B2 do not;
+        A'', D1, D2, C1, C2, E launch, and A, B1, B2 do not;
      c. examples/water_10k/ under set_stencil_impl("half"), 3 steps fp32:
         A' launches;
      d. examples/water_msevb/ at evb_max_states 8, 5 steps fp64: the state
-        cap is regrown (a log line) and the run completes;
-  6. NVE from the equilibrated flagship state through the simulation loop,
+        cap is regrown at set-up (a log line) and the run completes;
+     e. examples/water_10k/ fp32 under NVT and NPT (barofreq 3), 12 steps
+        each: A'', D1, D2, C1, C2, E launch;
+  6. NVE from the equilibrated flagship state through the chunked loop,
      512 steps in fp64 and fp32: fp64 |Etot(200) - Etot(0)| <= 5 kJ/mol;
      fp32 finite at every step and |dEtot(512)| within 10 kJ/mol of
      fp64's; both drifts, the largest excursions and the rates reported;
@@ -41,13 +46,40 @@ Phases, in order, one line each (any failure raises, exit code != 0):
         C1, C2 launch, A', A'', D1, D2 do not;
      b. fp64 NVT through the CLI with checkpoint_velocity 10: 20 steps
         against 10 and an auto-detected restart of 10, positions within
-        1e-9 A and Etot within 1e-8 kJ/mol, the same step-11 draws;
+        1e-9 A and Etot within 1e-8 kJ/mol, the same generator state at
+        step 10 (so the same step-11 draws);
      c. the first three barostat trials from the equilibrated state on
         the card and on the CPU (plain path), one numpy seed: the same dE
         and decisions; then 30 NPT steps through the CLI, barofreq 3;
      d. 4 steps through the CLI at debug 2 with --dump-forces: a Donor
         block per non-principle diabat and an H-bond line at each output
-        step, the dump's rows equal to the forces.
+        step, the dump's rows equal to the forces;
+  8. md_scan graphed (md/graphs.py), against eager md_steps on the card:
+     a. one eager warm step under torch.cuda.set_sync_debug_mode("error")
+        raises nothing (flagship NVT fp64 and fp32, 10k fp32); the
+        capture's seconds and the graph pool's MiB of each;
+     b. kernel E against its plain version (eigh): the flagship's H at
+        S = 80 and 48 (the small tier), the 10k box's at S = 32, an
+        engineered near-degenerate H (diagonal gap 1e-7): |dlambda_0| <=
+        1e-10 |lambda_0|, |dc| <= 1e-9 up to sign where the ground gap is
+        > 1e-6, two calls bit-identical; E, plain and eigh times;
+     c. 64 graphed steps against 64 eager md_steps from the equilibrated
+        flagship, NVE and NVT (one generator state), fp64 (max |dx| <=
+        1e-9 A, |dEtot| <= 1e-8 kJ/mol) and fp32 (1e-3 A, 0.05 kJ/mol;
+        two eager fp32 runs part by 0.016 kJ/mol over 100 steps): A, B1,
+        B2, C1, C2 and E launch 64 times each;
+     d. the 10k box fp32, 20 steps graphed against eager, the same
+        tolerances: A'', D1, D2, C1, C2, E launch 20 times each;
+     e. the replays: a small tier that every step overflows
+        (evb_small_states 16), replayed at the full cap, against eager
+        full-cap steps; a state cap lowered to the current diabat count,
+        regrown inside a chunk ("chunk replayed"); the 30-step NPT CLI
+        run of 7c against the same run eager (positions within 1e-9 A,
+        the same barostat decisions);
+     f. rates, eager against graphed (tools/profile_step.py measure):
+        the flagship NVE fp64 and fp32, NVT fp64, the 10k box NVE fp32:
+        steps/s from the log's completed line, device ms, busy share and
+        device ops per step; no claim rests on them.
 The line before the last is nvidia-smi's name and power limit, the one
 before it the per-kernel JSON (times, errors and bounds in fp64; fp32 in
 the fp32_ keys); the last line is the result JSON.
@@ -63,7 +95,9 @@ mode is TF32, another type).  Operations are counted from these inputs:
 for the pair kernels FLOP_PAIR per inter-molecular pair within the cutoff
 (each unordered pair once); for the spreads 4 per atom and brick element;
 for the interpolations 16; for C1 the complex product W @ BC (8 per
-complex multiply-add) and for C2 three of them.
+complex multiply-add) and for C2 three of them; for E, whose solve is
+fp64 whatever H's type, the (4/3) S^3 flops of a dense symmetric
+tridiagonalization (not the sweeps its Jacobi method takes).
 """
 
 import json
@@ -99,6 +133,9 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
            "reactive_pb_nn_md_tpu/ops/pallas/pme_slab.py:268"),
     "D2": ("reactive_pb_nn_md_tpu_torch/csrc/pme_slab.cu",
            "reactive_pb_nn_md_tpu/ops/pallas/pme_slab.py:291"),
+    # no TPU kernel: the JAX package's ground state is jnp.linalg.eigh
+    "E": ("reactive_pb_nn_md_tpu_torch/csrc/ground_state.cu",
+          "reactive_pb_nn_md_tpu/ops/ground_state.py:157"),
 }
 # the shapes each kernel's JSON numbers are taken at (its main path's)
 AT_10K = ("A'", "A''", "D1", "D2")
@@ -113,6 +150,11 @@ FLOP_PAIR = 60
 NVE_STEPS = 512                 # phase 6, past the reference's fp32 pump
 NVT_STEPS = 256                 # phase 7a
 NVT_DECK = "ensemble           NVT\nfriction_coeff     1.0\n"
+# kernels of each main path (E: the EVB ground state of every reactive one)
+FLAGSHIP_KERNELS = ("A", "B1", "B2", "C1", "C2", "E")
+TENK_KERNELS = ("A''", "D1", "D2", "C1", "C2", "E")
+# phase 8c / 8d: graphed against eager, (max |dx| A, |dEtot| kJ/mol)
+GRAPH_TOL = {"fp64": (1e-9, 1e-8), "fp32": (1e-3, 0.05)}
 
 # Tolerances (|got - ref| <= atol + rtol |ref|, atol relative to max|ref|):
 #  fp64: 1e-10 relative for every kernel.
@@ -548,8 +590,7 @@ def forces_cuda_vs_cpu(name, build):
         t0 = time.perf_counter()
         fe = integrators.evaluate_forces(state.x, state.box, topo, system,
                                          nl, cbw)
-        over, _, _ = integrators._sync_flags(nl, fe, torch.zeros(
-            (), dtype=torch.bool, device=state.x.device))
+        over = integrators.overflow_names(integrators.capacity_flags(nl, fe))
         check(not over, f"{name}: {over} overflow")
         res[dev] = (fe, time.perf_counter() - t0)
     (g, tg), (c, tc) = res["cuda"], res["cpu"]
@@ -653,11 +694,10 @@ def main_path(name, fn, launched, absent=()):
     return counts
 
 
-def flagship_run(tmp, dtype, steps, extra=""):
-    """`steps` steps from the equilibrated flagship state through the
-    simulation loop (capacities regrown, step redone) of the flagship
-    deck with the parameter lines `extra`; (Etot and KE at every step,
-    hops, steps/s, the Simulation)."""
+def eq_sim(tmp, dtype, extra=""):
+    """The Simulation of the flagship deck (copied under `tmp`, with the
+    parameter lines `extra`) at the equilibrated state and its
+    capacities."""
     import torch
     from reactive_pb_nn_md_tpu_torch.md.simulation import Simulation
     tag = "fp64" if dtype == torch.float64 else "fp32"
@@ -666,16 +706,32 @@ def flagship_run(tmp, dtype, steps, extra=""):
     sim.system, sim.cbw = system, cbw
     sim.capacity, sim.react_cap = meta["capacity"], meta["react_cap"]
     sim._init_state(state, topo)
+    return sim
+
+
+def flagship_run(tmp, dtype, steps, extra=""):
+    """`steps` steps from the equilibrated flagship state through the
+    chunked loop (capacities regrown, chunk replayed) of the flagship
+    deck with the parameter lines `extra`; (Etot and KE at every step,
+    hops, steps/s, the Simulation)."""
+    import torch
+    from reactive_pb_nn_md_tpu_torch.md import integrators
+    tag = "fp64" if dtype == torch.float64 else "fp32"
+    sim = eq_sim(tmp, dtype, extra)
     etot = [float(sim.ms.kinetic + sim.ms.potential)]
     ke = [float(sim.ms.kinetic)]
-    hops = 0
+    hops = step = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for k in range(steps):
-        check(sim._step(k + 1), f"{tag}: the EVB state cap hit its ceiling")
-        hops += sim.ms.hopped
-        etot.append(float(sim.ms.kinetic + sim.ms.potential))
-        ke.append(float(sim.ms.kinetic))
+    while step < steps:
+        diag, done, last = sim._chunk(
+            step, min(integrators.MAX_CHUNK, steps - step))
+        check(not last, f"{tag}: the run ended at step {step + done}: "
+                        f"{sim._log_lines[-1:]}")
+        hops += int(diag.hopped.sum())
+        etot += (diag.kinetic + diag.potential).tolist()
+        ke += diag.kinetic.tolist()
+        step += done
     torch.cuda.synchronize()
     return etot, ke, hops, steps / (time.perf_counter() - t0), sim
 
@@ -764,40 +820,42 @@ def phase_restart(tmp):
     """Phase 7b: fp64 NVT through the CLI, checkpoint_velocity 10: 20
     steps against 10 and an auto-detected restart of 10.  Positions at
     step 20 within 1e-9 A, Etot within 1e-8 kJ/mol; the restored
-    generator gives step 11 the draws of the unbroken run (the card's
-    accumulating index ops are not deterministic, PERF.md)."""
+    generator's state at step 10 is the unbroken run's, so step 11 draws
+    what it drew (the card's accumulating index ops are not
+    deterministic, PERF.md)."""
     import numpy as np
     import torch
     from reactive_pb_nn_md_tpu_torch.md.simulation import Simulation
     extra = NVT_DECK + "checkpoint_velocity 10\n"
-    draw = Simulation._draw_noise
-    draws = []
+    chunk = Simulation._chunk
+    starts = []                     # (Simulation, step, generator state)
 
-    def recorded(self):
-        g = draw(self)
-        draws.append(tuple(t.clone() for t in g))
-        return g
+    def recorded(self, step, n):
+        starts.append((self, step, self.gen.get_state()))
+        return chunk(self, step, n)
 
-    Simulation._draw_noise = recorded
+    Simulation._chunk = recorded
     try:
         whole = cli_in(flagship_copy(tmp, "whole", extra), 20)
-        whole_draws, draws[:] = list(draws), []
         files = flagship_copy(tmp, "broken", extra)
         cli_in(files, 10)
         broken = cli_in(files, 10)
     finally:
-        Simulation._draw_noise = draw
+        Simulation._chunk = chunk
     check(broken.restart and broken.start_step == 10,
           "7b: the second run did not restart from step 10")
-    same = all(torch.equal(a, b) for a, b in zip(whole_draws[10], draws[10]))
-    check(same, "7b: the restored generator's step-11 draws differ")
+    at10 = [g for sim, step, g in starts if step == 10 and sim in (whole,
+                                                                   broken)]
+    same = len(at10) == 2 and torch.equal(at10[0], at10[1])
+    check(same, "7b: the restored generator's state at step 10 differs")
     dx = float((broken.ms.state.x - whole.ms.state.x).abs().max())
     de = abs(float(broken.ms.kinetic + broken.ms.potential)
              - float(whole.ms.kinetic + whole.ms.potential))
     chk = np.load(pathlib.Path(files[0]).parent / "velocity_checkpoint.npz")
     log(f"  7b: 20 steps vs 10 + restart 10 (fp64 NVT): max|dx| {dx:.3e} A,"
-        f" |dEtot| {de:.3e} kJ/mol, step-11 draws equal {same}, checkpoint "
-        f"step {int(chk['step'])}, generator on {broken.gen.device}")
+        f" |dEtot| {de:.3e} kJ/mol, step-10 generator equal {same}, "
+        f"checkpoint step {int(chk['step'])}, generator on "
+        f"{broken.gen.device}")
     check(dx <= 1e-9 and de <= 1e-8, "7b: the restart does not continue the "
                                      "unbroken run")
 
@@ -808,7 +866,7 @@ def phase_npt(tmp):
     numpy seed: each dE within 1e-8 |dE| + 1e-12 |PE| (the CUDA vs CPU
     potentials' own agreement), the same decisions.  Then 30 NPT steps
     through the CLI at barofreq 3, fp64: finite, the box diagonal.
-    Returns the CLI's steps/s."""
+    Returns (the CLI's steps/s, its Simulation)."""
     import numpy as np
     import torch
     from reactive_pb_nn_md_tpu_torch.md import integrators
@@ -820,7 +878,8 @@ def phase_npt(tmp):
         ms = integrators.initial_md_state(
             state, topo, system, cbw, meta["capacity"],
             react_cap=meta["react_cap"])
-        check(not ms.overflow, f"7c {dev}: {ms.overflow} overflow")
+        over = integrators.overflowed(ms)
+        check(not over, f"7c {dev}: {over} overflow")
         baro = MCBarostat(cfg.pressure, cfg.temperature, cfg.baroscale,
                           cfg.seed)
         t0 = time.perf_counter()
@@ -846,13 +905,23 @@ def phase_npt(tmp):
             if ln.startswith(" volume(A^3)")]
     rate = float(text.strip().splitlines()[-1].split("(")[1].split()[0])
     acc = [a for _, a in sim.barostat.history]
+    # a capture a tier, and one more for each grid refit or regrow: a move,
+    # rejected or accepted, keeps the System and so its graph
+    caps = sim.step_graphs.captures
+    refits = sum("re-derived" in ln or "regrow" in ln
+                 for ln in text.splitlines())
+    tiers = len({key[2] for key, _, _ in caps})
     log(f"  7c: 30 NPT steps (CLI, fp64, barofreq 3): {len(acc)} trials, "
         f"{sum(acc)} accepted, volume {vols[0]:.4f} -> "
-        f"{float(np.linalg.det(box)):.4f} A^3, {rate:.2f} steps/s")
+        f"{float(np.linalg.det(box)):.4f} A^3, {rate:.2f} steps/s, "
+        f"{len(caps)} captures ({tiers} tiers, {refits} refits/regrows)")
     check(all(math.isfinite(e) for e in etot) and len(acc) == 9,
           f"7c: NPT run: Etot {etot}, {len(acc)} trials")
+    check(len(caps) <= tiers + refits,
+          f"7c: {len(caps)} captures for {tiers} tiers and {refits} grid "
+          f"refits or regrows")
     check(np.allclose(np.diag(np.diag(box)), box), "7c: box not diagonal")
-    return rate
+    return rate, sim
 
 
 def phase_debug(tmp):
@@ -882,6 +951,277 @@ def phase_debug(tmp):
           "7d: one Donor block per non-principle diabat at each output step")
     check(len(hb) == 3, "7d: hop-file H-bond lines")
     check(df <= 1e-6, "7d: the force dump differs from the forces")
+
+
+def lattice_sim(tmp, dtype):
+    """The Simulation of examples/water_10k/ (copied under `tmp`) in
+    `dtype`, with the CLI's seeded velocities."""
+    import torch
+    from reactive_pb_nn_md_tpu_torch.md.simulation import Simulation
+    tag = "fp64" if dtype == torch.float64 else "fp32"
+    (tmp / f"10k_{tag}").mkdir(parents=True)
+    return Simulation(*deck_copy(tmp / f"10k_{tag}", DECK_10K, tag),
+                      device="cuda")
+
+
+def scan_args(sim, ensemble):
+    """md_scan's arguments after (ms, ...) for `sim` under `ensemble`."""
+    cfg = sim.cfg
+    return (sim.system, sim.cbw, cfg.delta_t, ensemble, cfg.friction_coeff,
+            cfg.temperature)
+
+
+def phase_sync(tmp):
+    """Phase 8a: one eager warm step under sync-debug "error" in each
+    cell, then its capture: (name, capture s, pool MiB) of each."""
+    import torch
+    from reactive_pb_nn_md_tpu_torch.evb import hamiltonian as ham
+    from reactive_pb_nn_md_tpu_torch.md import graphs, integrators
+    out = []
+    for name, make, ens in (
+            ("flagship NVT fp64", lambda: eq_sim(tmp / "8a64", torch.float64,
+                                                 NVT_DECK), "NVT"),
+            ("flagship NVT fp32", lambda: eq_sim(tmp / "8a32", torch.float32,
+                                                 NVT_DECK), "NVT"),
+            ("10k NVE fp32", lambda: lattice_sim(tmp, torch.float32),
+             "NVE")):
+        sim = make()
+        system, cbw, dt, _, fr, temp = scan_args(sim, ens)
+        tier = "small" if ham.small_state_tier(system) else "full"
+        step = (sim.ms, system, cbw, dt, ens, fr, temp, sim.gen, tier)
+        integrators.scan_step(*step)           # warm: kernels, cuFFT plans
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            integrators.scan_step(*step)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        sg = graphs.StepGraphs()
+        integrators.md_scan(sim.ms, system, cbw, dt, ens, 1, fr, temp,
+                            generator=sim.gen, step_graphs=sg)
+        _, sec, pool = sg.captures[0]
+        out.append((name, sec, pool / 2 ** 20))
+        log(f"  8a {name}: an eager {tier}-tier step under sync-debug "
+            f"'error' raised nothing; capture {sec:.3f} s, graph pool "
+            f"{pool / 2 ** 20:.1f} MiB")
+    return out
+
+
+def evb_like(S, n_active, rng, gap=None):
+    """A padded EVB-shaped Hamiltonian (tests/test_ground_state.py's
+    _evb_like): tree couplings, parked inactive diagonal."""
+    import numpy as np
+    diag = -24000.0 + 50.0 * rng.standard_normal(S)
+    if gap is not None:
+        diag[1] = diag[0] + gap
+    H = np.diag(diag)
+    for s in range(1, n_active):
+        p = rng.integers(0, s)
+        H[p, s] = H[s, p] = 30.0 * rng.standard_normal()
+    for s in range(n_active, S):
+        H[s, s] = diag[0] + 1.0e5 * (1.0 + s / S)
+        H[s, :s] = H[:s, s] = 0.0
+    return H
+
+
+def evb_hamiltonian(sim, tier):
+    """The EVB Hamiltonian of sim's current state at `tier`."""
+    from reactive_pb_nn_md_tpu_torch.evb import hamiltonian as ham
+    from reactive_pb_nn_md_tpu_torch.ops import neighbors
+    ms, nl = sim.ms, sim.ms.nlist
+    full = nl.celltab if nl.celltab is not None else nl.full_idx
+    react = nl.react_tab if nl.react_tab is not None else nl.react_idx
+    res, _ = ham.adiabatic_energy_force(
+        ms.state.x, ms.state.box, ms.topo, sim.system,
+        neighbors.neighbor_pairs(nl), sim.cbw, full, react_idx=react,
+        tier=tier)
+    return res.hamiltonian
+
+
+def phase_ground_state(tmp, measured):
+    """Phase 8b: kernel E against its plain version; E's entries of
+    `measured` (fp64 and fp32 at the flagship's small tier, S = 48; S = 80
+    and the 10k box's S = 32 beside them)."""
+    import numpy as np
+    import torch
+    from reactive_pb_nn_md_tpu_torch.ops import ground_state as gs
+    flag = eq_sim(tmp / "8b", torch.float64)
+    H80 = evb_hamiltonian(flag, "full")
+    H48 = evb_hamiltonian(flag, "small")[:48, :48].contiguous()
+    H32 = evb_hamiltonian(lattice_sim(tmp / "8b", torch.float32),
+                          "full").double()
+    Hdeg = torch.tensor(evb_like(80, 60, np.random.default_rng(7), 1e-7),
+                        device="cuda")
+    for name, H, key in (("flagship S=80", H80, "E_S80"),
+                         ("flagship S=48", H48, "E"),
+                         ("10k S=32", H32, "E@10k"),
+                         ("near-degenerate S=80", Hdeg, None)):
+        for dtype in (torch.float64, torch.float32):
+            tag = "fp64" if dtype == torch.float64 else "fp32"
+            if tag == "fp32" and key != "E":
+                continue
+            Ht = H.to(dtype)
+            lam, c, info = gs.ground_state_cuda(Ht)
+            lam2, c2, _ = gs.ground_state_cuda(Ht)
+            check(torch.equal(lam, lam2) and torch.equal(c, c2),
+                  f"8b {name} {tag}: two calls of E differ")
+            sweeps = int(info)
+            check(sweeps >= 0, f"8b {name} {tag}: E did not converge")
+            lp, cp = gs.ground_state_eigh(Ht)
+            w = torch.linalg.eigvalsh(Ht.double() - Ht[0, 0].double()
+                                      * torch.eye(Ht.shape[0], device="cuda",
+                                                  dtype=torch.float64))
+            ground_gap = float(w[1] - w[0])
+            dlam = abs(float(lam) - float(lp))
+            dc = min(float((c - cp).abs().max()), float((c + cp).abs().max()))
+            # fp32: H's own rounding (~1e-3 kJ/mol at |H00| ~ 1e4) is in
+            # both; the solve is fp64 in both, the outputs rounded to fp32
+            tol_l, tol_c = ((1e-10, 1e-9) if tag == "fp64" else (1e-6, 1e-5))
+            ok = dlam <= tol_l * abs(float(lp)) and (
+                ground_gap <= 1e-6 or dc <= tol_c)
+            S = Ht.shape[0]
+            isz = Ht.element_size()
+            ms = cuda_ms(lambda: gs.ground_state_cuda(Ht))
+            # no device_ms: the profiler kept the records of 0 or 1 of 5
+            # calls of E here (two runs); E's device time is read from
+            # 8f's step profiles instead
+            row = dict(max_abs_err=max(dlam, dc), max_rel_err=dlam / abs(
+                float(lp)), ok=ok, ms=ms, device_ms=None,
+                plain_ms=cuda_ms(lambda: gs.ground_state_eigh(Ht)),
+                library_ms=cuda_ms(lambda: torch.linalg.eigh(Ht)),
+                sweeps=sweeps)
+            # the function's work, not the method's: H in, (lambda, c)
+            # out, and the flops of a dense symmetric tridiagonalization,
+            # (4/3) S^3 in fp64 (the solve is fp64 whatever H's dtype)
+            row["bound_ms"], row["bound_by"] = bound(
+                S * S * isz + (S + 1) * isz, 4.0 / 3.0 * S ** 3, "fp64")
+            log(f"  8b {name} {tag}: E |dlambda| {dlam:.3e} (|lambda| "
+                f"{abs(float(lp)):.1f}), |dc| {dc:.3e} up to sign, ground gap"
+                f" {ground_gap:.3e}, {sweeps} sweeps; E {ms:.4f} ms, plain "
+                f"{row['plain_ms']:.4f} ms, "
+                f"eigh {row['library_ms']:.4f} ms, bound {row['bound_ms']:.2e}"
+                f" ms ({row['bound_by']})")
+            check(ok, f"8b {name} {tag}: E disagrees with eigh")
+            if key is not None:
+                measured[tag][key] = row
+
+
+def graphed_vs_eager(name, sim, ensemble, n, kernels, tier=None):
+    """n graphed steps (md_scan, captured first) against n eager md_steps
+    from sim's state, one generator state; the launches of `kernels` must
+    be n each.  tier: the eager steps' (None: md_scan's first, and no
+    eager step may overflow it)."""
+    import torch
+    from reactive_pb_nn_md_tpu_torch.evb import hamiltonian as ham
+    from reactive_pb_nn_md_tpu_torch.md import graphs, integrators
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import _build
+    system, cbw, dt, ens, fr, temp = scan_args(sim, ensemble)
+    if tier is None:
+        tier = "small" if ham.small_state_tier(system) else "full"
+    tag = "fp64" if sim.ms.state.x.dtype == torch.float64 else "fp32"
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    start = gen.get_state()
+    sg = graphs.StepGraphs()
+    integrators.md_scan(sim.ms, system, cbw, dt, ens, 1, fr, temp,
+                        generator=gen, step_graphs=sg)
+    gen.set_state(start)
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    g, diag = integrators.md_scan(sim.ms, system, cbw, dt, ens, n, fr, temp,
+                                  generator=gen, step_graphs=sg)
+    t_g = time.perf_counter() - t0
+    counts = dict(_build.launches)
+    gen.set_state(start)
+    e = sim.ms
+    t0 = time.perf_counter()
+    for _ in range(n):
+        noise = (integrators.draw_noise(e.state.x, gen) if ens == "NVT"
+                 else None)
+        e = integrators.md_step(e, system, cbw, dt, ens, fr, temp,
+                                noise=noise, tier=tier)
+        check(not bool(e.small_overflow),
+              f"{name}: an eager step overflowed the small tier")
+    torch.cuda.synchronize()
+    t_e = time.perf_counter() - t0
+    check(not integrators.overflowed(e) and not diag.capacities(),
+          f"8 {name}: a capacity overflowed")
+    dx = float((g.state.x - e.state.x).abs().max())
+    de = abs(float(g.kinetic + g.potential) - float(e.kinetic + e.potential))
+    tol_x, tol_e = GRAPH_TOL[tag]
+    log(f"  {name} {ensemble} {tag}: {n} graphed vs eager steps, max|dx| "
+        f"{dx:.3e} A, |dEtot| {de:.3e} kJ/mol, {int(diag.hopped.sum())} "
+        f"hops, small tier replayed {bool(diag.small_overflow.any())}; "
+        f"{t_g:.2f} s graphed, {t_e:.2f} s eager; launches {counts}")
+    check(dx <= tol_x and de <= tol_e,
+          f"{name} {ensemble} {tag}: graphed and eager steps disagree")
+    bad = {k: counts.get(k, 0) for k in kernels if counts.get(k, 0) != n}
+    check(not bad, f"{name} {ensemble} {tag}: launches {bad}, not {n}")
+    return diag
+
+
+def phase_replays(tmp, npt_graphed):
+    """Phase 8e: the small-tier replay, a state-cap regrow inside a chunk,
+    and the 7c NPT run against the same run eager."""
+    import numpy as np
+    import torch
+    from reactive_pb_nn_md_tpu_torch.md.simulation import Simulation
+    sim = eq_sim(tmp / "8e_tier", torch.float64)
+    sim.system = sim.system.replace(evb_small_states=16)
+    sim._init_state(sim.ms.state, sim.ms.topo)
+    # every chunk runs twice (small, then the full cap): no launch count
+    diag = graphed_vs_eager("8e small tier 16", sim, "NVE", 16, (),
+                            tier="full")
+    check(bool(diag.small_overflow.all()),
+          "8e: the small tier did not overflow at every step")
+
+    sim = eq_sim(tmp / "8e_cap", torch.float64)
+    sim._chunk(0, 8)
+    cap = int(sim.ms.n_states)
+    sim.system = sim.system.replace(evb_max_states=cap)
+    sim._init_state(sim.ms.state, sim.ms.topo, 8)
+    step = 8
+    while step < 40 and sim.system.evb_max_states == cap:
+        _, done, _ = sim._chunk(step, 8)
+        step += done
+    lines = [ln for ln in sim._log_lines if "chunk replayed" in ln]
+    log(f"  8e state cap {cap} from step 8: {''.join(lines).strip()}")
+    check(lines and sim.system.evb_max_states > cap,
+          "8e: no state-cap regrow inside a chunk")
+
+    files = flagship_copy(tmp, "npt_eager", "ensemble           NPT\n")
+    eager = Simulation(*files, device="cuda")
+    eager.eager = True
+    eager.run(30)
+    dx = float((eager.ms.state.x - npt_graphed.ms.state.x).abs().max())
+    acc_e = [a for _, a in eager.barostat.history]
+    acc_g = [a for _, a in npt_graphed.barostat.history]
+    log(f"  8e NPT 30 steps eager vs graphed: max|dx| {dx:.3e} A, "
+        f"decisions {acc_e} / {acc_g}")
+    check(dx <= 1e-9 and acc_e == acc_g and np.isfinite(dx),
+          "8e: the NPT run differs eager and graphed")
+
+
+def phase_rates(tmp):
+    """Phase 8f: tools/profile_step.py's measure, eager against graphed,
+    in four cells."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "profile_step", ROOT / "tools" / "profile_step.py")
+    prof = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prof)
+    prof._instrument()
+    out = []
+    for deck, ens, tag in (("flagship", "NVE", "fp64"),
+                           ("flagship", "NVE", "fp32"),
+                           ("flagship", "NVT", "fp64"),
+                           ("10k", "NVE", "fp32")):
+        for eager in (True, False):
+            r = prof.measure(deck, ens, tag, tmp, 128, eager)
+            log("  8f " + prof.line(r))
+            out.append(r)
+    return out
 
 
 def main():
@@ -925,12 +1265,12 @@ def main():
         flag = main_path(
             "5a water_msevb",
             lambda: [run_cli(tmp, DECK, p, 30, 4) for p in ("fp64", "fp32")],
-            ("A", "B1", "B2", "C1", "C2"), ("A'", "A''", "D1", "D2"))
+            FLAGSHIP_KERNELS, ("A'", "A''", "D1", "D2"))
         big = main_path(
             "5b water_10k",
             lambda: [run_cli(tmp, DECK_10K, p, 20, 3)
                      for p in ("fp32", "fp64")],
-            ("A''", "D1", "D2", "C1", "C2"), ("A", "A'", "B1", "B2"))
+            TENK_KERNELS, ("A", "A'", "B1", "B2"))
 
         def half():
             rsp.set_stencil_impl("half")
@@ -940,8 +1280,8 @@ def main():
                 rsp.set_stencil_impl("auto")
 
         (tmp / "half").mkdir()
-        half_counts = main_path("5c water_10k half stencil", half, ("A'",),
-                                ("A", "A''"))
+        half_counts = main_path("5c water_10k half stencil", half,
+                                ("A'", "E"), ("A", "A''"))
 
         def regrow():
             (tmp / "cap8").mkdir()
@@ -951,8 +1291,18 @@ def main():
                   "the state cap 8 was not regrown")
 
         main_path("5d water_msevb at evb_max_states 8", regrow,
-                  ("A", "B1", "B2", "C1", "C2"), ("A'", "A''", "D1", "D2"))
-    for k in ("A", "B1", "B2", "C1", "C2"):
+                  FLAGSHIP_KERNELS, ("A'", "A''", "D1", "D2"))
+
+        def ensembles_10k():
+            for name, extra in (("nvt", NVT_DECK),
+                                ("npt", "ensemble           NPT\n")):
+                (tmp / f"10k_{name}").mkdir()
+                run_cli(tmp / f"10k_{name}", DECK_10K, "fp32", 12, 2,
+                        extra=extra)
+
+        main_path("5e water_10k NVT and NPT", ensembles_10k, TENK_KERNELS,
+                  ("A", "A'", "B1", "B2"))
+    for k in FLAGSHIP_KERNELS:
         launches[k] = flag[k]
     for k in ("A''", "D1", "D2"):
         launches[k] = big[k]
@@ -966,12 +1316,29 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
         nvt = main_path("7a flagship NVT", lambda: phase_nvt(tmp),
-                        ("A", "B1", "B2", "C1", "C2"),
-                        ("A'", "A''", "D1", "D2"))
+                        FLAGSHIP_KERNELS, ("A'", "A''", "D1", "D2"))
         phase_restart(tmp)
-        phase_npt(tmp)
+        _, npt = phase_npt(tmp)
         phase_debug(tmp)
-    log(f"  phase 7: {time.perf_counter() - t7:.1f} s")
+        log(f"  phase 7: {time.perf_counter() - t7:.1f} s")
+
+        log("[8 md_scan graphed] sync-free step, kernel E, graphed vs "
+            "eager, replays, rates")
+        t8 = time.perf_counter()
+        phase_sync(tmp)
+        phase_ground_state(tmp, measured)
+        for dtype in (torch.float64, torch.float32):
+            tag = "fp64" if dtype == torch.float64 else "fp32"
+            for ens in ("NVE", "NVT"):
+                sim = eq_sim(tmp / f"8c_{tag}_{ens}", dtype,
+                             NVT_DECK if ens == "NVT" else "")
+                graphed_vs_eager("8c flagship", sim, ens, 64,
+                                 FLAGSHIP_KERNELS)
+        graphed_vs_eager("8d 10k", lattice_sim(tmp / "8d", torch.float32),
+                         "NVE", 20, TENK_KERNELS)
+        phase_replays(tmp, npt)
+        phase_rates(tmp / "8f")
+        log(f"  phase 8: {time.perf_counter() - t8:.1f} s")
 
     k64, k32 = measured["fp64"], measured["fp32"]
     kernels = []

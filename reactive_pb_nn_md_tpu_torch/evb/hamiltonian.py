@@ -7,12 +7,14 @@ construct_evb_hamiltonian / diagonalize_evb_hamiltonian, ms_evb.f90:181-490).
     U; reciprocal space as one base grid (kernel B) + one FFT + the
     per-state spectrum contraction (kernel C), no per-diabat FFT;
   * couplings of every state with its parent;
-  * ground state of the padded H by eigh (inactive states parked above the
-    spectrum);
+  * ground state of the padded H (inactive states parked above the
+    spectrum): kernel E on the card, eigh on the CPU (ops/ground_state.py);
   * forces F = -d/dx [c^T H(x) c] with c held fixed (Hellmann-Feynman).
 
 Every per-state quantity carries a leading state axis; the padded state
-cap is static.  The two-tier switch is a Python branch with one host sync.
+cap is static.  The two-tier switch is chosen by the caller (`tier`):
+the small tier's overflow is a device flag, on which md_scan replays its
+chunk at the full cap; no host synchronization.
 """
 
 from dataclasses import dataclass, replace
@@ -22,7 +24,7 @@ import torch
 from ..utils.constants import CONV_E2A_KJMOL, SQRT_PI
 from ..models import total as total_mod
 from ..models import bonded, coupling, nonbonded, pme, repulsion
-from ..ops.ground_state import ground_state_eigh
+from ..ops.ground_state import ground_state
 from ..ops.neighbors import CellTable, rows_on_demand
 from ..topology import Topology
 from ..utils import pbc
@@ -189,7 +191,8 @@ def diabat_diagonal_energies(x, box, batch: DiabatBatch, system, pairs, cbw,
     qU, tU, mU = tb.charge[:, ua], tb.atom_type[:, ua], tb.atom_mol[:, ua]
     q0U, m0U = base_charge[ua], topo0.atom_mol[ua]
     selU = torch.argmax((tU[..., None] == opts[None]).to(torch.int64), -1)
-    oh_sel = torch.nn.functional.one_hot(selU, O).to(x.dtype)   # (S, U, O)
+    # one_hot validates its classes on the host (a synchronization)
+    oh_sel = (selU[..., None] == torch.arange(O, device=dev)).to(x.dtype)
     masked_q = torch.where(ua_mask[None], qU - q0U[None],
                            torch.zeros_like(qU))                # (S, U)
     d_el_out = masked_q @ phi_el
@@ -331,6 +334,10 @@ class EvbResult:
     # () bool: an on-demand adjacency row exceeded its capacity (cell
     # path), in the Hamiltonian's rows or the enumeration's
     row_overflow: torch.Tensor = None
+    # () bool: the small tier's enumeration overflowed (tier "small": the
+    # result is not valid, evaluate at the full cap instead)
+    small_overflow: torch.Tensor = None
+    gs_failed: torch.Tensor = None # () bool: kernel E did not converge
 
 
 def _eval_at_cap(x, box, topo, system, pairs, cbw, full_idx, com,
@@ -343,7 +350,7 @@ def _eval_at_cap(x, box, topo, system, pairs, cbw, full_idx, com,
         H, bds, _, row_over = assemble_hamiltonian(
             xg, box, batch, system, pairs, cbw, topo.charge, topo, full_idx,
             com)
-        _, c = ground_state_eigh(H)
+        _, c, gs_failed = ground_state(H)
         c = c.detach()
         energy = c @ H @ c
         grad, = torch.autograd.grad(energy, xg)
@@ -357,7 +364,9 @@ def _eval_at_cap(x, box, topo, system, pairs, cbw, full_idx, com,
                     hamiltonian=H.detach(), breakdown=bds,
                     overflow=dset.overflow, hydronium_of=dset.hydronium_of,
                     n_hops_of=dset.n_hops, principle_topo=ptopo,
-                    row_overflow=row_over | dset.row_overflow)
+                    row_overflow=row_over | dset.row_overflow,
+                    small_overflow=torch.zeros_like(dset.overflow),
+                    gs_failed=gs_failed)
     return res, batch
 
 
@@ -413,7 +422,7 @@ def _pad_states(res: EvbResult, batch: DiabatBatch, S: int):
 
 
 def adiabatic_energy_force(x, box, topo, system, pairs, cbw, full_idx,
-                           react_idx=None, com=None):
+                           react_idx=None, com=None, tier="full"):
     """Full MS-EVB energy/force evaluation -> (EvbResult, DiabatBatch).
 
     full_idx: the (N, K) full adjacency; react_idx: the short-cutoff rows
@@ -421,25 +430,26 @@ def adiabatic_energy_force(x, box, topo, system, pairs, cbw, full_idx,
     are CellTables.  com: per-molecule COM of (x, topo), used only where
     gradients are cut.
 
-    Two-tier: the pipeline runs at the small cap and falls back to the
-    full cap only when the small enumeration overflows (one host sync);
-    the small-tier state set equals the full enumeration whenever it fits,
-    so the physics is the same."""
+    Two-tier (small_state_tier): `tier` "small" evaluates at the small cap
+    and sets EvbResult.small_overflow when its enumeration overflowed (the
+    result is then not valid: evaluate at the full cap); "full" evaluates
+    at the full cap.  The small-tier state set equals the full
+    enumeration whenever it fits, so the physics is the same."""
     if com is None:
         com = molecule_com(x, topo.mol_atoms, system.mass, box)
     com = com.detach()
     enum_src = react_idx if react_idx is not None else full_idx
     S1 = small_state_tier(system)
-    if not S1:
-        dset = enumerate_diabats(x, box, topo, system, enum_src, com)
-        return _eval_at_cap(x, box, topo, system, pairs, cbw, full_idx,
-                            com, dset)
-    sys_small = system.replace(evb_max_states=S1)
-    dset_small = enumerate_diabats(x, box, topo, sys_small, enum_src, com)
-    if bool(dset_small.overflow):
-        dset_big = enumerate_diabats(x, box, topo, system, enum_src, com)
-        return _eval_at_cap(x, box, topo, system, pairs, cbw, full_idx,
-                            com, dset_big)
-    res, batch = _eval_at_cap(x, box, topo, sys_small, pairs, cbw, full_idx,
-                              com, dset_small)
-    return _pad_states(res, batch, system.evb_max_states)
+    if tier == "small" and S1:
+        sys_small = system.replace(evb_max_states=S1)
+        dset = enumerate_diabats(x, box, topo, sys_small, enum_src, com)
+        res, batch = _eval_at_cap(x, box, topo, sys_small, pairs, cbw,
+                                  full_idx, com, dset)
+        # where the small set holds, the full cap's is the same and did
+        # not overflow
+        res = replace(res, small_overflow=dset.overflow,
+                      overflow=torch.zeros_like(dset.overflow))
+        return _pad_states(res, batch, system.evb_max_states)
+    dset = enumerate_diabats(x, box, topo, system, enum_src, com)
+    return _eval_at_cap(x, box, topo, system, pairs, cbw, full_idx, com,
+                        dset)

@@ -26,8 +26,13 @@ class DiabatBatch:
 
 
 def state_topology(topo_b: Topology, s) -> Topology:
-    """State s's topology out of a batch of diabat topologies."""
-    return Topology(**{k: getattr(topo_b, k)[s]
+    """State s's topology out of a batch of diabat topologies; s an int
+    or a () tensor, read on the device (no host synchronization)."""
+    if isinstance(s, int):
+        return Topology(**{k: getattr(topo_b, k)[s]
+                           for k in Topology.__dataclass_fields__})
+    s = s.reshape(1)
+    return Topology(**{k: getattr(topo_b, k).index_select(0, s)[0]
                        for k in Topology.__dataclass_fields__})
 
 

@@ -70,9 +70,10 @@ class MCBarostat:
                               system.alpha_sqrt, dtype=x.dtype)
         trial = settle(State(x=x_new, v=ms.state.v, box=new_box,
                              step=ms.state.step), ms, system, new_cbw)
-        if trial.overflow:
+        over = integrators.overflowed(trial)
+        if over:
             raise integrators.CapacityOverflow(
-                f"barostat trial: {', '.join(trial.overflow)} exceeded")
+                f"barostat trial: {', '.join(over)} exceeded")
 
         kT = KB * self.temperature
         dE = float(trial.potential) - float(ms.potential)

@@ -1,0 +1,174 @@
+"""The MD step as one CUDA graph (the counterpart, on the card, of the JAX
+package's jitted lax.scan body in md/integrators.py md_scan).
+
+A StepGraph captures one step on static buffers: `body(ms, cbw)` reads the
+MDState `ms` and the PME weights `cbw`, returns the next MDState and the
+step's diagnostics row, and the captured program copies the next state
+back into the buffers it read, in place, and the row into slot k of the
+chunk's row buffer, k a device counter.  A chunk is then: the start state
+copied into the buffers, k set to 0, n replays, one host read of the n
+rows.  Nothing inside a chunk synchronizes with the host.
+
+Hazards of static buffers: a graph reads fixed addresses, so everything
+the step reads is updated in place, never rebound: positions, velocities,
+box, cbw (copied in at every chunk start, so a barostat move or a
+restart reaches the next chunk), the principle Topology (a hop changes
+it), the NeighborList, forces and the Kahan carries (copied back after
+every step).  What the step reads outside the MDState and cbw (the
+System's tables) is held by the graph's closure; a StepGraphs key names
+the System object, so another System is captured anew.
+
+Launch counts: a replay runs the kernels without calling their wrappers,
+so the counts that the capture added to ops.kernels._build.launches are
+taken back off and added again at every replay.
+"""
+
+import dataclasses
+import time
+from collections import Counter, OrderedDict
+
+import torch
+
+from ..ops.kernels import _build
+
+# steps a chunk holds (rows of a StepGraph; one host read a chunk)
+MAX_CHUNK = 128
+# captured steps a StepGraphs keeps
+KEEP = 4
+
+
+def leaves(obj):
+    """The tensors of a (nested) dataclass, in field order; None and
+    non-tensor fields are skipped."""
+    out = []
+
+    def walk(o):
+        if isinstance(o, torch.Tensor):
+            out.append(o)
+        elif dataclasses.is_dataclass(o):
+            for f in dataclasses.fields(o):
+                walk(getattr(o, f.name))
+
+    walk(obj)
+    return out
+
+
+def with_leaves(obj, tensors):
+    """A copy of `obj` whose tensors are taken, in leaves() order, from
+    the iterator `tensors`."""
+    if isinstance(obj, torch.Tensor):
+        return next(tensors)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: with_leaves(getattr(obj, f.name), tensors)
+            for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
+def signature(obj):
+    """Every non-tensor field and every tensor's shape and dtype, in
+    leaves() order, for the graph key: equal signatures fit one set of
+    static buffers."""
+    if isinstance(obj, torch.Tensor):
+        return (tuple(obj.shape), obj.dtype, obj.device)
+    if dataclasses.is_dataclass(obj):
+        return tuple((f.name, signature(getattr(obj, f.name)))
+                     for f in dataclasses.fields(obj) if f.name != "step")
+    return obj
+
+
+class StepGraph:
+    """One captured step (see the module docstring).  `generator`, when
+    the step draws from one, is registered with the graph, so replays
+    advance it as eager draws would.  A chunk is at most MAX_CHUNK
+    steps."""
+
+    def __init__(self, body, ms, cbw, generator=None):
+        dev = cbw.device
+        self.ms = with_leaves(ms, (t.clone() for t in leaves(ms)))
+        self.cbw = cbw.clone()
+        self.k = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            self.graph.register_generator_state(generator)
+            start = generator.get_state()
+        # warm-up on a side stream: the kernels are built, the cuFFT plans
+        # made and autograd has run once before the capture
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            _, row = body(self.ms, self.cbw)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        if generator is not None:
+            generator.set_state(start)
+        self.rows = torch.zeros((MAX_CHUNK, row.shape[0]), dtype=row.dtype,
+                                device=dev)
+        before = Counter(_build.launches)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(self.graph):
+            out, row = body(self.ms, self.cbw)
+            dst, src = leaves(self.ms), leaves(out)
+            if [(t.shape, t.dtype) for t in dst] != \
+                    [(t.shape, t.dtype) for t in src]:
+                raise ValueError("the step's result does not have its "
+                                 "input's structure")
+            # a result that shares memory with an input it is not would be
+            # overwritten by an earlier copy: take it apart first
+            held = {t.untyped_storage().data_ptr() for t in dst}
+            src = [s if s is d or s.untyped_storage().data_ptr() not in held
+                   else s.clone() for d, s in zip(dst, src)]
+            for d, s in zip(dst, src):
+                if s is not d:
+                    d.copy_(s)
+            self.rows.index_copy_(0, self.k, row[None])
+            self.k.add_(1)
+        torch.cuda.synchronize(dev)
+        # host seconds of the capture; the card's memory in the graph's
+        # private pool
+        self.capture_s = time.perf_counter() - t0
+        pool = self.graph.pool()
+        self.pool_bytes = sum(seg["total_size"]
+                              for seg in torch.cuda.memory_snapshot()
+                              if seg["segment_pool_id"] == pool)
+        self.launches = Counter(_build.launches) - before
+        _build.launches -= self.launches
+
+    def run(self, ms, cbw, n):
+        """n steps from `ms`: (the MDState after them, its tensors fresh
+        copies; the (n, D) rows on the card)."""
+        if n > self.rows.shape[0]:
+            raise ValueError(f"{n} steps: a chunk holds at most "
+                             f"{self.rows.shape[0]}")
+        for d, s in zip(leaves(self.ms), leaves(ms)):
+            d.copy_(s)
+        self.cbw.copy_(cbw)
+        self.k.zero_()
+        for _ in range(n):
+            self.graph.replay()
+        for name, c in self.launches.items():
+            _build.launches[name] += c * n
+        out = with_leaves(self.ms, (t.clone() for t in leaves(self.ms)))
+        return out, self.rows[:n]
+
+
+class StepGraphs:
+    """The captured steps of a run, by key (ensemble, dtype, tier, the
+    System object, every capacity and cell grid): a key changes after a
+    regrow, a grid refit or a tier switch, and its step is captured
+    then.  At most KEEP graphs are kept, the least recently used
+    dropped first."""
+
+    def __init__(self):
+        self.graphs = OrderedDict()
+        self.captures = []       # (key, capture s, pool bytes) of each
+
+    def get(self, key, make):
+        g = self.graphs.pop(key, None)
+        if g is None:
+            g = make()
+            self.captures.append((key, g.capture_s, g.pool_bytes))
+        self.graphs[key] = g
+        while len(self.graphs) > KEEP:
+            self.graphs.popitem(last=False)
+        return g

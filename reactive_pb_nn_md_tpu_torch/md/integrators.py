@@ -1,7 +1,8 @@
 """MD step: velocity Verlet (NVE, and NPT between barostat moves) and
 Langevin leapfrog (NVT) (counterpart of
 reactive_pb_nn_md_tpu/md/integrators.py; md_integrate_atomic,
-md_integration.f90:438-541, langevin_integrator :186-228).
+md_integration.f90:438-541, langevin_integrator :186-228), and md_scan,
+a chunk of steps with per-step diagnostics.
 
 One step = kick, drift, wrap whole molecules, neighbor rebuild when the
 displacements exceed the skin, force evaluation (the MS-EVB adiabatic
@@ -9,12 +10,18 @@ surface in reactive mode, which also switches the principle topology on
 a hop), kick, COM-momentum removal.  With System.compensated_sum the
 NVE/NPT kicks and the drift accumulate with Kahan carries (MDState.comp).
 The NVT step takes its two Gaussian draws as an argument, so a step
-redone after a capacity regrow reuses them.  The rebuild check and the
-step's flags are Python branches, one host sync each.  A capacity that
-did not hold (neighbor rows, cells, on-demand rows, kernel A's cells, the
-PME slab cap, the EVB state cap) is reported in MDState.overflow: the
-step's result is then not valid, and the simulation loop
-(md/simulation.py) regrows the capacities and redoes the step.
+redone after a capacity regrow reuses them.
+
+The step makes no host synchronization: the rebuild is computed every
+step and selected on the device (the JAX package's lax.cond), and the
+step's flags stay device tensors (MDState.overflow, hopped,
+force_overflow, small_overflow, gs_failed), which md_scan stacks into its
+per-step rows and the host reads once a chunk.  On the card md_scan
+replays the step captured as a CUDA graph (md/graphs.py); on the CPU it
+runs the same step eagerly.  A capacity that did not hold (neighbor rows,
+cells, on-demand rows, kernel A's cells, the PME slab cap, the EVB state
+cap) makes the step's result not valid, and the simulation loop
+(md/simulation.py) regrows the capacities and replays the chunk.
 """
 
 import dataclasses
@@ -31,7 +38,7 @@ from ..evb import hamiltonian as ham
 from ..evb.enumerate import molecule_com
 from ..topology import State, Topology
 from ..utils import pbc
-from . import velocities
+from . import graphs, velocities
 
 
 class CapacityOverflow(RuntimeError):
@@ -39,12 +46,21 @@ class CapacityOverflow(RuntimeError):
     md/simulation.py."""
 
 
-# the capacity flags of a step, in the order _sync_flags reads them
+class GroundStateError(RuntimeError):
+    """Kernel E did not converge within its sweep cap."""
+
+
+# the capacity flags of a step, in the order of MDState.overflow, and the
+# ChunkDiagnostics field of each
 CAPACITIES = ("neighbor-list capacity", "on-demand row capacity",
               "kernel A cell capacity", "PME slab capacity",
               "EVB state cap")
 NEIGHBOR_CAP, ROW_CAP, RS_CELL_CAP, SLAB_CAP, EVB_STATE_CAP = CAPACITIES
+CAPACITY_FIELDS = ("neighbor_overflow", "row_overflow", "rs_cell_overflow",
+                   "slab_overflow", "evb_overflow")
 ENSEMBLES = ("NVE", "NVT", "NPT")
+# steps a chunk of md_scan holds (one host read each)
+MAX_CHUNK = graphs.MAX_CHUNK
 
 
 @dataclass
@@ -90,6 +106,8 @@ class ForceEval:
     hydronium_of: torch.Tensor
     n_hops_of: torch.Tensor
     row_overflow: torch.Tensor     # () bool: an on-demand row overflowed
+    small_overflow: torch.Tensor   # () bool: the small tier overflowed
+    gs_failed: torch.Tensor        # () bool: kernel E did not converge
 
 
 @dataclass
@@ -105,10 +123,28 @@ class MDState:
     eigenvector: torch.Tensor
     hydronium_of: torch.Tensor
     n_hops_of: torch.Tensor
-    hopped: bool = False           # hydronium changed this step
-    force_overflow: bool = False   # |F| > 1e4: the reference aborts
-    overflow: tuple = ()           # CAPACITIES that did not hold: not valid
+    # device flags of the step: (len(CAPACITIES),) bool, a capacity that
+    # did not hold (the result is not valid: regrow and redo); () bool
+    # each: the hydronium changed, |F| > 1e4 (the reference aborts), the
+    # small tier's enumeration overflowed (not valid: redo at the full
+    # cap), kernel E did not converge
+    overflow: torch.Tensor
+    hopped: torch.Tensor
+    force_overflow: torch.Tensor
+    small_overflow: torch.Tensor
+    gs_failed: torch.Tensor
     comp: Optional[CompCarry] = None   # Kahan carries (compensated_sum)
+
+
+def overflow_names(flags):
+    """The CAPACITIES whose flag in `flags` (len(CAPACITIES),) is set: one
+    host read."""
+    return tuple(n for n, bad in zip(CAPACITIES, flags.tolist()) if bad)
+
+
+def overflowed(ms):
+    """The CAPACITIES that did not hold in `ms` (one host read)."""
+    return overflow_names(ms.overflow)
 
 
 def wrap_molecules(x, box, topo, mass):
@@ -119,8 +155,10 @@ def wrap_molecules(x, box, topo, mass):
     return x - shift[topo.atom_mol], com - shift
 
 
-def evaluate_forces(x, box, topo, system, nlist, cbw, com=None):
-    """Reactive (MS-EVB) or plain force evaluation."""
+def evaluate_forces(x, box, topo, system, nlist, cbw, com=None,
+                    tier="full"):
+    """Reactive (MS-EVB) or plain force evaluation; `tier` the EVB
+    two-tier mode of hamiltonian.adiabatic_energy_force."""
     pairs = neighbors.neighbor_pairs(nlist)
     S = system.evb_max_states
     dev = x.device
@@ -133,43 +171,40 @@ def evaluate_forces(x, box, topo, system, nlist, cbw, com=None):
                      else nlist.react_idx)
         res, _ = ham.adiabatic_energy_force(
             x, box, topo, system, pairs, cbw, full_src, react_idx=react_src,
-            com=com)
+            com=com, tier=tier)
         return ForceEval(potential=res.energy, breakdown=res.breakdown,
                          force=res.force, topo=res.principle_topo,
                          n_states=res.n_states, eigenvector=res.eigenvector,
                          evb_overflow=res.overflow,
                          hydronium_of=res.hydronium_of,
                          n_hops_of=res.n_hops_of,
-                         row_overflow=res.row_overflow)
+                         row_overflow=res.row_overflow,
+                         small_overflow=res.small_overflow,
+                         gs_failed=res.gs_failed)
     xg = x.detach().requires_grad_(True)
     with torch.enable_grad():
         bd = total_mod.total_energy(xg, box, topo, system, pairs, cbw)
         grad, = torch.autograd.grad(bd.total, xg)
     bd = dataclasses.replace(bd, **{k: getattr(bd, k).detach() for k in (
         "total", "elec", "vdw", "bond", "angle", "dihedral")})
+    no = torch.zeros((), dtype=torch.bool, device=dev)
     return ForceEval(potential=bd.total, breakdown=bd, force=-grad,
                      topo=topo, n_states=torch.ones((), dtype=torch.int64,
                                                     device=dev),
                      eigenvector=torch.zeros(S, dtype=x.dtype, device=dev),
-                     evb_overflow=torch.zeros((), dtype=torch.bool,
-                                              device=dev),
+                     evb_overflow=no,
                      hydronium_of=torch.full((S,), -1, device=dev),
                      n_hops_of=torch.zeros(S, dtype=torch.int64, device=dev),
-                     row_overflow=torch.zeros((), dtype=torch.bool,
-                                              device=dev))
+                     row_overflow=no, small_overflow=no, gs_failed=no)
 
 
-def _sync_flags(nlist, fe, hopped):
-    """One host sync for the step's flags: (the CAPACITIES that did not
-    hold, hopped, |F| > 1e4).  The slab flag comes from the forward's own
-    slab binning, kernel A's from its own cell binning: no second
-    binning."""
+def capacity_flags(nlist, fe):
+    """(len(CAPACITIES),) bool device tensor: the capacities that did not
+    hold.  The slab flag comes from the forward's own slab binning,
+    kernel A's from its own cell binning: no second binning."""
     bd = fe.breakdown
-    flags = torch.stack([nlist.overflow, fe.row_overflow, bd.rs_overflow,
-                         bd.slab_overflow, fe.evb_overflow, hopped,
-                         (fe.force.abs() > 1.0e4).any()]).tolist()
-    over = tuple(n for n, bad in zip(CAPACITIES, flags[:5]) if bad)
-    return over, flags[5], flags[6]
+    return torch.stack([nlist.overflow, fe.row_overflow, bd.rs_overflow,
+                        bd.slab_overflow, fe.evb_overflow])
 
 
 def neighbor_plan(system, box, capacity, cells=None, react_cap=None,
@@ -210,15 +245,13 @@ def neighbor_plan(system, box, capacity, cells=None, react_cap=None,
 def initial_md_state(state: State, topo, system, cbw, capacity, cells=None,
                      react_cap=None, react_cells=None, comp=None) -> MDState:
     """The state before the first step: neighbor lists (neighbor_plan's
-    configuration) and forces.  MDState.overflow lists the capacities
-    that did not hold.  comp: the Kahan carries to keep (zeros when None
-    and the system is compensated)."""
+    configuration) and forces.  MDState.overflow flags the capacities
+    that did not hold (overflowed() names them).  comp: the Kahan carries
+    to keep (zeros when None and the system is compensated)."""
     nlist = neighbors.build_neighbors(
         state.x, state.box, **neighbor_plan(system, state.box, capacity,
                                             cells, react_cap, react_cells))
     fe = evaluate_forces(state.x, state.box, topo, system, nlist, cbw)
-    over, _, _ = _sync_flags(nlist, fe, torch.zeros(
-        (), dtype=torch.bool, device=state.x.device))
     if comp is None and system.compensated_sum:
         comp = CompCarry(x=torch.zeros_like(state.x),
                          v=torch.zeros_like(state.v))
@@ -227,18 +260,25 @@ def initial_md_state(state: State, topo, system, cbw, capacity, cells=None,
                    kinetic=velocities.kinetic_energy(state.v, system.mass),
                    n_states=fe.n_states, eigenvector=fe.eigenvector,
                    hydronium_of=fe.hydronium_of, n_hops_of=fe.n_hops_of,
-                   overflow=over, comp=comp)
+                   overflow=capacity_flags(nlist, fe),
+                   hopped=torch.zeros_like(fe.small_overflow),
+                   force_overflow=(fe.force.abs() > 1.0e4).any(),
+                   small_overflow=fe.small_overflow, gs_failed=fe.gs_failed,
+                   comp=comp)
 
 
 def md_step(ms: MDState, system, cbw, dt: float, ensemble="NVE",
-            friction=0.1, temperature=300.0, noise=None) -> MDState:
+            friction=0.1, temperature=300.0, noise=None,
+            tier="full") -> MDState:
     """One step of `ensemble`: velocity Verlet for NVE and NPT (the
     barostat moves between steps), Langevin for both half kicks under
     NVT with the step's standard normal draws noise = (g1, g2), each
     (N, 3) in the state's dtype.  Under NVE and NPT with
     System.compensated_sum the kicks and the drift are Kahan sums
-    (ms.comp).  The result is valid only if its `overflow` is empty;
-    else regrow and redo it from `ms` with the same noise."""
+    (ms.comp).  `tier`: the EVB two-tier mode ("small" or "full").  The
+    result is valid only if no flag of its `overflow` and not its
+    `small_overflow` is set; else regrow (or take the full tier) and redo
+    it from `ms` with the same noise."""
     if ensemble not in ENSEMBLES:
         raise ValueError(f"ensemble {ensemble!r}: expected one of "
                          f"{', '.join(ENSEMBLES)}")
@@ -274,12 +314,16 @@ def md_step(ms: MDState, system, cbw, dt: float, ensemble="NVE",
         x = torch.where(mobile, state.x + v * dt, state.x)
     x, com = wrap_molecules(x, box, topo, system.mass)
 
-    nlist = ms.nlist
+    # the rebuild is computed every step and taken where the displacements
+    # exceed the skin, on the device (the JAX package's lax.cond)
     skin = system.verlet_cutoff - system.real_space_cutoff
-    if bool(neighbors.needs_rebuild(nlist, x, box, skin)):
-        nlist = neighbors.rebuild_like(nlist, x, box, system.verlet_cutoff)
+    nlist = neighbors.where_nlist(
+        neighbors.needs_rebuild(ms.nlist, x, box, skin),
+        neighbors.rebuild_like(ms.nlist, x, box, system.verlet_cutoff),
+        ms.nlist)
 
-    fe = evaluate_forces(x, box, topo, system, nlist, cbw, com=com)
+    fe = evaluate_forces(x, box, topo, system, nlist, cbw, com=com,
+                         tier=tier)
     if compensated:
         v, vc = masked_two_sum(v, dt / 2.0 * fe.force / mass * conv, vc)
         comp = CompCarry(x=xc, v=vc)
@@ -287,13 +331,160 @@ def md_step(ms: MDState, system, cbw, dt: float, ensemble="NVE",
         v = torch.where(mobile, kick(v, fe.force, g2), v)
         comp = ms.comp
     v = velocities.remove_com_momentum(v, system.mass, mobile[:, 0])
-    over, hopped, force_overflow = _sync_flags(
-        nlist, fe, fe.topo.hydronium_mol != topo.hydronium_mol)
     return MDState(state=State(x=x, v=v, box=box, step=state.step + 1),
                    topo=fe.topo, nlist=nlist, force=fe.force,
                    potential=fe.potential, breakdown=fe.breakdown,
                    kinetic=velocities.kinetic_energy(v, system.mass),
                    n_states=fe.n_states, eigenvector=fe.eigenvector,
                    hydronium_of=fe.hydronium_of, n_hops_of=fe.n_hops_of,
-                   hopped=hopped, force_overflow=force_overflow,
-                   overflow=over, comp=comp)
+                   overflow=capacity_flags(nlist, fe),
+                   hopped=fe.topo.hydronium_mol != topo.hydronium_mol,
+                   force_overflow=(fe.force.abs() > 1.0e4).any(),
+                   small_overflow=fe.small_overflow, gs_failed=fe.gs_failed,
+                   comp=comp)
+
+
+def draw_noise(x, generator):
+    """An NVT step's two standard normal draws, each x's shape and dtype,
+    from `generator` on x's device."""
+    return tuple(torch.randn(x.shape, generator=generator, device=x.device,
+                             dtype=x.dtype) for _ in range(2))
+
+
+@dataclass
+class ChunkDiagnostics:
+    """Per-step values of a chunk, (n_steps,) CPU tensors from one host
+    read (the JAX package's ChunkDiagnostics; its cv waits for the
+    umbrella bias).  The capacity flags are kept apart, one field each
+    (CAPACITY_FIELDS, in CAPACITIES order); small_overflow flags the steps
+    whose small-tier enumeration overflowed in the chunk's first run (the
+    chunk was then replayed at the full cap); gs_failed the steps where
+    kernel E did not converge."""
+    potential: torch.Tensor
+    kinetic: torch.Tensor
+    n_states: torch.Tensor
+    hopped: torch.Tensor
+    hydronium: torch.Tensor
+    max_ci2: torch.Tensor
+    force_overflow: torch.Tensor
+    small_overflow: torch.Tensor
+    gs_failed: torch.Tensor
+    neighbor_overflow: torch.Tensor
+    row_overflow: torch.Tensor
+    rs_cell_overflow: torch.Tensor
+    slab_overflow: torch.Tensor
+    evb_overflow: torch.Tensor
+
+    def capacities(self):
+        """The CAPACITIES that did not hold at some step."""
+        return tuple(n for n, f in zip(CAPACITIES, CAPACITY_FIELDS)
+                     if bool(getattr(self, f).any()))
+
+    def first(self, names):
+        """Index of the first step where any capacity of `names` did not
+        hold."""
+        bad = torch.zeros_like(self.potential, dtype=torch.bool)
+        for n in names:
+            bad |= getattr(self, CAPACITY_FIELDS[CAPACITIES.index(n)])
+        return int(torch.nonzero(bad)[0, 0])
+
+
+# the row a step writes, in ChunkDiagnostics' field order
+_ROW = tuple(f.name for f in dataclasses.fields(ChunkDiagnostics))
+
+
+def _diag_row(ms):
+    """The step's (len(_ROW),) float64 row (every value exact in fp64)."""
+    f = torch.float64
+    vals = [ms.potential, ms.kinetic, ms.n_states, ms.hopped,
+            ms.topo.hydronium_mol, (ms.eigenvector ** 2).max(),
+            ms.force_overflow, ms.small_overflow, ms.gs_failed]
+    return torch.cat([torch.stack([v.to(f) for v in vals]),
+                      ms.overflow.to(f)])
+
+
+def _diagnostics(rows, dtype):
+    """ChunkDiagnostics of the (n, len(_ROW)) rows (one host read)."""
+    rows = rows.cpu()
+    kinds = {"potential": dtype, "kinetic": dtype, "max_ci2": dtype,
+             "n_states": torch.int64, "hydronium": torch.int64}
+    return ChunkDiagnostics(**{
+        name: rows[:, i].to(kinds.get(name, torch.bool))
+        for i, name in enumerate(_ROW)})
+
+
+def scan_step(ms, system, cbw, dt, ensemble, friction, temperature,
+              generator, tier):
+    """One step of md_scan: the NVT draws from `generator`, md_step, the
+    diagnostics row.  The body the CUDA graph captures and the CPU runs."""
+    noise = (draw_noise(ms.state.x, generator) if ensemble == "NVT"
+             else None)
+    ms = md_step(ms, system, cbw, dt, ensemble, friction, temperature,
+                 noise=noise, tier=tier)
+    return ms, _diag_row(ms)
+
+
+def _scan(ms, system, cbw, dt, ensemble, n_steps, friction, temperature,
+          generator, tier, step_graphs, eager):
+    """n_steps steps at one tier: (MDState, ChunkDiagnostics)."""
+    def body(m, w):
+        return scan_step(m, system, w, dt, ensemble, friction, temperature,
+                         generator, tier)
+
+    if ms.state.x.is_cuda and not eager:
+        key = (ensemble, ms.state.x.dtype, tier, dt, friction, temperature,
+               id(system), id(generator), graphs.signature(ms),
+               tuple(cbw.shape))
+        g = step_graphs.get(key, lambda: graphs.StepGraph(
+            body, ms, cbw, generator if ensemble == "NVT" else None))
+        out, rows = g.run(ms, cbw, n_steps)
+    else:
+        out, rows = ms, []
+        for _ in range(n_steps):
+            out, row = body(out, cbw)
+            rows.append(row)
+        rows = torch.stack(rows)
+    out = dataclasses.replace(out, state=dataclasses.replace(
+        out.state, step=ms.state.step + n_steps))
+    return out, _diagnostics(rows, ms.state.x.dtype)
+
+
+def md_scan(ms: MDState, system, cbw, dt: float, ensemble="NVE",
+            n_steps=1, friction=0.1, temperature=300.0, generator=None,
+            step_graphs=None, eager=False):
+    """n_steps (<= MAX_CHUNK on the card) MD steps from `ms`: (MDState
+    after them, ChunkDiagnostics).
+
+    On the card each step is a replay of the step captured as a CUDA graph
+    (md/graphs.py; `step_graphs`, a graphs.StepGraphs, keeps the captures
+    of a run, else they are made for this call), with no host
+    synchronization until the diagnostics are read at the end; on the CPU
+    the same step runs eagerly.  NVT draws from `generator` inside the
+    step.  With an EVB small tier the chunk runs at the small cap, and
+    when any step's small enumeration overflowed it is replayed from its
+    start at the full cap, the generator restored first: the small set
+    equals the full enumeration whenever it fits, so the trajectory is
+    that of per-step selection up to rounding.  The result is valid only
+    if diag.capacities() is empty (else regrow and replay the chunk).
+    eager: no graph on the card either (the reference that chip_smoke.py
+    holds the graphs against)."""
+    if ensemble not in ENSEMBLES:
+        raise ValueError(f"ensemble {ensemble!r}: expected one of "
+                         f"{', '.join(ENSEMBLES)}")
+    if ensemble == "NVT" and generator is None:
+        raise ValueError("an NVT chunk needs the generator of its draws")
+    if ms.state.x.is_cuda and step_graphs is None and not eager:
+        step_graphs = graphs.StepGraphs()
+    small = system.ms_evb and ham.small_state_tier(system) > 0
+    start = generator.get_state() if ensemble == "NVT" else None
+    args = (system, cbw, dt, ensemble, n_steps, friction, temperature,
+            generator)
+    out, diag = _scan(ms, *args, "small" if small else "full", step_graphs,
+                      eager)
+    if small and bool(diag.small_overflow.any()):
+        if start is not None:
+            generator.set_state(start)
+        first = diag.small_overflow
+        out, diag = _scan(ms, *args, "full", step_graphs, eager)
+        diag = dataclasses.replace(diag, small_overflow=first)
+    return out, diag

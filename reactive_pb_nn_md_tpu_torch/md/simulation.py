@@ -8,13 +8,19 @@ Gaussian draws from a torch.Generator on the run's device, seeded from the
 deck's seed) and NPT (the MC barostat before every step k + 1 with
 k % barofreq == 0 past the first step of the run).
 
-A fixed capacity that does not hold (neighbor rows and cells, on-demand
-rows, kernel A's cells, the PME slab cap, the EVB state cap) is regrown by
-the JAX package's factors and the step is redone from the state before it,
-with the same draws, so no reported energy comes from truncated data; each
-regrow is one line of the log.  The EVB state cap grows to
-min(evb_hard_max_states, max(2S, S + 8)); an overflow at that ceiling ends
-the run with the JAX package's "aborting" line.  A cell grid whose cells a
+The run goes in chunks, as the JAX driver's: md_scan steps to the next
+host boundary (output, checkpoint, barostat move, the run's end; at most
+integrators.MAX_CHUNK steps), on the card as replays of the step captured
+as a CUDA graph, and the host reads the chunk's per-step diagnostics once
+(hop lines, flags).  A fixed capacity that does not hold at some step of
+a chunk (neighbor rows and cells, on-demand rows, kernel A's cells, the
+PME slab cap, the EVB state cap) is regrown by the JAX package's factors
+and the chunk is replayed from its start state and generator state, so no
+reported energy comes from truncated data; each regrow is one line of
+the log.  The EVB state cap grows to min(evb_hard_max_states, max(2S,
+S + 8)); an overflow at that ceiling, or a force above 1e4 kJ/mol/A, ends
+the run at the first step that had it (the chunk is replayed up to it),
+with the JAX package's "aborting" line.  A cell grid whose cells a
 barostat move (or a restart's box) makes narrower than their cutoff is
 re-derived, with one log line.
 
@@ -51,7 +57,7 @@ from ..ops import neighbors
 from ..ops.kernels.realspace_pair import _impl_for
 from ..utils import pbc
 from ..utils.dtypes import float_dtype
-from . import integrators, velocities
+from . import graphs, integrators, velocities
 from .barostat import MCBarostat
 
 
@@ -87,7 +93,7 @@ def _noise_seed(seed):
 
 
 class Simulation:
-    """Owns the host loop around md_step."""
+    """Owns the host loop around md_scan."""
 
     def __init__(self, gro_file, ff_file, top_file, sim_file, traj_file,
                  log_file, hop_file, a_file, device,
@@ -142,6 +148,11 @@ class Simulation:
 
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(_noise_seed(cfg.seed))
+        # the captured steps of the run (None on the CPU: eager steps);
+        # eager: no graphs on the card either, for comparisons only
+        self.step_graphs = (graphs.StepGraphs()
+                            if self.device.type == "cuda" else None)
+        self.eager = False
         comp = None
         if self.restart:
             chk = np.load(checkpoint_file)
@@ -212,15 +223,19 @@ class Simulation:
                 comp=comp)
             self.react_cap = ms.nlist.react_cap or None
             self.react_cells = ms.nlist.react_cells or None
-            over = tuple(n for n in ms.overflow
+            if bool(ms.gs_failed):
+                raise integrators.GroundStateError(
+                    f"step {step}: the EVB ground state did not converge")
+            names = integrators.overflowed(ms)
+            over = tuple(n for n in names
                          if n != integrators.EVB_STATE_CAP
                          or not self._states_at_ceiling())
             if not over:
                 return ms
-            self._grow(over, step)
+            self._grow(over, step, "step redone")
         raise integrators.CapacityOverflow(
-            f"{', '.join(ms.overflow)} still exceeded after "
-            f"{_MAX_REGROWS} regrows")
+            f"{', '.join(names)} still exceeded after {_MAX_REGROWS} "
+            f"regrows")
 
     def _init_state(self, state, topo, step=0, comp=None):
         """self.ms at `state`, every capacity held (_settle)."""
@@ -266,13 +281,14 @@ class Simulation:
     def _states_at_ceiling(self):
         return self.system.evb_max_states >= self.cfg.evb_hard_max_states
 
-    def _grow(self, names, step):
+    def _grow(self, names, step, redo):
         """Grow the capacities that did not hold by the JAX package's
         factors (md/simulation.py:189-238 there) and log one line each
-        for the state cap and the others.  The JAX package grows all of
-        the others, its flag being shared; the port's flags are separate,
-        so the others keep their size (a kernel A or slab cap grown for
-        nothing costs shared memory and time)."""
+        for the state cap and the others, ending with `redo`.  The JAX
+        package grows all of the others, its flag being shared; the
+        port's flags are separate, so the others keep their size (a
+        kernel A or slab cap grown for nothing costs shared memory and
+        time)."""
         n1 = self.system.n_atoms - 1
         kw = {}
         lines = []
@@ -282,7 +298,7 @@ class Simulation:
                                        max(2 * S, S + 8))
             lines.append(f"step {step}: diabat enumeration exceeded the "
                          f"state cap; evb_max_states regrown to "
-                         f"{kw['evb_max_states']}, step redone\n")
+                         f"{kw['evb_max_states']}, {redo}\n")
         if {integrators.NEIGHBOR_CAP, integrators.ROW_CAP} & set(names):
             self.capacity = min(int(self.capacity * 1.5) + 8, n1)
             if self.cells:
@@ -307,7 +323,8 @@ class Simulation:
                 f"step {step}: regrow ({', '.join(others)} exceeded): "
                 f"capacity {self.capacity} cells {self.cells} react_cap "
                 f"{self.react_cap} react_cells {self.react_cells} rs_cells "
-                f"{self.system.rs_cells} pme_scap {self.system.pme_scap}\n")
+                f"{self.system.rs_cells} pme_scap {self.system.pme_scap}, "
+                f"{redo}\n")
         self._log(lines)
 
     def _log(self, lines):
@@ -318,50 +335,90 @@ class Simulation:
             self.log_f.writelines(lines)
             self.log_f.flush()
 
-    def _draw_noise(self):
-        """The NVT step's two standard normal draws, (N, 3) each in the
-        state's dtype, from the run's generator."""
-        x = self.ms.state.x
-        return tuple(torch.randn(x.shape, generator=self.gen,
-                                 device=x.device, dtype=x.dtype)
-                     for _ in range(2))
-
-    def _step(self, step):
-        """One md_step; a capacity that did not hold is regrown and the
-        step redone from the state before it, with the same draws.
-        Returns False when the EVB state cap overflowed at
-        evb_hard_max_states: the step is kept, as the JAX driver keeps
-        its chunk, and the run ends."""
+    def _next_chunk(self, step, end):
+        """Steps to the next host boundary (output, checkpoint, barostat
+        move, the run's end), at most integrators.MAX_CHUNK (the JAX
+        driver's _next_chunk; a replayed graph costs no compilation per
+        length, so there is no power-of-two quantization)."""
         cfg = self.cfg
-        noise = self._draw_noise() if cfg.ensemble == "NVT" else None
+        n = min(end - step, cfg.n_output - step % cfg.n_output,
+                integrators.MAX_CHUNK)
+        if cfg.checkpoint_velocity:
+            n = min(n, cfg.checkpoint_velocity
+                    - step % cfg.checkpoint_velocity)
+        if self.barostat is not None:
+            n = min(n, cfg.barofreq - step % cfg.barofreq)
+        return max(int(n), 1)
+
+    def _scan(self, n):
+        cfg = self.cfg
+        return integrators.md_scan(
+            self.ms, self.system, self.cbw, cfg.delta_t, cfg.ensemble, n,
+            cfg.friction_coeff, cfg.temperature, generator=self.gen,
+            step_graphs=self.step_graphs, eager=self.eager)
+
+    def _chunk(self, step, n):
+        """n steps from self.ms at `step` through md_scan: (diag, steps
+        done, end of run).  A capacity that did not hold is regrown and
+        the chunk replayed from its start state and generator state (the
+        Kahan carries kept).  An EVB state-cap overflow at
+        evb_hard_max_states or a force above 1e4 kJ/mol/A ends the run at
+        the first step that had it: the chunk is replayed up to that step
+        and its "aborting" line logged."""
+        cfg = self.cfg
+        ms0, gen0 = self.ms, self.gen.get_state()
         for _ in range(_MAX_REGROWS):
-            ms = integrators.md_step(self.ms, self.system, self.cbw,
-                                     cfg.delta_t, cfg.ensemble,
-                                     cfg.friction_coeff, cfg.temperature,
-                                     noise=noise)
-            if not ms.overflow:
-                self.ms = ms
-                return True
-            if integrators.EVB_STATE_CAP in ms.overflow \
+            ms, diag = self._scan(n)
+            if bool(diag.gs_failed.any()):
+                bad = step + int(torch.nonzero(diag.gs_failed)[0, 0]) + 1
+                raise integrators.GroundStateError(
+                    f"step {bad}: the EVB ground state (kernel E) did not "
+                    f"converge")
+            over = diag.capacities()
+            if not over:
+                break
+            if integrators.EVB_STATE_CAP in over \
                     and self._states_at_ceiling():
-                self._log([f"step {step}: diabat enumeration exceeded "
-                           f"evb_hard_max_states="
-                           f"{cfg.evb_hard_max_states} -- aborting "
-                           f"(reference behavior, ms_evb.f90:3107-3123)\n"])
-                self.ms = ms
-                return False
-            self._grow(ms.overflow, step)
-            self._init_state(self.ms.state, self.ms.topo, step,
-                             comp=self.ms.comp)
-        raise integrators.CapacityOverflow(
-            f"step {step}: {', '.join(ms.overflow)} still exceeded after "
-            f"{_MAX_REGROWS} regrows")
+                k = diag.first((integrators.EVB_STATE_CAP,))
+                line = (f"step {step + k + 1}: diabat enumeration exceeded "
+                        f"evb_hard_max_states={cfg.evb_hard_max_states} -- "
+                        f"aborting (reference behavior, "
+                        f"ms_evb.f90:3107-3123)\n")
+                return self._replay_to(ms0, gen0, k, line)
+            bad = step + diag.first(over) + 1
+            self._grow(over, bad, "chunk replayed")
+            self.gen.set_state(gen0)
+            self._init_state(ms0.state, ms0.topo, bad, comp=ms0.comp)
+            ms0 = self.ms
+        else:
+            raise integrators.CapacityOverflow(
+                f"step {step}: {', '.join(over)} still exceeded after "
+                f"{_MAX_REGROWS} regrows")
+        if bool(diag.force_overflow.any()):
+            k = int(torch.nonzero(diag.force_overflow)[0, 0])
+            line = (f"step {step + k + 1}: force magnitude exceeded 1e4 "
+                    f"kJ/mol/A -- aborting (reference behavior, "
+                    f"md_integration.f90:523-526)\n")
+            return self._replay_to(ms0, gen0, k, line)
+        self.ms = ms
+        return diag, n, False
+
+    def _replay_to(self, ms0, gen0, k, line):
+        """The chunk from (ms0, gen0) replayed through its step k, where
+        the run ends with `line`."""
+        self.ms = ms0
+        self.gen.set_state(gen0)
+        self.ms, diag = self._scan(k + 1)
+        self._log([line])
+        return diag, k + 1, True
 
     def _barostat_move(self, step):
         """One MC volume move after step `step`.  The trial is settled
         (regrown) with the cell grids fitted to its box; a rejected trial
         leaves the grids as they were, an accepted one logs each grid it
-        re-derived."""
+        re-derived.  The System is replaced only when kernel A's grid
+        changed: a new System object is a new graph key (md_scan), and
+        so a capture."""
         grids = (self.system.rs_cells, self.cells, self.react_cells)
         notes = []
 
@@ -375,7 +432,8 @@ class Simulation:
             self._log(notes)
         else:
             rs, self.cells, self.react_cells = grids
-            self.system = self.system.replace(rs_cells=rs)
+            if self.system.rs_cells != rs:
+                self.system = self.system.replace(rs_cells=rs)
 
     def _blocks(self):
         """(molecule names, atoms per molecule, atom names, atom order)
@@ -530,25 +588,24 @@ class Simulation:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             t0 = time.perf_counter()
-            step = start
-            while step < start + n_steps:
+            step, end = start, start + n_steps
+            while step < end:
                 if self.barostat is not None and step % cfg.barofreq == 0 \
                         and step > start:
                     self._barostat_move(step)
                 prev_h = int(self.ms.topo.hydronium_mol) \
                     if self.system.ms_evb else -1
-                going = self._step(step + 1)
-                step += 1
-                if self.ms.hopped:
-                    self.hop_f.write(
-                        f"step  {step}\n proton hop from {prev_h + 1} to "
-                        f"{int(self.ms.topo.hydronium_mol) + 1}\n")
+                diag, done, last = self._chunk(
+                    step, self._next_chunk(step, end))
+                if self.system.ms_evb and bool(diag.hopped.any()):
+                    hyds = diag.hydronium.tolist()
+                    for k in torch.nonzero(diag.hopped)[:, 0].tolist():
+                        old = prev_h if k == 0 else hyds[k - 1]
+                        self.hop_f.write(f"step  {step + k + 1}\n proton hop "
+                                         f"from {old + 1} to "
+                                         f"{hyds[k] + 1}\n")
                     self.hop_f.flush()
-                if self.ms.force_overflow:
-                    self.log_f.write(f"step {step}: force magnitude exceeded "
-                                     f"1e4 kJ/mol/A -- aborting (reference "
-                                     f"behavior, md_integration.f90:523-526)\n")
-                    break
+                step += done
                 if step % cfg.n_output == 0:
                     self._log_step(step)
                     self._write_frame(step)
@@ -557,7 +614,7 @@ class Simulation:
                 if cfg.checkpoint_velocity and \
                         step % cfg.checkpoint_velocity == 0:
                     self._checkpoint(step)
-                if not going:
+                if last:
                     break
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)

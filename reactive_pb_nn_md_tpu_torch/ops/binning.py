@@ -5,6 +5,8 @@ PME slab spread: the same sort / rank-in-run trick as the JAX package's
 ``_bin_atoms``, ``_pack_cell_table`` and ``_bin_by_slab``.
 """
 
+import functools
+
 import torch
 
 
@@ -36,3 +38,18 @@ def slot_atoms(slot, n_rows):
                       device=slot.device)
     rows[slot] = torch.arange(slot.shape[0], device=slot.device)
     return rows[:n_rows]
+
+
+@functools.lru_cache(maxsize=None)
+def cell_counts(n1, n2, n3, device):
+    """(3,) int64 tensor (n1, n2, n3) on `device`, made once per grid: a
+    host-to-device copy inside the MD step would be a synchronization,
+    which a CUDA graph capture refuses.  Callers must not modify it."""
+    return torch.tensor([n1, n2, n3], device=device)
+
+
+def stencil_offsets(device):
+    """(27, 3) cell offsets in {-1, 0, 1}^3, lexicographic."""
+    o = torch.arange(-1, 2, device=device)
+    return torch.stack(torch.meshgrid(o, o, o, indexing="ij"),
+                       dim=-1).reshape(27, 3)

@@ -1,11 +1,25 @@
 """Ground eigenpair of the small symmetric EVB Hamiltonian (counterpart of
-``ground_state_eigh`` in reactive_pb_nn_md_tpu/ops/ground_state.py)."""
+``ground_state_eigh`` in reactive_pb_nn_md_tpu/ops/ground_state.py).
+
+For a CUDA tensor, kernel E (csrc/ground_state.cu): parallel cyclic Jacobi
+in fp64 in one block, no host synchronization, so the MD step can be
+captured as a CUDA graph (torch.linalg.eigh checks its info on the host).
+For a CPU tensor, the plain version: eigh.  Both return c_0 with its
+largest |c_i| positive; every consumer (c^T H c, c_i^2, argmax |c|) is
+sign-invariant."""
 
 import torch
 
+from .kernels import _build
+
+def fix_sign(c):
+    """c with its largest |c_i| (the first such i) positive."""
+    i = torch.argmax(c.abs())
+    return torch.where(c.gather(0, i[None]) < 0, -c, c)
+
 
 def ground_state_eigh(H):
-    """(lambda_0, c_0) by eigh of H - H00 I.
+    """(lambda_0, c_0) by eigh of H - H00 I: the plain version of kernel E.
 
     The diagonal carries the whole system energy (|H00| ~ 1e4 kJ/mol)
     while the physics lives in O(100) couplings and gaps; the shift moves
@@ -16,5 +30,38 @@ def ground_state_eigh(H):
     Hs = (H.detach() - shift * torch.eye(H.shape[0], dtype=H.dtype,
                                          device=H.device)).to(torch.float64)
     w, v = torch.linalg.eigh(Hs)
-    g = torch.argmin(w)
-    return (w[g] + shift).to(H.dtype), v[:, g].to(H.dtype)
+    g = torch.argmin(w)[None]
+    lam = w.gather(0, g)[0] + shift
+    return lam.to(H.dtype), fix_sign(v.index_select(1, g)[:, 0]).to(H.dtype)
+
+
+def ground_state_cuda(H):
+    """Kernel E: (lambda_0 (), c_0 (S,), info () int32: the sweeps it
+    took, -1 when it did not converge)."""
+    S = H.shape[0]
+    f = H.dtype
+    _build.require(H, f, (S, S), "H")
+    # A and V in device memory where they do not fit in shared memory
+    # (csrc/ground_state.cu decides)
+    scratch = torch.empty(_build.function("ground_state_scratch", 0, 1)(S),
+                          dtype=torch.float64, device=H.device)
+    lam = torch.empty((), dtype=f, device=H.device)
+    c = torch.empty(S, dtype=f, device=H.device)
+    info = torch.empty((), dtype=torch.int32, device=H.device)
+    fn = _build.function("ground_state_" + _build.suffix(f), 6, 1)
+    _build.check(fn(H.data_ptr(), lam.data_ptr(), c.data_ptr(),
+                    info.data_ptr(), scratch.data_ptr(),
+                    _build.stream_ptr(H), S), "E")
+    _build.launches["E"] += 1
+    return lam, c, info
+
+
+def ground_state(H):
+    """(lambda_0, c_0, not_converged ()) of H, detached: kernel E for a
+    CUDA tensor, the plain eigh for a CPU one (whose flag is always
+    False: eigh raises instead)."""
+    if H.is_cuda:
+        lam, c, info = ground_state_cuda(H.detach().contiguous())
+        return lam, c, info < 0
+    lam, c = ground_state_eigh(H)
+    return lam, c, torch.zeros((), dtype=torch.bool, device=H.device)

@@ -10,8 +10,9 @@ it is given, allocates nothing, does not synchronize, and returns
 ``cudaGetLastError()``; ``check`` raises on anything but 0.
 
 ``launches`` counts kernel launches by kernel name (A, A', A'', B1, B2,
-C1, C2, D1, D2); each wrapper adds one where it launches its kernel, and
-nowhere else.
+C1, C2, D1, D2, E); each wrapper adds one where it launches its kernel,
+and nowhere else (a CUDA graph's replay adds what its capture counted:
+md/graphs.py).
 """
 
 import ctypes

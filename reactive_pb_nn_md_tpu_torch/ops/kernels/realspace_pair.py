@@ -30,7 +30,7 @@ kernel does; ``suggest_rs_cells`` returns () for any other box.
 import torch
 
 from ...utils.constants import CONV_E2A_KJMOL, SQRT_PI
-from ..binning import bin_slots
+from ..binning import bin_slots, cell_counts, stencil_offsets
 from . import _build
 
 SENTINEL = 1.0e6            # empty-slot position: far outside any cutoff
@@ -93,7 +93,7 @@ def bin_atoms(x, box, cells, cutoff):
     when a cell holds more than ccap atoms or a cell is narrower than the
     cutoff."""
     nc1, nc2, nc3, ccap = cells
-    ncv = torch.tensor([nc1, nc2, nc3], device=x.device)
+    ncv = cell_counts(nc1, nc2, nc3, x.device)
     L = torch.diagonal(box)
     frac = x / L
     frac = frac - torch.floor(frac)
@@ -125,8 +125,7 @@ def _stencil(cells, device):
     nc1, nc2, nc3, _ = cells
     c = torch.arange(nc1 * nc2 * nc3, device=device)
     c1, c2, c3 = c // (nc2 * nc3), (c // nc3) % nc2, c % nc3
-    o = torch.tensor([(i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1)
-                      for k in (-1, 0, 1)], device=device)
+    o = stencil_offsets(device)
     return ((((c1[:, None] + o[:, 0]) % nc1) * nc2
              + (c2[:, None] + o[:, 1]) % nc2) * nc3
             + (c3[:, None] + o[:, 2]) % nc3)

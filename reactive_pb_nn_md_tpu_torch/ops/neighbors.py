@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..utils import pbc
-from .binning import bin_slots
+from .binning import bin_slots, cell_counts, stencil_offsets
 
 # candidate atoms per pass of the materialized cell sweep (bounds its
 # (chunk, 27 ccap) temporaries)
@@ -160,8 +160,7 @@ def build_neighbor_list(x, box, cutoff, capacity, react_cutoff=0.0,
 def _frac_cells(x, box, cells, cutoff):
     """Fractional coordinates in [0, 1), cell index per atom (N, 3), and
     the box flag: a cell's plane spacing is below the cutoff."""
-    nc1, nc2, nc3, _ = cells
-    ncv = torch.tensor([nc1, nc2, nc3], device=x.device)
+    ncv = cell_counts(*cells[:3], x.device)
     recip = pbc.recip_vectors(box)
     widths = 1.0 / torch.sqrt(torch.sum(recip * recip, dim=1))
     box_bad = (widths / ncv.to(x.dtype) < cutoff).any()
@@ -202,21 +201,15 @@ def build_cell_table(x, box, cells, row_cap, cutoff):
     return ct, cell_over | box_bad
 
 
-def _stencil_offsets(device):
-    o = torch.arange(-1, 2, device=device)
-    return torch.stack(torch.meshgrid(o, o, o, indexing="ij"),
-                       dim=-1).reshape(27, 3)
-
-
 def _candidates(ct: CellTable, frac, ci, box):
     """Stencil candidates of query atoms (fractional coords frac, cells
     ci): (atom ids (n, 27 ccap), squared distance at the table's
     positions (n, 27 ccap)).  The minimum image is taken per fractional
     component, so any box shape works."""
-    nc1, nc2, nc3, ccap = ct.cells
-    ncv = torch.tensor([nc1, nc2, nc3], device=frac.device)
+    ccap = ct.cells[3]
+    ncv = cell_counts(*ct.cells[:3], frac.device)
     nb_id = _cell_id(torch.remainder(ci[:, None, :]
-                                     + _stencil_offsets(frac.device)[None],
+                                     + stencil_offsets(frac.device)[None],
                                      ncv), ct.cells)              # (n, 27)
     n = frac.shape[0]
     cand = ct.ids[nb_id].reshape(n, 27 * ccap)
@@ -234,8 +227,7 @@ def rows_on_demand(ct: CellTable, x, box, atoms):
     use-time cutoff of a query atom is present; the consumer's own
     distance mask makes energies exact."""
     x = x.detach()
-    nc1, nc2, nc3, _ = ct.cells
-    ncv = torch.tensor([nc1, nc2, nc3], device=x.device)
+    ncv = cell_counts(*ct.cells[:3], x.device)
     frac = pbc.xyz_to_frac(x[atoms], box)
     frac = frac - torch.floor(frac)
     ci = torch.minimum((frac * ncv).to(torch.int64), ncv - 1).clamp(min=0)
@@ -336,6 +328,21 @@ def rebuild_like(nlist: NeighborList, x, box, cutoff):
                            build_half=nlist.idx.shape[1] > 0,
                            on_demand=nlist.celltab is not None,
                            react_cells=nlist.react_cells)
+
+
+def where_nlist(cond, a: NeighborList, b: NeighborList) -> NeighborList:
+    """Field by field torch.where(cond, a, b) of two lists of one static
+    configuration, cond a () bool tensor: the device-side counterpart of
+    the JAX package's lax.cond between a rebuilt list and the old one."""
+    def pick(u, w):
+        if isinstance(u, torch.Tensor):
+            return torch.where(cond, u, w)
+        if isinstance(u, CellTable):
+            return u.replace(pos=pick(u.pos, w.pos), ids=pick(u.ids, w.ids))
+        return u
+    return dataclasses.replace(a, **{f.name: pick(getattr(a, f.name),
+                                                  getattr(b, f.name))
+                                     for f in dataclasses.fields(a)})
 
 
 def needs_rebuild(nlist: NeighborList, x, box, skin):

@@ -306,7 +306,7 @@ def test_scale_path_forces_cuda_match_cpu(tmp_path):
                 topo, tsys, pme.cb_half(box, tsys.pme_grid,
                                         tsys.spline_order, tsys.alpha_sqrt),
                 tsys.n_atoms - 1, cells=cells)
-            assert not ms.overflow and ms.nlist.celltab is not None
+            assert not integrators.overflowed(ms) and ms.nlist.celltab is not None
             out[dev] = ms
     finally:
         rsp.set_stencil_impl("auto")
@@ -523,3 +523,100 @@ def test_nvt_restart_on_the_card(tmp_path, monkeypatch):
                                float(whole.ms.kinetic + whole.ms.potential),
                                rtol=0, atol=1e-8)
 
+
+
+def _evb_like(S, n_active, rng, gap=None):
+    """tests/test_ground_state.py's padded EVB-shaped Hamiltonian (that
+    file imports jax)."""
+    diag = -24000.0 + 50.0 * rng.standard_normal(S)
+    if gap is not None:
+        diag[1] = diag[0] + gap
+    H = np.diag(diag)
+    for s in range(1, n_active):
+        p = rng.integers(0, s)
+        H[p, s] = H[s, p] = 30.0 * rng.standard_normal()
+    for s in range(n_active, S):
+        H[s, s] = diag[0] + 1.0e5 * (1.0 + s / S)
+        H[s, :s] = H[:s, s] = 0.0
+    return H
+
+
+@pytest.mark.parametrize("S,n,gap", [(80, 60, None), (48, 40, None),
+                                     (32, 20, None), (80, 40, 1e-7),
+                                     (81, 70, None), (120, 100, None)])
+def test_ground_state_kernel_matches_plain(S, n, gap):
+    """Kernel E against eigh: the shared-memory path up to 80 states and
+    the device-memory one above, an odd S, a near-degenerate diagonal."""
+    _need_card()
+    from reactive_pb_nn_md_tpu_torch.ops import ground_state as gs
+    H = torch.tensor(_evb_like(S, n, np.random.default_rng(S + n), gap),
+                     device="cuda")
+    for f in (torch.float64, torch.float32):
+        Hf = H.to(f)
+        lam, c, info = gs.ground_state_cuda(Hf)
+        lam2, c2, _ = gs.ground_state_cuda(Hf)
+        assert torch.equal(lam, lam2) and torch.equal(c, c2)
+        assert 0 <= int(info) <= 30
+        lp, cp = gs.ground_state_eigh(Hf)
+        tol = 1e-10 if f == torch.float64 else 1e-6
+        assert abs(float(lam) - float(lp)) <= tol * abs(float(lp))
+        assert float((c - cp).abs().max()) <= (
+            1e-9 if f == torch.float64 else 1e-5)
+        i = int(torch.argmax(c.abs()))
+        assert float(c[i]) > 0
+
+
+def _reactive_sim(tmp_path, ensemble):
+    from reactive_pb_nn_md_tpu_torch.md.simulation import Simulation
+    return Simulation(*driver_deck(tmp_path, n_water=26, msevb="yes",
+                                   ensemble=ensemble), device="cuda")
+
+
+@pytest.mark.parametrize("ensemble", ["NVE", "NVT"])
+def test_md_scan_graphed_matches_eager(tmp_path, ensemble):
+    """16 replays of the captured step against 16 eager md_steps, one
+    generator state; a replay counts the launches of its capture."""
+    _need_card()
+    from reactive_pb_nn_md_tpu_torch.md import graphs
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import _build
+    sim = _reactive_sim(tmp_path, ensemble)
+    cfg = sim.cfg
+    args = (sim.system, sim.cbw, cfg.delta_t, ensemble)
+    kw = dict(friction=cfg.friction_coeff, temperature=cfg.temperature)
+    start = sim.gen.get_state()
+    sg = graphs.StepGraphs()
+    integrators.md_scan(sim.ms, *args, 1, generator=sim.gen, step_graphs=sg,
+                        **kw)
+    sim.gen.set_state(start)
+    _build.launches.clear()
+    ms, diag = integrators.md_scan(sim.ms, *args, 16, generator=sim.gen,
+                                   step_graphs=sg, **kw)
+    assert len(sg.captures) == 1 and _build.launches["E"] == 16
+    sim.gen.set_state(start)
+    ref = sim.ms
+    for _ in range(16):
+        noise = (integrators.draw_noise(ref.state.x, sim.gen)
+                 if ensemble == "NVT" else None)
+        ref = integrators.md_step(ref, *args, noise=noise, **kw)
+    assert not diag.capacities() and not integrators.overflowed(ref)
+    np.testing.assert_allclose(ms.state.x.cpu().numpy(),
+                               ref.state.x.cpu().numpy(), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(float(ms.kinetic + ms.potential),
+                               float(ref.kinetic + ref.potential), rtol=0,
+                               atol=1e-8)
+
+
+def test_step_makes_no_host_sync_on_the_card(tmp_path):
+    _need_card()
+    sim = _reactive_sim(tmp_path, "NVT")
+    cfg = sim.cfg
+    step = (sim.ms, sim.system, sim.cbw, cfg.delta_t, "NVT",
+            cfg.friction_coeff, cfg.temperature, sim.gen, "full")
+    integrators.scan_step(*step)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        integrators.scan_step(*step)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)

@@ -7,6 +7,7 @@ and cell-grid refit on the port alone."""
 
 import dataclasses
 import pathlib
+import types
 
 import jax
 import jax.numpy as jnp
@@ -108,7 +109,7 @@ def test_nvt_steps_match_jax(tmp_path, msevb, n_water):
                                   FRICTION, TEMP)
             ms = integrators.md_step(ms, sim.system, sim.cbw, DT, "NVT",
                                      FRICTION, TEMP, noise=noise)
-            assert not ms.overflow
+            assert not integrators.overflowed(ms)
     if msevb == "yes":
         assert int(ms.n_states) == int(jms.n_states) > 1
     np.testing.assert_allclose(ms.state.x.numpy(), np.asarray(jms.state.x),
@@ -219,6 +220,24 @@ def test_barostat_forced_accept_on_hop(tmp_path):
     assert baro.n_accept == 1 and baro.history[0][1]
     assert int(ms2.topo.hydronium_mol) != int(ms.topo.hydronium_mol)
     assert np.isfinite(float(ms2.potential))
+
+
+def test_rejected_barostat_move_keeps_the_system(tmp_path):
+    """A rejected trial leaves the System object as it was: another
+    object is another graph key (md_scan), and so a capture on the card.
+    The trial expands the box by the most its scale allows against a
+    huge pressure."""
+    sim = Simulation(*driver_deck(tmp_path, ensemble="NPT",
+                                  extra="barofreq 2\n"), device="cpu")
+    sim.barostat = MCBarostat(pressure=1e8, temperature=TEMP,
+                              baroscale=1e-3, seed=0)
+    sim.barostat.rng = types.SimpleNamespace(uniform=lambda: 1.0)
+    system, box = sim.system, sim.ms.state.box.clone()
+    sim._barostat_move(2)
+    (_, accepted), = sim.barostat.history
+    assert not accepted
+    assert sim.system is system
+    assert torch.equal(sim.ms.state.box, box)
 
 
 def test_barostat_trial_is_regrown_before_its_energy(tmp_path):

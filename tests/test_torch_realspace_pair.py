@@ -164,13 +164,14 @@ def test_cell_overflow_reaches_the_step_flags(tmp_path):
                                                        slab_overflow=no),
                              evb_overflow=no, row_overflow=no,
                              force=torch.zeros_like(x))
-        got = integrators._sync_flags(SimpleNamespace(overflow=no), fe, no)
-        assert got == ((("kernel A cell capacity",) if bool(over) else ()),
-                       False, False)
+        got = integrators.overflow_names(integrators.capacity_flags(
+            SimpleNamespace(overflow=no), fe))
+        assert got == (("kernel A cell capacity",) if bool(over) else ())
     assert flags == [False, True]
     fe.evb_overflow = torch.ones((), dtype=torch.bool)
-    assert integrators._sync_flags(SimpleNamespace(overflow=no), fe, no) == (
-        ("kernel A cell capacity", "EVB state cap"), False, False)
+    assert integrators.overflow_names(integrators.capacity_flags(
+        SimpleNamespace(overflow=no), fe)) == ("kernel A cell capacity",
+                                               "EVB state cap")
 
 
 def test_half_kernel_shared_memory_fits_and_raises():

@@ -94,12 +94,12 @@ def cell_runs(tmp_path_factory):
     tms = integrators.initial_md_state(
         State(x=torch.tensor(x0), v=torch.tensor(v0), box=tbox), ttopo,
         tsys, tcbw, cap, cells=cells, react_cap=rcap)
-    assert not tms.overflow
+    assert not integrators.overflowed(tms)
     port_init = (float(tms.potential), tms.force.numpy(), int(tms.n_states))
     port_traj = []
     for _ in range(N_STEPS):
         tms = integrators.md_step(tms, tsys, tcbw, cfg.delta_t)
-        assert not tms.overflow
+        assert not integrators.overflowed(tms)
         port_traj.append((tms.state.x.numpy(), float(tms.potential)))
     return dict(jax_res=res, port_init=port_init, port_ms=tms,
                 jax_traj=jax_traj,

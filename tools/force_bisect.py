@@ -97,7 +97,7 @@ def main():
         of the couplings, captured inside the evaluation (the eigenvector
         c held fixed, as the force takes it)."""
         rec, out = {}, {}
-        diag_fn, eigh_fn = ham.diabat_diagonal_energies, ham.ground_state_eigh
+        diag_fn, eigh_fn = ham.diabat_diagonal_energies, ham.ground_state
 
         def diag_wrap(x, *a, **k):
             res = diag_fn(x, *a, **k)
@@ -105,7 +105,7 @@ def main():
             return res
 
         def eigh_wrap(H):
-            w, c = eigh_fn(H)
+            w, c, failed = eigh_fn(H)
             cc = c.detach().to(H.dtype)
             e_diag = (cc ** 2 * torch.diagonal(H)).sum()
             e_recip = (cc[:rec["recip"].shape[0]] ** 2 * rec["recip"]).sum()
@@ -115,15 +115,15 @@ def main():
                                          allow_unused=True)
                 out[name] = (torch.zeros(3) if g is None
                              else -g[atom].double().cpu())
-            return w, c
+            return w, c, failed
 
-        ham.diabat_diagonal_energies, ham.ground_state_eigh = (diag_wrap,
-                                                               eigh_wrap)
+        ham.diabat_diagonal_energies, ham.ground_state = (diag_wrap,
+                                                          eigh_wrap)
         try:
             evaluate(path, dtype)
         finally:
-            ham.diabat_diagonal_energies, ham.ground_state_eigh = (diag_fn,
-                                                                   eigh_fn)
+            ham.diabat_diagonal_energies, ham.ground_state = (diag_fn,
+                                                              eigh_fn)
         return out
 
     dtype = torch.float32 if args.dtype == "fp32" else torch.float64

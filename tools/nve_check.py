@@ -6,8 +6,8 @@ where and why the total energy jumps:
                                [--dtype fp32|fp64] [--jump KJ] [--save DIR]
 
 Each run goes through the simulation loop from benchdata/
-eq_flagship_s80.npz as chip_smoke's phase 6 does (chip_smoke.nve's
-set-up), recording every step's Etot, diabat count, hydronium molecule
+eq_flagship_s80.npz as chip_smoke's phase 6 does, in chunks of one step
+(chip_smoke.eq_sim's set-up), recording every step's Etot, diabat count, hydronium molecule
 and max |F|.  The fp32 step is not reproducible (B1 and torch's
 index_put backward add with atomics), so the runs differ.  For every
 step whose |Etot change| exceeds --jump kJ/mol (default 5), the
@@ -103,10 +103,11 @@ def main():
             hops, jumps = 0, []
             for k in range(args.steps):
                 prev = sim.ms
-                cs.check(sim._step(k + 1), "the EVB state cap hit its "
-                                           "ceiling")
+                diag, _, last = sim._chunk(k, 1)
+                cs.check(not last, f"the run ended at step {k + 1}: "
+                                   f"{sim._log_lines[-1:]}")
                 ms = sim.ms
-                hops += ms.hopped
+                hops += int(diag.hopped[0])
                 etot.append(float(ms.kinetic + ms.potential))
                 if abs(etot[-1] - etot[-2]) > args.jump:
                     if args.save:
@@ -118,7 +119,8 @@ def main():
                         f"    step {k + 1}: dEtot {etot[-1] - etot[-2]:+.3f}"
                         f" (dPE {float(ms.potential - prev.potential):+.3f},"
                         f" dKE {float(ms.kinetic - prev.kinetic):+.3f}); "
-                        f"hopped {ms.hopped}; diabats {int(prev.n_states)}"
+                        f"hopped {bool(diag.hopped[0])}; diabats "
+                        f"{int(prev.n_states)}"
                         f" -> {int(ms.n_states)}; hydronium "
                         f"{int(prev.topo.hydronium_mol)} -> "
                         f"{int(ms.topo.hydronium_mol)}; max|F| "
