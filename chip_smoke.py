@@ -62,7 +62,9 @@ Phases, in order, one line each (any failure raises, exit code != 0):
         S = 80 and 48 (the small tier), the 10k box's at S = 32, an
         engineered near-degenerate H (diagonal gap 1e-7): |dlambda_0| <=
         1e-10 |lambda_0|, |dc| <= 1e-9 up to sign where the ground gap is
-        > 1e-6, two calls bit-identical; E, plain and eigh times;
+        > 1e-6, two calls bit-identical; E, plain and eigh times, and
+        E's device time from a CUDA graph of back-to-back launches
+        (graphed_device_ms);
      c. 64 graphed steps against 64 eager md_steps from the equilibrated
         flagship, NVE and NVT (one generator state), fp64 (max |dx| <=
         1e-9 A, |dEtot| <= 1e-8 kJ/mol) and fp32 (1e-3 A, 0.05 kJ/mol;
@@ -97,7 +99,7 @@ for the pair kernels FLOP_PAIR per inter-molecular pair within the cutoff
 for the interpolations 16; for C1 the complex product W @ BC (8 per
 complex multiply-add) and for C2 three of them; for E, whose solve is
 fp64 whatever H's type, the (4/3) S^3 flops of a dense symmetric
-tridiagonalization (not the sweeps its Jacobi method takes).
+tridiagonalization.
 """
 
 import json
@@ -243,6 +245,41 @@ def device_ms(fn, calls=5):
     us = sum(max(getattr(e, "self_device_time_total", 0), 0)
              for e in prof.key_averages())
     return us / calls / 1e3 if us > 0 else None
+
+
+def graphed_device_ms(fn, n=64, reps=15):
+    """Device milliseconds of one fn() call without the profiler: n calls
+    captured back to back in one CUDA graph, its replay timed by CUDA
+    events (the median of `reps`), less the replay of n empty kernels
+    (torch.cuda._sleep(0)) captured the same way, over n.  The two
+    graphs replay in turns."""
+    import torch
+
+    def capture(f):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            f()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(n):
+                f()
+        return g
+
+    graphs = (capture(fn), capture(lambda: torch.cuda._sleep(0)))
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    times = ([], [])
+    for _ in range(reps + 1):
+        for g, ts in zip(graphs, times):
+            t0.record()
+            g.replay()
+            t1.record()
+            torch.cuda.synchronize()
+            ts.append(t0.elapsed_time(t1))
+    med = [sorted(ts[1:])[reps // 2] for ts in times]
+    return (med[0] - med[1]) / n
 
 
 def launch_floor_ms():
@@ -1066,8 +1103,8 @@ def phase_ground_state(tmp, measured):
             lam2, c2, _ = gs.ground_state_cuda(Ht)
             check(torch.equal(lam, lam2) and torch.equal(c, c2),
                   f"8b {name} {tag}: two calls of E differ")
-            sweeps = int(info)
-            check(sweeps >= 0, f"8b {name} {tag}: E did not converge")
+            rounds = int(info)
+            check(rounds >= 0, f"8b {name} {tag}: E failed (info -1)")
             lp, cp = gs.ground_state_eigh(Ht)
             w = torch.linalg.eigvalsh(Ht.double() - Ht[0, 0].double()
                                       * torch.eye(Ht.shape[0], device="cuda",
@@ -1083,14 +1120,14 @@ def phase_ground_state(tmp, measured):
             S = Ht.shape[0]
             isz = Ht.element_size()
             ms = cuda_ms(lambda: gs.ground_state_cuda(Ht))
-            # no device_ms: the profiler kept the records of 0 or 1 of 5
-            # calls of E here (two runs); E's device time is read from
-            # 8f's step profiles instead
+            # not the profiler's device_ms: it kept the records of 0 or 1
+            # of 5 calls of E here
+            dev = graphed_device_ms(lambda: gs.ground_state_cuda(Ht))
             row = dict(max_abs_err=max(dlam, dc), max_rel_err=dlam / abs(
-                float(lp)), ok=ok, ms=ms, device_ms=None,
+                float(lp)), ok=ok, ms=ms, device_ms=dev,
                 plain_ms=cuda_ms(lambda: gs.ground_state_eigh(Ht)),
                 library_ms=cuda_ms(lambda: torch.linalg.eigh(Ht)),
-                sweeps=sweeps)
+                rounds=rounds)
             # the function's work, not the method's: H in, (lambda, c)
             # out, and the flops of a dense symmetric tridiagonalization,
             # (4/3) S^3 in fp64 (the solve is fp64 whatever H's dtype)
@@ -1098,7 +1135,8 @@ def phase_ground_state(tmp, measured):
                 S * S * isz + (S + 1) * isz, 4.0 / 3.0 * S ** 3, "fp64")
             log(f"  8b {name} {tag}: E |dlambda| {dlam:.3e} (|lambda| "
                 f"{abs(float(lp)):.1f}), |dc| {dc:.3e} up to sign, ground gap"
-                f" {ground_gap:.3e}, {sweeps} sweeps; E {ms:.4f} ms, plain "
+                f" {ground_gap:.3e}, {rounds} rounds; E {ms:.4f} ms, device "
+                f"{dev:.4f} ms, plain "
                 f"{row['plain_ms']:.4f} ms, "
                 f"eigh {row['library_ms']:.4f} ms, bound {row['bound_ms']:.2e}"
                 f" ms ({row['bound_by']})")

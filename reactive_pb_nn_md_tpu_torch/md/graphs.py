@@ -15,8 +15,11 @@ box, cbw (copied in at every chunk start, so a barostat move or a
 restart reaches the next chunk), the principle Topology (a hop changes
 it), the NeighborList, forces and the Kahan carries (copied back after
 every step).  What the step reads outside the MDState and cbw (the
-System's tables) is held by the graph's closure; a StepGraphs key names
-the System object, so another System is captured anew.
+System's tables) is read at the addresses it had at the capture: a
+StepGraphs key holds the System and the generator themselves (`Held`,
+equal only to the same object), so while a graph is kept its System
+stays alive, no other object can take its id, and another System is
+captured anew.
 
 Launch counts: a replay runs the kernels without calling their wrappers,
 so the counts that the capture added to ops.kernels._build.launches are
@@ -63,6 +66,23 @@ def with_leaves(obj, tensors):
             f.name: with_leaves(getattr(obj, f.name), tensors)
             for f in dataclasses.fields(obj) if f.init})
     return obj
+
+
+class Held:
+    """An object in a graph key: equal only to that same object, and kept
+    alive for as long as the key is (a key of bare id()s could match an
+    object made later at a freed one's address)."""
+
+    __slots__ = ("obj",)
+
+    def __init__(self, obj):
+        self.obj = obj
+
+    def __eq__(self, other):
+        return isinstance(other, Held) and other.obj is self.obj
+
+    def __hash__(self):
+        return id(self.obj)
 
 
 def signature(obj):
@@ -153,11 +173,13 @@ class StepGraph:
 
 
 class StepGraphs:
-    """The captured steps of a run, by key (ensemble, dtype, tier, the
-    System object, every capacity and cell grid): a key changes after a
-    regrow, a grid refit or a tier switch, and its step is captured
-    then.  At most KEEP graphs are kept, the least recently used
-    dropped first."""
+    """The captured steps of a run, by key (integrators.graph_key: the
+    ensemble, dtype, tier and step parameters, the System and the
+    generator held, the MDState's signature with every capacity and cell
+    grid that lives there): a key changes after a regrow, a grid refit
+    or a tier switch, and its step is captured then.  At most KEEP
+    graphs are kept, the least recently used dropped first; a dropped
+    key releases its System."""
 
     def __init__(self):
         self.graphs = OrderedDict()

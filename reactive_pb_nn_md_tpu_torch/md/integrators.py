@@ -47,7 +47,8 @@ class CapacityOverflow(RuntimeError):
 
 
 class GroundStateError(RuntimeError):
-    """Kernel E did not converge within its sweep cap."""
+    """Kernel E failed: its multisection did not close, or its
+    eigenvector's residual exceeded the bound (ops/ground_state.py)."""
 
 
 # the capacity flags of a step, in the order of MDState.overflow, and the
@@ -424,6 +425,17 @@ def scan_step(ms, system, cbw, dt, ensemble, friction, temperature,
     return ms, _diag_row(ms)
 
 
+def graph_key(ms, system, cbw, dt, ensemble, friction, temperature,
+              generator, tier):
+    """The StepGraphs key of a captured step.  The System (whose kernel A
+    cell cap, slab cap and state cap live nowhere else) and the generator
+    enter held (graphs.Held), not by id(): a kept key keeps them alive,
+    so no later System can match a graph captured for another."""
+    return (ensemble, ms.state.x.dtype, tier, dt, friction, temperature,
+            graphs.Held(system), graphs.Held(generator),
+            graphs.signature(ms), tuple(cbw.shape))
+
+
 def _scan(ms, system, cbw, dt, ensemble, n_steps, friction, temperature,
           generator, tier, step_graphs, eager):
     """n_steps steps at one tier: (MDState, ChunkDiagnostics)."""
@@ -432,9 +444,8 @@ def _scan(ms, system, cbw, dt, ensemble, n_steps, friction, temperature,
                          generator, tier)
 
     if ms.state.x.is_cuda and not eager:
-        key = (ensemble, ms.state.x.dtype, tier, dt, friction, temperature,
-               id(system), id(generator), graphs.signature(ms),
-               tuple(cbw.shape))
+        key = graph_key(ms, system, cbw, dt, ensemble, friction,
+                        temperature, generator, tier)
         g = step_graphs.get(key, lambda: graphs.StepGraph(
             body, ms, cbw, generator if ensemble == "NVT" else None))
         out, rows = g.run(ms, cbw, n_steps)

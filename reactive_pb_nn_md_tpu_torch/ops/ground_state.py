@@ -1,9 +1,11 @@
 """Ground eigenpair of the small symmetric EVB Hamiltonian (counterpart of
 ``ground_state_eigh`` in reactive_pb_nn_md_tpu/ops/ground_state.py).
 
-For a CUDA tensor, kernel E (csrc/ground_state.cu): parallel cyclic Jacobi
-in fp64 in one block, no host synchronization, so the MD step can be
-captured as a CUDA graph (torch.linalg.eigh checks its info on the host).
+For a CUDA tensor, kernel E (csrc/ground_state.cu): in fp64 in one
+block, Householder tridiagonalization, Sturm-count multisection for
+lambda_0 and inverse iteration for c_0, with no host synchronization, so
+the MD step can be captured as a CUDA graph (torch.linalg.eigh checks its
+info on the host).
 For a CPU tensor, the plain version: eigh.  Both return c_0 with its
 largest |c_i| positive; every consumer (c^T H c, c_i^2, argmax |c|) is
 sign-invariant."""
@@ -11,6 +13,7 @@ sign-invariant."""
 import torch
 
 from .kernels import _build
+
 
 def fix_sign(c):
     """c with its largest |c_i| (the first such i) positive."""
@@ -35,13 +38,22 @@ def ground_state_eigh(H):
     return lam.to(H.dtype), fix_sign(v.index_select(1, g)[:, 0]).to(H.dtype)
 
 
+def max_rounds():
+    """The most multisection rounds kernel E takes (GS_MAX_ROUNDS of
+    csrc/ground_state.cu, read from the built library)."""
+    return _build.function("ground_state_max_rounds", 0)()
+
+
 def ground_state_cuda(H):
-    """Kernel E: (lambda_0 (), c_0 (S,), info () int32: the sweeps it
-    took, -1 when it did not converge)."""
+    """Kernel E: (lambda_0 (), c_0 (S,), info () int32: the multisection
+    rounds it took, 0..max_rounds(), or -1 when the interval did not close,
+    the inverse-iteration residual ||(T - lambda_0 I) y||_inf exceeded
+    16 nact eps ||T||_inf ||y||_inf (nact: the coupled states) or a value
+    was not finite)."""
     S = H.shape[0]
     f = H.dtype
     _build.require(H, f, (S, S), "H")
-    # A and V in device memory where they do not fit in shared memory
+    # A in device memory where it does not fit in shared memory
     # (csrc/ground_state.cu decides)
     scratch = torch.empty(_build.function("ground_state_scratch", 0, 1)(S),
                           dtype=torch.float64, device=H.device)

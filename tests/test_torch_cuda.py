@@ -541,27 +541,58 @@ def _evb_like(S, n_active, rng, gap=None):
     return H
 
 
-@pytest.mark.parametrize("S,n,gap", [(80, 60, None), (48, 40, None),
-                                     (32, 20, None), (80, 40, 1e-7),
-                                     (81, 70, None), (120, 100, None)])
-def test_ground_state_kernel_matches_plain(S, n, gap):
+def _ground_state_case(S, n, gap, kind):
+    """An EVB-shaped H, or one whose parked (decoupled) state lies below
+    every active one, or a diagonal one (no reflection does anything), or
+    a diagonal one whose two lowest entries are equal (a ground gap of
+    0)."""
+    rng = np.random.default_rng(S + n)
+    if kind == "evb":
+        return _evb_like(S, n, rng, gap)
+    if kind == "parked_lowest":
+        H = _evb_like(S, n, rng)
+        H[S - 3, S - 3] = H.diagonal()[:n].min() - 200.0
+        return H
+    H = np.diag(-24000.0 + 50.0 * rng.standard_normal(S))
+    if kind == "degenerate":
+        H[3, 3] = H[5, 5] = H.diagonal().min() - 10.0
+    return H
+
+
+@pytest.mark.parametrize("S,n,gap,kind", [
+    (80, 60, None, "evb"), (48, 40, None, "evb"), (32, 20, None, "evb"),
+    (80, 40, 1e-7, "evb"), (81, 70, None, "evb"), (120, 100, None, "evb"),
+    (160, 140, None, "evb"),
+    (2, 2, None, "evb"), (33, 30, None, "evb"), (64, 50, None, "evb"),
+    (24, 0, None, "diagonal"), (24, 0, None, "degenerate"),
+    (24, 12, None, "parked_lowest")])
+def test_ground_state_kernel_matches_plain(S, n, gap, kind):
     """Kernel E against eigh: the shared-memory path up to 80 states and
-    the device-memory one above, an odd S, a near-degenerate diagonal."""
+    the device-memory one above, the paths through memory past 96 active
+    states (120, 160), odd S, S = 2 (no reflection), a diagonal
+    H, a near-degenerate diagonal, a parked ground state, and an exactly
+    degenerate ground state (c is then any unit vector of the pair's
+    span: its residual is held instead)."""
     _need_card()
     from reactive_pb_nn_md_tpu_torch.ops import ground_state as gs
-    H = torch.tensor(_evb_like(S, n, np.random.default_rng(S + n), gap),
-                     device="cuda")
+    H = torch.tensor(_ground_state_case(S, n, gap, kind), device="cuda")
     for f in (torch.float64, torch.float32):
         Hf = H.to(f)
         lam, c, info = gs.ground_state_cuda(Hf)
         lam2, c2, _ = gs.ground_state_cuda(Hf)
         assert torch.equal(lam, lam2) and torch.equal(c, c2)
-        assert 0 <= int(info) <= 30
+        assert 0 <= int(info) <= gs.max_rounds()
         lp, cp = gs.ground_state_eigh(Hf)
         tol = 1e-10 if f == torch.float64 else 1e-6
         assert abs(float(lam) - float(lp)) <= tol * abs(float(lp))
-        assert float((c - cp).abs().max()) <= (
-            1e-9 if f == torch.float64 else 1e-5)
+        if kind == "degenerate":
+            Hd, cd = Hf.double(), c.double()
+            assert abs(float(cd.norm()) - 1.0) <= tol
+            assert float((Hd @ cd - float(lam) * cd).abs().max()) <= (
+                1e-9 if f == torch.float64 else 1e-2)
+        else:
+            assert float((c - cp).abs().max()) <= (
+                1e-9 if f == torch.float64 else 1e-5)
         i = int(torch.argmax(c.abs()))
         assert float(c[i]) > 0
 
@@ -604,6 +635,35 @@ def test_md_scan_graphed_matches_eager(tmp_path, ensemble):
     np.testing.assert_allclose(float(ms.kinetic + ms.potential),
                                float(ref.kinetic + ref.potential), rtol=0,
                                atol=1e-8)
+
+
+def test_kernel_a_cap_regrows_capture_anew(tmp_path):
+    """Three kernel A cell-cap regrows in a row on the flagship deck
+    through Simulation (its _grow, then a chunk each): every regrown
+    System is captured anew, none is handed a kept graph of a freed
+    System whose id it took (the cap lives only in the System), and no
+    chunk overflows."""
+    _need_card()
+    import shutil
+    from reactive_pb_nn_md_tpu_torch.md.simulation import Simulation
+    deck = tmp_path / "deck"
+    shutil.copytree(ROOT / "examples" / "water_msevb", deck)
+    sim = Simulation(*[str(deck / n) for n in (
+        "in.gro", "ff.pmt", "top.top", "sim.pmt", "traj.gro", "run.log",
+        "hops.log", "A.log")], device="cuda")
+    step = 0
+    caps = []
+    for regrow in range(4):
+        if regrow:
+            ms = sim.ms
+            sim._grow((integrators.RS_CELL_CAP,), step, "regrown")
+            sim._init_state(ms.state, ms.topo, step, comp=ms.comp)
+        caps.append(sim.system.rs_cells[3])
+        diag, done, end = sim._chunk(step, 4)
+        assert done == 4 and not end and not diag.capacities()
+        assert len(sim.step_graphs.captures) == regrow + 1
+        step += done
+    assert caps == sorted(set(caps))
 
 
 def test_step_makes_no_host_sync_on_the_card(tmp_path):

@@ -104,6 +104,9 @@ def driver_deck(tmp, n_water=16, msevb="no", ensemble="NVE", extra="",
         "traj.gro", "log.out", "hop.out", "a.out")]
 
 
+_unoptimized = []     # the jit-cache key of jax_compiled's compilations
+
+
 @contextlib.contextmanager
 def jax_compiled():
     """The JAX driver on the CPU with its eager paths compiled whole and
@@ -111,15 +114,21 @@ def jax_compiled():
     barostat, and the debug >= 2 enumeration.  Eager, each of their
     thousands of ops compiles on its own (minutes a deck); compiled, the
     arithmetic is the same to rounding.  Everything is restored on
-    exit."""
+    exit.  The optimization flag is not part of jax.jit's cache key, so
+    a user context that is is set too: what compiles inside stays apart
+    from what compiles outside, and a later test in the same process
+    that compares two compilations bit for bit gets optimized ones
+    only."""
     import jax
     from reactive_pb_nn_md_tpu.md import integrators as ji
     from reactive_pb_nn_md_tpu.evb import enumerate as je
     from reactive_pb_nn_md_tpu.evb import topology_ops as jt
+    if not _unoptimized:
+        _unoptimized.append(jax.make_user_context(default_value=False))
     prev = jax.config.values["jax_disable_most_optimizations"]
     jax.config.update("jax_disable_most_optimizations", True)
     try:
-        with pytest.MonkeyPatch.context() as mp:
+        with _unoptimized[0](True), pytest.MonkeyPatch.context() as mp:
             mp.setattr(ji, "evaluate_forces", ji._evaluate_forces_jit)
             mp.setattr(je, "enumerate_diabats",
                        jax.jit(je.enumerate_diabats))
