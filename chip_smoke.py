@@ -81,7 +81,36 @@ Phases, in order, one line each (any failure raises, exit code != 0):
      f. rates, eager against graphed (tools/profile_step.py measure):
         the flagship NVE fp64 and fp32, NVT fp64, the 10k box NVE fp32:
         steps/s from the log's completed line, device ms, busy share and
-        device ops per step; no claim rests on them.
+        device ops per step; no claim rests on them;
+  9. PB-NN (coupling function type 3: nn/coupling_mlp.py, nn/train.py) on
+     the equilibrated flagship, bench.py run_bench_nn's configuration:
+     the (OW, O_h3o, H_h3o) triple switched to a (16, 16) MLP of 5 inputs
+     (n_env 2) pretrained in-process, attached with
+     Simulation.mutate_system:
+     a. pretrain_geometric, fp32, 400 steps on the triple's analytic row,
+        on the card and on the CPU from one initial MLP and one sample
+        set: the MLPs within 1e-5 relative (each tensor's max |diff| over
+        its max |value|); the fit's rmse;
+     b. evaluate_forces fp64 with the MLP, card (kernels) against CPU
+        (plain): energy within 1e-10 relative, forces phase 4's bound;
+     c. 256 graphed NVE steps in fp32 through the Simulation, launch counts
+        from 0: Etot finite at every step, no capacity regrown; A, B1, B2,
+        C1, C2, E launch, A', A'', D1, D2 do not; then 200 fp64 steps,
+        |Etot(200) - Etot(0)| <= 5 kJ/mol (phase 6's bound);
+     d. an eager type-3 step under sync-debug "error" (fp64, fp32), then
+        64 graphed against 64 eager steps at GRAPH_TOL, A, B1, B2, C1, C2
+        and E launching 64 times each;
+     e. finetune_adiabatic with force matching (weight 0.1) on 4 rattled
+        copies of the flagship frame (numpy seed 0, 0.05 A), e_ref and
+        f_ref from the analytic surface on the card: 3 Adam steps fp64 on
+        the card and on the CPU, the energy and force rmses before and
+        after, the loss and its gradient with respect to every MLP tensor
+        within 1e-8 relative;
+     f. printed, not gated: steps/s, steady ms, device ms and device ops
+        per step of the graphed step with the MLP beside the analytic one,
+        fp32 and fp64, 64 steps each (tools/profile_step.py measure), and
+        the device ms of the MLP and environment features' forward and
+        backward at the small tier (S = 48) alone.
 The line before the last is nvidia-smi's name and power limit, the one
 before it the per-kernel JSON (times, errors and bounds in fp64; fp32 in
 the fp32_ keys); the last line is the result JSON.
@@ -157,6 +186,9 @@ FLAGSHIP_KERNELS = ("A", "B1", "B2", "C1", "C2", "E")
 TENK_KERNELS = ("A''", "D1", "D2", "C1", "C2", "E")
 # phase 8c / 8d: graphed against eager, (max |dx| A, |dEtot| kJ/mol)
 GRAPH_TOL = {"fp64": (1e-9, 1e-8), "fp32": (1e-3, 0.05)}
+# phase 9: bench.py run_bench_nn's MLP (the triple, 5 inputs, 400 steps)
+NN_TRIPLE = ("OW", "O_h3o", "H_h3o")
+NN_ENV, NN_PRETRAIN, NN_STEPS, NN_FRAMES = 2, 400, 256, 4
 
 # Tolerances (|got - ref| <= atol + rtol |ref|, atol relative to max|ref|):
 #  fp64: 1e-10 relative for every kernel.
@@ -613,9 +645,10 @@ def phase_kernels(results):
                            f"version: max abs error {r['max_abs_err']:.3e}")
 
 
-def forces_cuda_vs_cpu(name, build):
+def forces_cuda_vs_cpu(name, build, e_rtol=1e-8):
     """evaluate_forces fp64 on the card (kernels) and on the CPU (plain)
-    from `build(device)` -> (system, state, topo, cbw, nlist kwargs)."""
+    from `build(device)` -> (system, state, topo, cbw, nlist kwargs):
+    energy within e_rtol relative, eigenvector and forces 1e-8."""
     import torch
     from reactive_pb_nn_md_tpu_torch.ops import neighbors
     from reactive_pb_nn_md_tpu_torch.md import integrators
@@ -641,7 +674,7 @@ def forces_cuda_vs_cpu(name, build):
     log(f"  {name}: n_states {int(c.n_states)}  |dE| {dE:.3e} kJ/mol  "
         f"|dc| {dc:.3e}  max|dF| {dF:.3e} (max|F| {fmax:.1f}); cuda "
         f"{tg:.2f} s, cpu {tc:.2f} s")
-    check(dE <= 1e-8 * abs(float(c.potential)) and dc <= 1e-8
+    check(dE <= e_rtol * abs(float(c.potential)) and dc <= 1e-8
           and dF <= 1e-8 * fmax, f"{name}: CUDA and CPU forces disagree")
 
 
@@ -746,15 +779,18 @@ def eq_sim(tmp, dtype, extra=""):
     return sim
 
 
-def flagship_run(tmp, dtype, steps, extra=""):
+def flagship_run(tmp, dtype, steps, extra="", mutate=None):
     """`steps` steps from the equilibrated flagship state through the
     chunked loop (capacities regrown, chunk replayed) of the flagship
-    deck with the parameter lines `extra`; (Etot and KE at every step,
-    hops, steps/s, the Simulation)."""
+    deck with the parameter lines `extra`, the System passed through
+    Simulation.mutate_system(mutate) first when given; (Etot and KE at
+    every step, hops, steps/s, the Simulation)."""
     import torch
     from reactive_pb_nn_md_tpu_torch.md import integrators
     tag = "fp64" if dtype == torch.float64 else "fp32"
     sim = eq_sim(tmp, dtype, extra)
+    if mutate is not None:
+        sim.mutate_system(mutate)
     etot = [float(sim.ms.kinetic + sim.ms.potential)]
     ke = [float(sim.ms.kinetic)]
     hops = step = 0
@@ -1008,11 +1044,31 @@ def scan_args(sim, ensemble):
             cfg.temperature)
 
 
+def sync_free_step(sim, ens):
+    """One eager step of sim's state (after a warm one: kernels, cuFFT
+    plans) under torch.cuda.set_sync_debug_mode("error"), which raises at
+    a host synchronization; returns the step's EVB tier."""
+    import torch
+    from reactive_pb_nn_md_tpu_torch.evb import hamiltonian as ham
+    from reactive_pb_nn_md_tpu_torch.md import integrators
+    system, cbw, dt, _, fr, temp = scan_args(sim, ens)
+    tier = "small" if ham.small_state_tier(system) else "full"
+    step = (sim.ms, system, cbw, dt, ens, fr, temp, sim.gen, tier)
+    integrators.scan_step(*step)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        integrators.scan_step(*step)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return tier
+
+
 def phase_sync(tmp):
     """Phase 8a: one eager warm step under sync-debug "error" in each
     cell, then its capture: (name, capture s, pool MiB) of each."""
     import torch
-    from reactive_pb_nn_md_tpu_torch.evb import hamiltonian as ham
     from reactive_pb_nn_md_tpu_torch.md import graphs, integrators
     out = []
     for name, make, ens in (
@@ -1024,16 +1080,7 @@ def phase_sync(tmp):
              "NVE")):
         sim = make()
         system, cbw, dt, _, fr, temp = scan_args(sim, ens)
-        tier = "small" if ham.small_state_tier(system) else "full"
-        step = (sim.ms, system, cbw, dt, ens, fr, temp, sim.gen, tier)
-        integrators.scan_step(*step)           # warm: kernels, cuFFT plans
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            integrators.scan_step(*step)
-            torch.cuda.synchronize()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+        tier = sync_free_step(sim, ens)
         sg = graphs.StepGraphs()
         integrators.md_scan(sim.ms, system, cbw, dt, ens, 1, fr, temp,
                             generator=sim.gen, step_graphs=sg)
@@ -1096,8 +1143,6 @@ def phase_ground_state(tmp, measured):
                          ("near-degenerate S=80", Hdeg, None)):
         for dtype in (torch.float64, torch.float32):
             tag = "fp64" if dtype == torch.float64 else "fp32"
-            if tag == "fp32" and key != "E":
-                continue
             Ht = H.to(dtype)
             lam, c, info = gs.ground_state_cuda(Ht)
             lam2, c2, _ = gs.ground_state_cuda(Ht)
@@ -1262,6 +1307,237 @@ def phase_rates(tmp):
     return out
 
 
+def mlp_as(nn, device, dtype):
+    """A copy of the MLP nn on `device` in `dtype`."""
+    return {"vconst": nn["vconst"].to(device, dtype),
+            "w": [w.to(device, dtype) for w in nn["w"]],
+            "b": [b.to(device, dtype) for b in nn["b"]]}
+
+
+def mlp_rel(a, b):
+    """The largest over the MLP's tensors of max |a - b| / max |b|."""
+    from reactive_pb_nn_md_tpu_torch.nn.coupling_mlp import mlp_tensors
+    return max(float((u.double().cpu() - v.double().cpu()).abs().max())
+               / max(float(v.double().abs().max()), 1e-300)
+               for u, v in zip(mlp_tensors(a), mlp_tensors(b)))
+
+
+def attach_mlp(nn, dtype):
+    """mutate_system's function: the NN_TRIPLE switched to nn (as dtype,
+    on the card)."""
+    from reactive_pb_nn_md_tpu_torch.nn import coupling_mlp
+    return lambda s: coupling_mlp.attach(s, mlp_as(nn, "cuda", dtype),
+                                         NN_TRIPLE)
+
+
+def phase_pbnn_pretrain():
+    """Phase 9a: run_bench_nn's pretraining on the card and on the CPU from
+    one initial MLP and one sample set; returns the card's MLP."""
+    import torch
+    from reactive_pb_nn_md_tpu_torch.nn import coupling_mlp, train
+    system = flagship(torch.device("cuda"), torch.float32)[0]
+    names = system.ff.atype_names
+    row = system.evb.cpl_params[tuple(names.index(n) for n in NN_TRIPLE)]
+    gen = torch.Generator().manual_seed(1)
+    samples = train.sample_geometries(gen, 2048, dtype=torch.float32,
+                                      device="cpu")
+    init = coupling_mlp.init_mlp(gen, vconst=float(row[0]),
+                                 dtype=torch.float32, device="cpu",
+                                 n_env=NN_ENV)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nn, rmse = train.pretrain_geometric(
+            row.to(dev), steps=NN_PRETRAIN, dtype=torch.float32,
+            n_env=NN_ENV, device=dev, samples=samples,
+            init=mlp_as(init, dev, torch.float32))
+        out[dev] = (nn, rmse, time.perf_counter() - t0)
+    (g, rg, tg), (c, rc, tc) = out["cuda"], out["cpu"]
+    rel = mlp_rel(g, c)
+    log(f"  9a pretrain_geometric fp32, {NN_PRETRAIN} steps, 2048 samples,"
+        f" n_env {NN_ENV}: rmse card {rg:.6f} cpu {rc:.6f}; MLP card vs cpu"
+        f" {rel:.3e} relative; {tg:.2f} s card, {tc:.2f} s cpu")
+    check(rel <= 1e-5, f"9a: the card's pretrained MLP differs from the "
+                       f"CPU's by {rel:.3e} relative")
+    return g
+
+
+def frames_of(system, state, meta, xs):
+    """(xs, full_idxs, pair_j, pair_mask) of the frames xs on the main
+    path's neighbor plan."""
+    from reactive_pb_nn_md_tpu_torch.md import integrators
+    from reactive_pb_nn_md_tpu_torch.ops import neighbors
+    plan = integrators.neighbor_plan(system, state.box, meta["capacity"],
+                                     react_cap=meta["react_cap"])
+    fr = ([], [], [], [])
+    for x in xs:
+        nl = neighbors.build_neighbors(x, state.box, **plan)
+        check(not bool(nl.overflow), "9e: a frame overflows its neighbors")
+        _, j, m = neighbors.neighbor_pairs(nl)
+        for lst, v in zip(fr, (x, nl.full_idx, j, m)):
+            lst.append(v)
+    return fr
+
+
+def phase_pbnn_finetune(nn):
+    """Phase 9e: finetune_adiabatic with force matching on NN_FRAMES
+    rattled copies of the flagship frame, card against CPU."""
+    import numpy as np
+    import torch
+    from reactive_pb_nn_md_tpu_torch.nn import coupling_mlp, train
+    rng = np.random.default_rng(0)
+    dev = torch.device("cuda")
+    system, state, topo, meta, cbw, _ = flagship(dev, torch.float64)
+    x0 = state.x.cpu().numpy()
+    xs = [torch.tensor(x0 + rng.normal(0.0, 0.05, x0.shape), device=dev)
+          for _ in range(NN_FRAMES)]
+    e_ref, f_ref = train.make_frame_energy_force_fn(system, topo,
+                                                    state.box, cbw)(
+        None, *frames_of(system, state, meta, xs))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        system, state, topo, meta, cbw, _ = flagship(torch.device(dev),
+                                                     torch.float64)
+        nn0 = mlp_as(nn, dev, torch.float64)
+        sys_nn = coupling_mlp.attach(system, nn0, NN_TRIPLE)
+        fr = frames_of(sys_nn, state, meta, [x.to(dev) for x in xs])
+        args = (sys_nn, topo, state.box, cbw, *fr)
+        er, fref = e_ref.to(dev), f_ref.to(dev)
+        t0 = time.perf_counter()
+        p = coupling_mlp.copy_mlp(nn0, True)
+        e, f = train.make_frame_energy_force_fn(*args[:4])(p, *fr)
+        loss = (torch.mean((e - er) ** 2) + 0.1 * 3.0 * system.n_atoms
+                * torch.mean(torch.sum((f - fref) ** 2, -1)))
+        grad = torch.autograd.grad(loss, coupling_mlp.mlp_tensors(p))
+        t1 = time.perf_counter()
+        res = train.finetune_adiabatic(nn0, *args, er, steps=3, f_ref=fref,
+                                       force_weight=0.1)
+        out[dev] = (float(loss.detach()), grad, res, t1 - t0,
+                    time.perf_counter() - t1)
+    (lg, gg, rg, t1g, t2g), (lc, gc, rc, t1c, t2c) = out["cuda"], out["cpu"]
+    d_loss = abs(lg - lc) / abs(lc)
+    d_grad = max(float((a.cpu() - b).abs().max()) / max(
+        float(b.abs().max()), 1e-300) for a, b in zip(gg, gc))
+    d_rmse = max(abs(a - b) / abs(b) for a, b in zip(rg[1:], rc[1:]))
+    d_mlp = mlp_rel(rg[0], rc[0])
+    log(f"  9e finetune_adiabatic, {NN_FRAMES} frames, 3 steps, force "
+        f"weight 0.1: e rmse {rc[1]:.6f} -> {rc[2]:.6f} kJ/mol, f rmse "
+        f"{rc[3]:.6f} -> {rc[4]:.6f} kJ/mol/A (cpu); card vs cpu: loss "
+        f"{d_loss:.3e}, gradient {d_grad:.3e}, rmses {d_rmse:.3e}, MLP "
+        f"after {d_mlp:.3e} relative; loss + gradient {t1g:.2f} s card, "
+        f"{t1c:.2f} s cpu; 3 steps {t2g:.2f} s card, {t2c:.2f} s cpu")
+    check(d_loss <= 1e-8 and d_grad <= 1e-8 and d_rmse <= 1e-8,
+          "9e: the force-matching loss, its gradient or the finetuning "
+          "rmses differ between card and CPU")
+
+
+def mlp_device_ms(nn, sim):
+    """Device ms of the MLP and the environment features, forward and
+    backward, at the small tier's S = 48 on sim's state: the type-3 extra
+    of a step, alone (graphed_device_ms)."""
+    import torch
+    from reactive_pb_nn_md_tpu_torch.models import coupling
+    from reactive_pb_nn_md_tpu_torch.nn.coupling_mlp import apply_mlp
+    x0, box, topo = sim.ms.state.x, sim.ms.state.box, sim.ms.topo
+    S = 48
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    d = torch.randint(0, sim.system.n_mole, (S,), device="cuda",
+                      generator=gen)
+    a = (d + 1) % sim.system.n_mole
+    heavy = topo.mol_atoms[:, 0]
+    atom_mol = topo.atom_mol.expand(S, -1)
+    x = x0.detach().clone().requires_grad_(True)
+
+    def fwd_bwd():
+        r1, r2 = x[heavy[d]], x[heavy[a]]
+        env = coupling._env_features(x, box, atom_mol, sim.system.mass, d,
+                                     a, r1, r2)
+        dr = r1 - r2
+        roo = torch.sqrt((dr * dr).sum(-1))
+        q2 = (0.25 * dr * dr).sum(-1)
+        out = apply_mlp(nn, q2, roo, env).sum()
+        return torch.autograd.grad(out, x)
+
+    return graphed_device_ms(fwd_bwd)
+
+
+def phase_pbnn(tmp):
+    """Phase 9 (see the module docstring)."""
+    import importlib.util
+    import torch
+    from reactive_pb_nn_md_tpu_torch.md import integrators
+    from reactive_pb_nn_md_tpu_torch.nn import coupling_mlp
+    t9 = time.perf_counter()
+    nn = phase_pbnn_pretrain()
+
+    def flag_nn(dev):
+        system, state, topo, meta, cbw, _ = flagship(dev, torch.float64)
+        system = coupling_mlp.attach(system, mlp_as(nn, dev, torch.float64),
+                                     NN_TRIPLE)
+        kw = integrators.neighbor_plan(system, state.box, meta["capacity"],
+                                       react_cap=meta["react_cap"])
+        return system, state, topo, cbw, kw
+
+    forces_cuda_vs_cpu("9b flagship type 3", flag_nn, e_rtol=1e-10)
+
+    def nve(dtype, steps):
+        tag = "fp64" if dtype == torch.float64 else "fp32"
+        etot, _, hops, rate, sim = flagship_run(
+            tmp / f"9c_{tag}", dtype, steps,
+            mutate=attach_mlp(nn, dtype))
+        bad = [i for i, e in enumerate(etot) if not math.isfinite(e)]
+        grown = [ln for ln in sim._log_lines if "chunk replayed" in ln]
+        d = [e - etot[0] for e in etot]
+        log(f"  9c type 3 NVE {tag}: {steps} graphed steps, Etot({steps}) - "
+            f"Etot(0) {d[-1]:+.3f} kJ/mol"
+            + (f", Etot(200) - Etot(0) {d[200]:+.3f}" if steps >= 200
+               else "")
+            + f", max|Etot - Etot0| {max(map(abs, d)):.3f}, {rate:.2f} "
+            f"steps/s, {hops} hops, {len(grown)} regrows, "
+            f"{len(sim.step_graphs.captures)} captures")
+        check(not bad, f"9c {tag}: non-finite Etot from step {bad[:1]}")
+        check(not grown, f"9c {tag}: a capacity was regrown: {grown}")
+        return d, sim
+
+    main_path("9c flagship type 3 NVE fp32",
+              lambda: nve(torch.float32, NN_STEPS), FLAGSHIP_KERNELS,
+              ("A'", "A''", "D1", "D2"))
+    d64, _ = nve(torch.float64, 200)
+    check(abs(d64[200]) <= 5.0,
+          "9c: fp64 NVE drift with the MLP exceeds 5 kJ/mol at step 200")
+
+    for dtype in (torch.float64, torch.float32):
+        tag = "fp64" if dtype == torch.float64 else "fp32"
+        sim = eq_sim(tmp / f"9d_{tag}", dtype)
+        sim.mutate_system(attach_mlp(nn, dtype))
+        tier = sync_free_step(sim, "NVE")
+        log(f"  9d type 3 {tag}: an eager {tier}-tier step under sync-debug "
+            f"'error' raised nothing")
+        graphed_vs_eager("9d flagship type 3", sim, "NVE", 64,
+                         FLAGSHIP_KERNELS)
+
+    phase_pbnn_finetune(nn)
+
+    spec = importlib.util.spec_from_file_location(
+        "profile_step", ROOT / "tools" / "profile_step.py")
+    prof = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prof)
+    prof._instrument()
+    for dtype in (torch.float32, torch.float64):
+        tag = "fp64" if dtype == torch.float64 else "fp32"
+        for name, mutate in (("analytic", None),
+                             ("type 3", attach_mlp(nn, dtype))):
+            r = prof.measure("flagship", "NVE", tag, tmp / "9f", 64, False,
+                             mutate=mutate)
+            log(f"  9f {name}: " + prof.line(r))
+    sim = eq_sim(tmp / "9f_mlp", torch.float32)
+    ms = mlp_device_ms(mlp_as(nn, "cuda", torch.float32), sim)
+    log(f"  9f the MLP and environment features, forward and backward, S "
+        f"= 48, fp32: {ms:.4f} device ms (alone, a CUDA graph of 64)")
+    log(f"  phase 9: {time.perf_counter() - t9:.1f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1377,6 +1653,10 @@ def main():
         phase_replays(tmp, npt)
         phase_rates(tmp / "8f")
         log(f"  phase 8: {time.perf_counter() - t8:.1f} s")
+
+        log("[9 pb-nn] coupling type 3: pretraining, forces, graphed NVE, "
+            "finetuning, card against CPU")
+        phase_pbnn(tmp)
 
     k64, k32 = measured["fp64"], measured["fp32"]
     kernels = []

@@ -39,12 +39,26 @@ def _tensor(v, device, dtype):
     return torch.tensor(a, dtype=dtype, device=device)
 
 
+def mlp_from_numpy(tree, device="cuda", dtype=torch.float64):
+    """A PB-NN coupling MLP (nn/coupling_mlp.py) from the JAX package's
+    layout ``{"vconst": scalar, "w": [(n_in, n_out) arrays], "b":
+    [(n_out,) arrays]}`` (numpy or anything np.asarray reads): the same
+    layout, ``h @ w + b``, in `dtype` on `device`."""
+    device = resolve_device(device)
+    return {"vconst": _tensor(tree["vconst"], device, dtype),
+            "w": [_tensor(w, device, dtype) for w in tree["w"]],
+            "b": [_tensor(b, device, dtype) for b in tree["b"]]}
+
+
 def _container(cls, leaves, device, dtype):
     kw = {}
     for f in dataclasses.fields(cls):
         v = leaves.get(f.name)
         if f.name in ("atype_names", "mtype_names"):
             kw[f.name] = tuple(v or ())
+        elif f.name == "nn_params":
+            kw[f.name] = None if v is None else mlp_from_numpy(v, device,
+                                                               dtype)
         else:
             kw[f.name] = None if v is None else _tensor(v, device, dtype)
     return cls(**kw)
@@ -53,8 +67,10 @@ def _container(cls, leaves, device, dtype):
 def from_numpy_tree(tree, device="cuda", dtype=torch.float64):
     """(System, Topology) on `device` from the nested numpy layout:
     ``{"ff": {...}, "mt": {...}, "evb": {...} or None, "system": {mass,
-    static config...}, "topo": {...}}``.  Keys the port has no field for
-    are ignored."""
+    static config...}, "topo": {...}}``, the EVB tables with their PB-NN
+    MLP (``evb["nn_params"]``, mlp_from_numpy's layout) where they have
+    one.  Keys the port has no field for are ignored; an EVB table whose
+    cpl_func holds a 3 without an MLP raises (topology.check_nn_coupling)."""
     device = resolve_device(device)
     ff = _container(ForceField, tree["ff"], device, dtype)
     mt = _container(MolTypeTable, tree["mt"], device, dtype)

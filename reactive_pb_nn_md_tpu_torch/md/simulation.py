@@ -48,7 +48,8 @@ from ..io.gro import (read_gro, format_gro_frame, read_last_gro_frame,
 from ..io.ffpmt import read_ffpmt
 from ..io.topfile import read_top
 from ..io.simpmt import read_sim_params
-from ..topology import build_system, suggest_rs_cells, State, Topology
+from ..topology import (build_system, check_nn_coupling, suggest_rs_cells,
+                        State, Topology)
 from ..evb import analysis
 from ..evb.enumerate import enumerate_diabats
 from ..evb.topology_ops import build_diabat_topologies, state_topology
@@ -208,6 +209,30 @@ class Simulation:
         if cfg.ensemble == "NPT":
             self.barostat = MCBarostat(cfg.pressure, cfg.temperature,
                                        cfg.baroscale, cfg.seed)
+
+    def mutate_system(self, fn):
+        """Apply fn(system) -> System before run(): the hook for
+        parameter surgery the deck cannot express, such as a documented
+        softening (run/presets.soften_for_hops) or a PB-NN coupling: the
+        triple's cpl_func switched to 3 and its MLP attached in one
+        dataclasses.replace of the EvbParams (nn/train.py makes the MLP,
+        convert.mlp_from_numpy carries trained weights across).
+
+        The System that results is checked (topology.check_nn_coupling)
+        and is always a new object, so md_scan captures its step anew and
+        no graph of the old surface is replayed (the old graphs are
+        dropped).  The force state is evaluated again under the new
+        parameters, capacities that do not hold regrown with a log line
+        each, the Kahan carries kept."""
+        system = fn(self.system)
+        if system is self.system:
+            system = system.replace()
+        check_nn_coupling(system.evb)
+        self.system = system
+        if self.step_graphs is not None:
+            self.step_graphs = graphs.StepGraphs()
+        ms = self.ms
+        self._init_state(ms.state, ms.topo, ms.state.step, comp=ms.comp)
 
     def _settle(self, state, topo, step, cbw=None, comp=None):
         """MDState at `state` (under `cbw`, default self.cbw) with the

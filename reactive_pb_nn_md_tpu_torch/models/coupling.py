@@ -3,7 +3,11 @@
 JPC B 2008, 112, 467, ms_evb.f90:1021-1403).
 
   geometric factor A : type 1 = MS-EVB3 form, type 2 = product of
-                       Gaussians.  Type 3 (the PB-NN MLP) is not ported.
+                       Gaussians, type 3 = PB-NN: the MLP of
+                       nn/coupling_mlp.py (System.evb.nn_params), its
+                       Vconst the MLP's own, with the smooth
+                       coordination numbers of donor and acceptor as
+                       extra inputs when its first layer has them.
   exchange term Vex  : Coulomb sum of exchange charges on the Zundel
                        complex against all other molecules, no cutoff, no
                        Ewald; PBC shifts against the Zundel centre of mass.
@@ -13,15 +17,25 @@ topology; the transferred proton and the heavy atoms are global atom
 indices from the hop log.  Forces from autograd.
 """
 
+import math
+
 import torch
 
+from ..nn.coupling_mlp import apply_mlp
 from ..utils.constants import CONV_E2A_KJMOL
 from ..utils import pbc
 
+# cutoff (A) of the coordination numbers' cosine switch, and the mass
+# (g/mol) above which an atom is heavy (O, S, ...): _env_features
+ENV_CUTOFF = 3.5
+HEAVY_MASS = 10.0
 
-def geometric_factor(func, p, q_vec, r_OO_vec):
-    """A(q, R_OO) for types 1 and 2, (S,); the sqrt is guarded so inactive
-    rows (donor == acceptor) give no NaN gradient."""
+
+def geometric_factor(func, p, q_vec, r_OO_vec, nn_apply=None):
+    """A(q, R_OO) for every type, (S,): types 1 and 2 from the parameter
+    rows p, type 3 from nn_apply(q2, roo) where given (else 0, which a
+    System never reaches: topology.check_nn_coupling); the sqrt is
+    guarded so inactive rows (donor == acceptor) give no NaN gradient."""
     q2 = (q_vec * q_vec).sum(-1)
     roo2 = (r_OO_vec * r_OO_vec).sum(-1)
     roo = torch.sqrt(torch.where(roo2 > 1e-12, roo2, torch.ones_like(roo2)))
@@ -32,8 +46,37 @@ def geometric_factor(func, p, q_vec, r_OO_vec):
           + Pp * torch.exp(-alpha * (roo - rl0)))
     a1 = f1 * f2 * f3
     a2 = torch.exp(-p[:, 1] * q2) * torch.exp(-p[:, 2] * (roo - p[:, 3]) ** 2)
-    return torch.where(func == 1, a1,
-                       torch.where(func == 2, a2, torch.zeros_like(a1)))
+    a = torch.where(func == 1, a1,
+                    torch.where(func == 2, a2, torch.zeros_like(a1)))
+    if nn_apply is not None:
+        a = torch.where(func == 3, nn_apply(q2, roo), a)
+    return a
+
+
+def _env_features(x, box, atom_mol, mass, d, a, r_O1, r_O2):
+    """(S, 2) PB-NN environment features of every state: the smooth
+    first-shell coordination numbers of the donor and acceptor heavy
+    atoms r_O1, r_O2 (S, 3),
+
+        cn = sum_{heavy k of other molecules} f(|r_k - r_O|),
+        f(r) = (1 + cos(pi min(r, rc) / rc)) / 2,   rc = ENV_CUTOFF,
+
+    over the heavy atoms (mass > HEAVY_MASS) of molecules other than the
+    state's donor d and acceptor a (S,), by atom_mol (S, N), the states'
+    molecule of each atom; each as cn / 4 - 1 (0 = tetrahedral water).
+    Differentiable in x; an (S, N) distance block per centre.  The 1e-12
+    A^2 floor of r^2 is the JAX package's."""
+    other = ((atom_mol != d[:, None]) & (atom_mol != a[:, None])
+             & (mass > HEAVY_MASS)[None, :])
+
+    def cn(center):
+        dr = pbc.min_image(x[None, :, :] - center[:, None, :], box)
+        r = torch.sqrt(torch.clamp((dr * dr).sum(-1), min=1e-12))
+        f = 0.5 * (1.0 + torch.cos(math.pi * torch.clamp(r, max=ENV_CUTOFF)
+                                   / ENV_CUTOFF))
+        return torch.where(other, f, torch.zeros_like(f)).sum(1)
+
+    return torch.stack([cn(r_O1) / 4.0 - 1.0, cn(r_O2) / 4.0 - 1.0], dim=1)
 
 
 # |r|^2 (A^2) below which a Zundel atom and a pack entry are one atom:
@@ -95,7 +138,20 @@ def coupling_elements(x, box, topo_b, system, com0, mol_pack, chain,
     t3 = topo_b.atom_type[s_idx, proton]
     func = evb.cpl_func[t1, t2, t3]
     params = evb.cpl_params[t1, t2, t3].to(x.dtype)             # (S, 10)
-    a_fac = geometric_factor(func, params, q_vec, r_O1 - r_O2)
+    vconst = params[:, 0]
+    nn_apply = None
+    nn = evb.nn_params
+    if nn is not None:
+        # the MLP's input count is a static shape: no host read
+        env = (_env_features(x, box, topo_b.atom_mol, system.mass, d, a,
+                             r_O1, r_O2)
+               if nn["w"][0].shape[0] > 3 else None)
+
+        def nn_apply(q2, roo):
+            return apply_mlp(nn, q2, roo, env)
+
+        vconst = torch.where(func == 3, nn["vconst"].to(x.dtype), vconst)
+    a_fac = geometric_factor(func, params, q_vec, r_O1 - r_O2, nn_apply)
 
     # ---- exchange electrostatics Vex
     mols, mvalid, com_chain, last = chain
@@ -146,5 +202,5 @@ def coupling_elements(x, box, topo_b, system, com0, mol_pack, chain,
     add = _vex_sum(zx, zq, x[ai] - shift_chain[:, :, None, :], q_c, av)
     vex = (full - sub + add) * CONV_E2A_KJMOL
 
-    return torch.where(active, (params[:, 0] + vex) * a_fac,
+    return torch.where(active, (vconst + vex) * a_fac,
                        torch.zeros_like(a_fac))

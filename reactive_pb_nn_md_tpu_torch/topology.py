@@ -9,6 +9,7 @@ deck's precision.
   ForceField     dense per-type parameter tables        [T,...]
   MolTypeTable   padded per-molecule-type templates     [MT, A, ...]
   EvbParams      dense EVB interaction tables           [T,T,T,...]
+                 (+ the PB-NN coupling MLP of function type 3)
   Topology       the dynamic molecular assignment       [M, A] / [N]
                  (a proton hop rewrites only these)
 """
@@ -84,6 +85,44 @@ class EvbParams:
     cpl_func: torch.Tensor               # (T,T,T), 0 = none
     cpl_params: torch.Tensor             # (T,T,T,10)
     type_options: torch.Tensor           # (T,O) every type an atom can take
+    # the PB-NN coupling MLP (nn/coupling_mlp.py) that every triple of
+    # cpl_func 3 uses; switch a triple to 3 and attach it in one
+    # construction (dataclasses.replace)
+    nn_params: Optional[dict] = None
+
+    def __post_init__(self):
+        check_nn_coupling(self)
+
+
+def check_nn_coupling(evb):
+    """Raise unless every coupling of function type 3 has an MLP, and the
+    MLP is well formed.  Once, on the host, where the tables are built or
+    attached (one read of cpl_func), never inside a step.  The JAX
+    package evaluates such a triple to A = 0 without a word
+    (models/coupling.py there, nn_apply None): another surface."""
+    if evb is None:
+        return
+    nn = evb.nn_params
+    if nn is None:
+        if bool((evb.cpl_func == 3).any()):
+            raise ValueError(
+                "coupling function type 3 (PB-NN) needs its MLP: attach "
+                "nn_params together with the cpl_func switch "
+                "(nn.coupling_mlp.attach, through "
+                "Simulation.mutate_system)")
+        return
+    w, b = nn.get("w"), nn.get("b")
+    if "vconst" not in nn or not w or b is None or len(w) != len(b):
+        raise ValueError("nn_params must be {'vconst', 'w': [...], 'b': "
+                         "[...]} with one bias a weight")
+    shapes = [tuple(wi.shape) for wi in w]
+    if not (all(len(sh) == 2 for sh in shapes) and shapes[0][0] >= 3
+            and shapes[-1][1] == 1
+            and all(u[1] == v[0] for u, v in zip(shapes, shapes[1:]))
+            and all(tuple(bi.shape) == (sh[1],)
+                    for bi, sh in zip(b, shapes))):
+        raise ValueError(f"nn_params layer shapes {shapes} do not chain "
+                         f"from >= 3 inputs to 1 output")
 
 
 @dataclass
@@ -335,8 +374,16 @@ def build_numpy_tree(gro: GroFrame, ff_raw: RawForceField,
         for (key, func, params) in top_raw.diabat_coupling:
             i, j, k = (atype_id(x) for x in key)
             if func == 3:
-                raise ValueError("PB-NN coupling (function type 3) is not "
-                                 "ported yet")
+                # a deck carries no MLP: the JAX package would evaluate
+                # this triple to A = 0 (check_nn_coupling)
+                raise ValueError(
+                    "PB-NN coupling (function type 3) cannot come from a "
+                    "deck: build the system with the triple's analytic "
+                    "form, then switch the triple to 3 and attach the MLP "
+                    "together (nn.coupling_mlp.attach, through "
+                    "Simulation.mutate_system; nn/train.py "
+                    "pretrain_geometric makes one, convert.mlp_from_numpy "
+                    "carries trained weights across)")
             cpl_func[i, j, k] = func
             cpl_params[i, j, k] = params
         for name, q in top_raw.exchange_charge_atomic.items():

@@ -680,3 +680,122 @@ def test_step_makes_no_host_sync_on_the_card(tmp_path):
         torch.cuda.synchronize()
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+# ---- PB-NN: coupling function type 3 (nn/coupling_mlp.py, nn/train.py)
+
+def _mlp(device, n_env, dtype=torch.float64, seed=0):
+    from reactive_pb_nn_md_tpu_torch.nn import coupling_mlp
+    return coupling_mlp.init_mlp(torch.Generator().manual_seed(seed),
+                                 hidden=(8, 8), vconst=-97.0, dtype=dtype,
+                                 device=device, n_env=n_env)
+
+
+@pytest.mark.parametrize("n_env", [0, 2])
+def test_type3_forces_cuda_match_cpu(n_env):
+    """The equilibrated flagship with the water triple switched to an MLP:
+    evaluate_forces on the card (kernels) against the CPU (plain)."""
+    _need_card()
+    from reactive_pb_nn_md_tpu_torch.nn import coupling_mlp
+    out = {}
+    for dev in ("cuda", "cpu"):
+        _, _, system, _ = load_deck(*(ROOT / "examples" / "water_msevb" / n
+                                      for n in ("in.gro", "ff.pmt",
+                                                "top.top", "sim.pmt")),
+                                    torch.device(dev))
+        state, topo, meta = load_equilibrated_npz(EQ_STATE, dev)
+        system = coupling_mlp.attach(
+            system.replace(rs_cells=meta["rs_cells"]), _mlp(dev, n_env))
+        cbw = pme.cb_half(state.box, system.pme_grid, system.spline_order,
+                          system.alpha_sqrt)
+        nl = neighbors.build_neighbors(state.x, state.box,
+                                       **integrators.neighbor_plan(
+                                           system, state.box,
+                                           meta["capacity"],
+                                           react_cap=meta["react_cap"]))
+        out[dev] = integrators.evaluate_forces(state.x, state.box, topo,
+                                               system, nl, cbw)
+    g, c = out["cuda"], out["cpu"]
+    assert int(g.n_states) == int(c.n_states)
+    np.testing.assert_allclose(float(g.potential), float(c.potential),
+                               rtol=1e-10)
+    _close(g.force, c.force, 1e-9)
+
+
+def test_force_matching_gradient_cuda_matches_cpu(tmp_path):
+    """d(force-matching loss)/d(MLP) on 2 rattled frames of the 26-water
+    fixture: the card's kernels (whose backward terms are constants under
+    create_graph) against the CPU."""
+    _need_card()
+    from reactive_pb_nn_md_tpu_torch.nn import coupling_mlp, train
+    frame, ffr, topr, cfg = fixture_deck(tmp_path, 26, seed=9)
+    rng = np.random.default_rng(3)
+    xs = [frame.xyz + rng.normal(0.0, 0.05, frame.xyz.shape)
+          for _ in range(2)]
+    f_ref = rng.normal(0.0, 50.0, (2,) + frame.xyz.shape)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        tsys, topo = build_system(frame, ffr, topr, cfg, device=dev)
+        nn = coupling_mlp.copy_mlp(_mlp(dev, 2), True)
+        tsys = coupling_mlp.attach(tsys, nn)
+        box = torch.tensor(frame.box, device=dev)
+        cap = neighbors.suggest_capacity(tsys.n_atoms,
+                                         float(np.prod(np.diag(frame.box))),
+                                         tsys.verlet_cutoff)
+        fr = ([], [], [], [])
+        for xf in xs:
+            x = torch.tensor(xf, device=dev)
+            nl = neighbors.build_neighbor_list(x, box, tsys.verlet_cutoff,
+                                               cap)
+            _, j, m = neighbors.neighbor_pairs(nl)
+            for lst, v in zip(fr, (x, nl.full_idx, j, m)):
+                lst.append(v)
+        cbw = pme.cb_half(box, tsys.pme_grid, tsys.spline_order,
+                          tsys.alpha_sqrt)
+        e, f = train.make_frame_energy_force_fn(tsys, topo, box, cbw)(
+            nn, *fr)
+        loss = (torch.mean((e - 600.0) ** 2) + 0.3 * 3 * tsys.n_atoms
+                * torch.mean(torch.sum((f - torch.tensor(
+                    f_ref, device=dev)) ** 2, -1)))
+        out[dev] = (loss, torch.autograd.grad(
+            loss, coupling_mlp.mlp_tensors(nn)))
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(float(lg.detach()), float(lc.detach()),
+                               rtol=1e-10)
+    for a, b in zip(gg, gc):
+        _close(a, b, 1e-9)
+
+
+def test_mutate_system_captures_a_fresh_graph(tmp_path):
+    """Attaching an MLP through Simulation.mutate_system drops the graphs
+    of the analytic surface and captures the type-3 step anew; an
+    in-place change of the attached tensors is seen by the next replay
+    (graphed against eager after it)."""
+    _need_card()
+    from reactive_pb_nn_md_tpu_torch.evb import hamiltonian as ham
+    from reactive_pb_nn_md_tpu_torch.nn import coupling_mlp
+    sim = _reactive_sim(tmp_path, "NVE")
+    sim._chunk(0, 2)
+    old, graphs_before = sim.system, sim.step_graphs
+    assert len(graphs_before.captures) == 1
+    nn = _mlp("cuda", 2)
+    sim.mutate_system(lambda s: coupling_mlp.attach(s, nn))
+    assert sim.system is not old and sim.step_graphs is not graphs_before
+    sim._chunk(2, 2)
+    assert len(sim.step_graphs.captures) == 1
+    key = sim.step_graphs.captures[0][0]
+    assert any(getattr(k, "obj", None) is sim.system for k in key)
+    with torch.no_grad():
+        nn["w"][0].mul_(1.1)
+    start = sim.ms
+    ms, _ = sim._scan(4)
+    assert len(sim.step_graphs.captures) == 1
+    tier = "small" if ham.small_state_tier(sim.system) else "full"
+    ref = start
+    for _ in range(4):
+        ref = integrators.md_step(ref, sim.system, sim.cbw, sim.cfg.delta_t,
+                                  "NVE", tier=tier)
+    np.testing.assert_allclose(ms.state.x.cpu().numpy(),
+                               ref.state.x.cpu().numpy(), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(float(ms.potential), float(ref.potential),
+                               rtol=0, atol=1e-8)

@@ -118,14 +118,18 @@ def sm_clock():
     return [int(v) for v in r.stdout.splitlines()[0].split(",")]
 
 
-def measure(deck, ensemble, tag, out_dir, steps, eager):
-    """One mode's numbers (see the module docstring)."""
+def measure(deck, ensemble, tag, out_dir, steps, eager, mutate=None):
+    """One mode's numbers (see the module docstring); mutate: a function
+    of the System for Simulation.mutate_system before the run (chip_smoke
+    phase 9f attaches a PB-NN MLP)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     dtype = torch.float64 if tag == "fp64" else torch.float32
     n = min(20, max(steps // 6, 1)) if eager else steps
     files = deck_files(out_dir, deck, ensemble, tag, n)
     sim = simulation(files, deck, dtype)
+    if mutate is not None:
+        sim.mutate_system(mutate)
     sim.eager = eager
     sim.run(n)
     text = pathlib.Path(files[5]).read_text()
