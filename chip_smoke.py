@@ -111,6 +111,37 @@ Phases, in order, one line each (any failure raises, exit code != 0):
         fp32 and fp64, 64 steps each (tools/profile_step.py measure), and
         the device ms of the MLP and environment features' forward and
         backward at the small tier (S = 48) alone.
+  10. umbrella sampling (md/bias.py, parallel/ensemble.py,
+     parallel/umbrella.py, analysis/wham.py, run/umbrella_pmf.py) on the
+     flagship, bench.py run_bench_umbrella's ladder (window restraint on
+     delta r_OH, k 400, centers in [-0.65, 0.65]; R_OO keeper k 100 at
+     2.5 A; Langevin NVT 300 K, friction 5.0 / ps; cap 80, no small
+     tier):
+     a. the restraint's energy and force, every window of the 16, at the
+        equilibrated state in fp64, card against CPU: within 1e-12;
+     b. 2 windows (centers -0.4, 0.4), 32 fp64 NVT steps each, graphed
+        (the replays of ONE captured step, the restraint copied in a window
+        at a time) against eager: max |dx| <= 1e-9 A and |dEtot| <= 1e-8
+        kJ/mol a window (8c's bound), the cv series within 1e-9, the
+        windows' CV means apart, one capture;
+     c. the full-width ladder through run_pmf, fp32, 16 windows, 64
+        equilibration + 128 sampled steps a window (a depth cut from
+        run_bench_umbrella's 400 + 1200), launch counts from 0: A, B1, B2,
+        C1, C2, E launch, A', A'', D1, D2 do not; no capacity flag left
+        standing; every CV finite; each window's mean CV within 0.25 A of
+        its center; each window's last cv equal to a host recomputation
+        from its final positions within 1e-5 A; the mean kinetic
+        temperature over every window's sampled steps within 300 +- 30 K
+        (7a's bound); WHAM converged with >= 10 finite PMF bins; printed:
+        the aggregate windows x steps / wall, the captures, the graph
+        pool MiB, the peak memory beside what earlier phases still held,
+        and the barrier (NaN allowed at this depth);
+     d. bench.py run_bench_replicas' ensemble: 16 NVT replicas of the
+        lattice deck (examples/water_msevb/in.gro), fp32, cap 48 with no
+        tier, 40 steps: the trajectories pairwise apart (max |dx| > 1e-3
+        A), replica 15 given replica 0's generator state within 1e-4 A of
+        it (the card's accumulating ops), one capture when nothing
+        regrew.
 The line before the last is nvidia-smi's name and power limit, the one
 before it the per-kernel JSON (times, errors and bounds in fp64; fp32 in
 the fp32_ keys); the last line is the result JSON.
@@ -189,6 +220,12 @@ GRAPH_TOL = {"fp64": (1e-9, 1e-8), "fp32": (1e-3, 0.05)}
 # phase 9: bench.py run_bench_nn's MLP (the triple, 5 inputs, 400 steps)
 NN_TRIPLE = ("OW", "O_h3o", "H_h3o")
 NN_ENV, NN_PRETRAIN, NN_STEPS, NN_FRAMES = 2, 400, 256, 4
+# phase 10: run_bench_umbrella's ladder, its 400 + 1200 steps a window cut
+# to 64 + 128; run_bench_replicas' ensemble
+LADDER = dict(n_windows=16, span=0.65, k_spring=400.0, k_roo=100.0,
+              r_oo=2.5, n_equil=64, n_sample=128, chunk=64,
+              temperature=300.0, friction=5.0)
+REPLICAS, REPLICA_STEPS, REPLICA_CAP = 16, 40, 48
 
 # Tolerances (|got - ref| <= atol + rtol |ref|, atol relative to max|ref|):
 #  fp64: 1e-10 relative for every kernel.
@@ -1288,7 +1325,8 @@ def phase_replays(tmp, npt_graphed):
 
 def phase_rates(tmp):
     """Phase 8f: tools/profile_step.py's measure, eager against graphed,
-    in four cells."""
+    in four cells; the eager cells profile 4 steps (the graphed ones
+    profile.PROFILED), which halves their profiler's cost."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "profile_step", ROOT / "tools" / "profile_step.py")
@@ -1301,8 +1339,10 @@ def phase_rates(tmp):
                            ("flagship", "NVT", "fp64"),
                            ("10k", "NVE", "fp32")):
         for eager in (True, False):
-            r = prof.measure(deck, ens, tag, tmp, 128, eager)
-            log("  8f " + prof.line(r))
+            t0 = time.perf_counter()
+            r = prof.measure(deck, ens, tag, tmp, 128, eager,
+                             profiled=4 if eager else prof.PROFILED)
+            log(f"  8f {prof.line(r)} [{time.perf_counter() - t0:.1f} s]")
             out.append(r)
     return out
 
@@ -1538,6 +1578,226 @@ def phase_pbnn(tmp):
     log(f"  phase 9: {time.perf_counter() - t9:.1f} s")
 
 
+def window_cv(x, box, atoms):
+    """delta r_OH of the triple at positions x, on the host in fp64."""
+    import numpy as np
+    x = x.detach().cpu().double().numpy()
+    L = np.diag(box.detach().cpu().double().numpy())
+
+    def dist(a, b):
+        d = x[a] - x[b]
+        d -= np.floor(d / L + 0.5) * L
+        return float(np.sqrt(d @ d))
+
+    d, a, h = (int(i) for i in atoms)
+    return dist(h, d) - dist(h, a)
+
+
+def phase_bias_force():
+    """Phase 10a: every window's restraint at the equilibrated flagship,
+    fp64, card against CPU."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from reactive_pb_nn_md_tpu_torch.md import bias, integrators
+    from reactive_pb_nn_md_tpu_torch.parallel import ensemble, umbrella
+    system, state, topo, meta, cbw, _ = flagship(torch.device("cuda"),
+                                                 torch.float64)
+    ms = integrators.initial_md_state(state, topo, system, cbw,
+                                      meta["capacity"],
+                                      react_cap=meta["react_cap"])
+    atoms = umbrella.transfer_triple(ms, system)
+    W = LADDER["n_windows"]
+    centers = np.linspace(-LADDER["span"], LADDER["span"], W)
+    ladder = (umbrella.make_ladder(atoms, centers, LADDER["k_spring"], 0,
+                                   torch.float64),
+              umbrella.make_ladder(atoms, np.full(W, LADDER["r_oo"]),
+                                   LADDER["k_roo"], 1, torch.float64))
+    de = df = 0.0
+    for w in range(W):
+        b = ensemble.window_bias(ladder, w)
+        e, f = bias.bias_energy_force(state.x, state.box, b)
+        cpu = tuple(dataclasses.replace(r, atoms=r.atoms.cpu(), k=r.k.cpu(),
+                                        center=r.center.cpu()) for r in b)
+        ec, fc = bias.bias_energy_force(state.x.cpu(), state.box.cpu(), cpu)
+        de = max(de, abs(float(e) - float(ec)))
+        df = max(df, float((f.cpu() - fc).abs().max()))
+    log(f"  10a triple (O_d, O_a, H) {atoms.tolist()}: {W} windows' "
+        f"restraint card vs CPU fp64: max|dE| {de:.3e} kJ/mol, max|dF| "
+        f"{df:.3e} kJ/mol/A")
+    check(de <= 1e-12 and df <= 1e-12,
+          "10a: the restraint differs between the card and the CPU")
+    return system, cbw, ms, atoms
+
+
+def phase_ladder_graphed(system, cbw, ms, atoms):
+    """Phase 10b: 2 windows, 32 fp64 NVT steps, graphed against eager."""
+    import torch
+    from reactive_pb_nn_md_tpu_torch.parallel import umbrella
+    centers, n = [-0.4, 0.4], 32
+    ladder = (umbrella.make_ladder(atoms, centers, LADDER["k_spring"], 0,
+                                   torch.float64),
+              umbrella.make_ladder(atoms, [LADDER["r_oo"]] * 2,
+                                   LADDER["k_roo"], 1, torch.float64))
+    runs = {}
+    for eager in (False, True):
+        scan = umbrella.make_ladder_scan(
+            system, cbw, 0.0005, "NVT", n, friction=LADDER["friction"],
+            temperature=LADDER["temperature"])
+        scan.eager = eager
+        batch = umbrella.seeded_window_states(ms, scan.system, cbw, atoms,
+                                              centers, ladder=ladder)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, diag = scan(batch, ladder)
+        torch.cuda.synchronize()
+        runs[eager] = (out, diag, scan, time.perf_counter() - t0)
+    (g, gd, gscan, tg), (e, ed, _, te) = runs[False], runs[True]
+    caps = len(gscan.step_graphs.captures)
+    dx = max(float((g.states[w].state.x - e.states[w].state.x).abs().max())
+             for w in range(2))
+    de = max(abs(float(g.states[w].kinetic + g.states[w].potential)
+                 - float(e.states[w].kinetic + e.states[w].potential))
+             for w in range(2))
+    dcv = float((gd.cv - ed.cv).abs().max())
+    means = gd.cv.mean(dim=1).tolist()
+    log(f"  10b 2 windows x {n} NVT fp64 steps, graphed vs eager: max|dx| "
+        f"{dx:.3e} A, |dEtot| {de:.3e} kJ/mol, max|dcv| {dcv:.3e}, mean cv "
+        f"{means[0]:+.4f} / {means[1]:+.4f} A, {caps} captures, "
+        f"{len(gscan.regrows)} regrows; {tg:.2f} s graphed, {te:.2f} s "
+        f"eager")
+    tol_x, tol_e = GRAPH_TOL["fp64"]
+    check(not gd.capacities() and not ed.capacities(),
+          "10b: a capacity flag stands")
+    check(dx <= tol_x and de <= tol_e and dcv <= 1e-9,
+          "10b: the graphed ladder differs from the eager one")
+    check(means[1] - means[0] > 0.4, "10b: the windows' CV means do not "
+                                     "differ")
+    check(caps == 1 and not gscan.regrows,
+          f"10b: {caps} captures for 2 windows, not one")
+
+
+def phase_ladder_pmf():
+    """Phase 10c: the full-width ladder through run_pmf (see the module
+    docstring); returns the launch counts."""
+    import math
+    import numpy as np
+    import torch
+    from reactive_pb_nn_md_tpu_torch.md import integrators
+    from reactive_pb_nn_md_tpu_torch.run import umbrella_pmf
+    from reactive_pb_nn_md_tpu_torch.utils.constants import KB
+    build = umbrella_pmf.load_build(
+        DECK / "in.gro", DECK / "ff.pmt", DECK / "top.top", DECK / "sim.pmt",
+        state=EQ_STATE, device="cuda", precision="fp32")
+    system = build[0]
+    ke = []
+
+    def run():
+        torch.cuda.reset_peak_memory_stats()
+        mem.append(torch.cuda.memory_allocated())
+        res.append(umbrella_pmf.run_pmf(
+            build, verbose=False,
+            on_chunk=lambda batch, diag: ke.append(diag.kinetic), **LADDER))
+
+    res, mem = [], []
+    counts = main_path("10c ladder", run, FLAGSHIP_KERNELS,
+                       ("A'", "A''", "D1", "D2"))
+    out, batch, extra = res[0]
+    cv, scan, atoms = extra["cv"], extra["scan"], extra["atoms"]
+    W = LADDER["n_windows"]
+    centers = np.asarray(out["centers"])
+    steps = out["config"]["n_equil"], out["config"]["n_sample"]
+    standing = [w for w, m in enumerate(batch.states)
+                if integrators.overflowed(m)]
+    dev_mean = np.abs(cv.mean(axis=1) - centers)
+    host = np.array([window_cv(m.state.x, m.state.box, atoms)
+                     for m in batch.states])
+    dlast = float(np.abs(cv[:, -1] - host).max())
+    kin = torch.cat(ke, dim=1).double()
+    t_mean = float((2.0 * kin / (3.0 * system.n_atoms * KB)).mean())
+    finite = int(np.isfinite(np.asarray(out["pmf_kjmol"], float)).sum())
+    pool = sum(b for _, _, b in scan.step_graphs.captures) / 2 ** 20
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    before = mem[0] / 2 ** 20
+    log(f"  10c depth cut: {steps[0]} + {steps[1]} steps a window "
+        f"(run_bench_umbrella: 400 + 1200), {W} windows, chunk "
+        f"{LADDER['chunk']}, fp32, cap {out['config']['evb_max_states']}, "
+        f"triple {out['config']['atoms']}")
+    log(f"  10c {out['aggregate_steps_per_s']} window-steps/s aggregate "
+        f"(windows x steps / wall), first chunk with the capture "
+        f"{out['compile_s']} s, total {out['total_s']} s; "
+        f"{len(scan.step_graphs.captures)} captures, graph pool "
+        f"{pool:.1f} MiB, peak memory {peak:.1f} MiB ({before:.1f} MiB "
+        f"held before the ladder); {out['hops_in_ladder']}"
+        f" hops, overflow (regrown) {out['overflow']}: {scan.regrows}")
+    log(f"  10c mean cv - center max {dev_mean.max():.4f} A (cv_mean "
+        f"{out['cv_mean']}), last cv vs host max {dlast:.3e} A, mean T "
+        f"{t_mean:.2f} K, WHAM converged {out['wham_converged']} with "
+        f"{finite} finite bins of {len(out['pmf_kjmol'])}, barrier "
+        f"{out['barrier_kjmol']} kJ/mol at xi {out['barrier_xi']}")
+    check(not standing, f"10c: capacity flags stand in windows {standing}")
+    check(bool(np.isfinite(cv).all()), "10c: a non-finite CV")
+    check(bool((dev_mean <= 0.25).all()),
+          f"10c: windows {np.flatnonzero(dev_mean > 0.25).tolist()} sit "
+          f"more than 0.25 A from their centers")
+    check(dlast <= 1e-5, "10c: the last cv differs from the host's")
+    check(abs(t_mean - 300.0) <= 30.0 and math.isfinite(t_mean),
+          f"10c: mean kinetic temperature {t_mean:.2f} K is not within "
+          f"300 +- 30 K")
+    check(out["wham_converged"] and finite >= 10,
+          "10c: WHAM did not converge to >= 10 finite bins")
+    return counts
+
+
+def phase_replicas(tmp):
+    """Phase 10d: bench.py run_bench_replicas' ensemble (see the module
+    docstring)."""
+    import torch
+    from reactive_pb_nn_md_tpu_torch.md.simulation import Simulation
+    from reactive_pb_nn_md_tpu_torch.parallel import ensemble
+    (tmp / "10d").mkdir()
+    sim = Simulation(*deck_copy(
+        tmp / "10d", DECK, "fp32",
+        f"evb_max_states     {REPLICA_CAP}\n" + NVT_DECK), device="cuda")
+    batch = ensemble.stack_replicas(sim.ms, REPLICAS, seed=7)
+    batch.generators[-1] = batch.generators[0].clone()
+    scan = ensemble.make_replica_scan(
+        sim.system, sim.cbw, sim.cfg.delta_t, "NVT", REPLICA_STEPS,
+        friction=0.1, temperature=300.0,
+        hard_max_states=sim.cfg.evb_hard_max_states)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, diag = scan(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    x = [m.state.x for m in out.states]
+    apart = min(float((x[i] - x[j]).abs().max())
+                for i in range(REPLICAS - 1) for j in range(i))
+    same = float((x[0] - x[-1]).abs().max())
+    caps = len(scan.step_graphs.captures)
+    rate = REPLICAS * REPLICA_STEPS / wall
+    log(f"  10d {REPLICAS} NVT replicas x {REPLICA_STEPS} fp32 steps of the "
+        f"lattice deck, cap {REPLICA_CAP} no tier: {rate:.1f} "
+        f"replica-steps/s aggregate ({wall:.2f} s, the capture "
+        f"included), min pairwise max|dx| {apart:.3e} A, the same generator "
+        f"state {same:.3e} A, {caps} captures, regrows {scan.regrows}")
+    check(not diag.capacities(), "10d: a capacity flag stands")
+    check(apart > 1e-3, "10d: two replicas did not part")
+    check(same <= 1e-4, "10d: replicas of one generator state differ")
+    check(caps == 1 or scan.regrows, f"10d: {caps} captures, not one")
+
+
+def phase_umbrella(tmp):
+    """Phase 10 (see the module docstring): returns the ladder's launch
+    counts."""
+    t10 = time.perf_counter()
+    phase_ladder_graphed(*phase_bias_force())
+    counts = phase_ladder_pmf()
+    phase_replicas(tmp)
+    log(f"  phase 10: {time.perf_counter() - t10:.1f} s")
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1658,6 +1918,10 @@ def main():
             "finetuning, card against CPU")
         phase_pbnn(tmp)
 
+        log("[10 umbrella] the restraint, graphed vs eager windows, the "
+            "full-width ladder through run_pmf, replicas")
+        ladder = phase_umbrella(tmp)
+
     k64, k32 = measured["fp64"], measured["fp32"]
     kernels = []
     for k, (src, rep) in KERNELS.items():
@@ -1665,6 +1929,7 @@ def main():
         kernels.append(dict(
             name=k, route="cuda", source=src, replaces=rep,
             launches=launches[k], nvt_launches=nvt.get(k, 0),
+            ladder_launches=ladder.get(k, 0),
             max_abs_err=m64["max_abs_err"],
             ms=m64["ms"], device_ms=m64["device_ms"],
             plain_ms=m64["plain_ms"],

@@ -50,6 +50,22 @@ def mlp_from_numpy(tree, device="cuda", dtype=torch.float64):
             "b": [_tensor(b, device, dtype) for b in tree["b"]]}
 
 
+def bias_from_numpy(bias, device="cuda", dtype=torch.float64):
+    """The port's restraint (md/bias.HarmonicBias, or a tuple of them) from
+    the JAX package's HarmonicBias or ladder, or a tuple of them (atoms,
+    k and center anything np.asarray reads): atoms as int64, k and center
+    in `dtype`, on `device`.  A ladder's (W, 3) atoms and (W,) k / center
+    keep their shapes (parallel/ensemble.window_bias takes one window)."""
+    from .md.bias import HarmonicBias
+    if isinstance(bias, tuple):
+        return tuple(bias_from_numpy(b, device, dtype) for b in bias)
+    device = resolve_device(device)
+    return HarmonicBias(atoms=_tensor(bias.atoms, device, dtype),
+                        k=_tensor(bias.k, device, dtype),
+                        center=_tensor(bias.center, device, dtype),
+                        cv_type=int(bias.cv_type))
+
+
 def _container(cls, leaves, device, dtype):
     kw = {}
     for f in dataclasses.fields(cls):

@@ -1,18 +1,21 @@
 """The MD step as one CUDA graph (the counterpart, on the card, of the JAX
 package's jitted lax.scan body in md/integrators.py md_scan).
 
-A StepGraph captures one step on static buffers: `body(ms, cbw)` reads the
-MDState `ms` and the PME weights `cbw`, returns the next MDState and the
-step's diagnostics row, and the captured program copies the next state
-back into the buffers it read, in place, and the row into slot k of the
-chunk's row buffer, k a device counter.  A chunk is then: the start state
-copied into the buffers, k set to 0, n replays, one host read of the n
-rows.  Nothing inside a chunk synchronizes with the host.
+A StepGraph captures one step on static buffers: `body(ms, cbw, bias)`
+reads the MDState `ms`, the PME weights `cbw` and the umbrella restraint
+`bias` (md/bias.py, a tuple of HarmonicBias, or None), returns the next
+MDState and the step's diagnostics row, and the captured program copies
+the next state back into the buffers it read, in place, and the row into
+slot k of the chunk's row buffer, k a device counter.  A chunk is then:
+the start state copied into the buffers, k set to 0, n replays, one host
+read of the n rows.  Nothing inside a chunk synchronizes with the host.
 
 Hazards of static buffers: a graph reads fixed addresses, so everything
 the step reads is updated in place, never rebound: positions, velocities,
 box, cbw (copied in at every chunk start, so a barostat move or a
-restart reaches the next chunk), the principle Topology (a hop changes
+restart reaches the next chunk), the restraint's atoms, k and center
+(copied in at every chunk start, so one capture serves every window of a
+ladder: parallel/ensemble.py), the principle Topology (a hop changes
 it), the NeighborList, forces and the Kahan carries (copied back after
 every step).  What the step reads outside the MDState and cbw (the
 System's tables) is read at the addresses it had at the capture: a
@@ -41,8 +44,8 @@ KEEP = 4
 
 
 def leaves(obj):
-    """The tensors of a (nested) dataclass, in field order; None and
-    non-tensor fields are skipped."""
+    """The tensors of a (nested) dataclass or tuple, in field order; None
+    and non-tensor fields are skipped."""
     out = []
 
     def walk(o):
@@ -51,6 +54,9 @@ def leaves(obj):
         elif dataclasses.is_dataclass(o):
             for f in dataclasses.fields(o):
                 walk(getattr(o, f.name))
+        elif type(o) is tuple:
+            for v in o:
+                walk(v)
 
     walk(obj)
     return out
@@ -65,6 +71,8 @@ def with_leaves(obj, tensors):
         return dataclasses.replace(obj, **{
             f.name: with_leaves(getattr(obj, f.name), tensors)
             for f in dataclasses.fields(obj) if f.init})
+    if type(obj) is tuple:
+        return tuple(with_leaves(v, tensors) for v in obj)
     return obj
 
 
@@ -94,19 +102,24 @@ def signature(obj):
     if dataclasses.is_dataclass(obj):
         return tuple((f.name, signature(getattr(obj, f.name)))
                      for f in dataclasses.fields(obj) if f.name != "step")
+    if type(obj) is tuple:
+        return tuple(signature(v) for v in obj)
     return obj
 
 
 class StepGraph:
     """One captured step (see the module docstring).  `generator`, when
     the step draws from one, is registered with the graph, so replays
-    advance it as eager draws would.  A chunk is at most MAX_CHUNK
-    steps."""
+    advance it as eager draws would.  `bias`, the restraint of the
+    capture (None: unbiased), gives the structure of the restraint
+    buffers; run() copies each chunk's values in.  A chunk is at most
+    MAX_CHUNK steps."""
 
-    def __init__(self, body, ms, cbw, generator=None):
+    def __init__(self, body, ms, cbw, generator=None, bias=None):
         dev = cbw.device
         self.ms = with_leaves(ms, (t.clone() for t in leaves(ms)))
         self.cbw = cbw.clone()
+        self.bias = with_leaves(bias, (t.clone() for t in leaves(bias)))
         self.k = torch.zeros(1, dtype=torch.int64, device=dev)
         self.graph = torch.cuda.CUDAGraph()
         if generator is not None:
@@ -117,7 +130,7 @@ class StepGraph:
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            _, row = body(self.ms, self.cbw)
+            _, row = body(self.ms, self.cbw, self.bias)
         torch.cuda.current_stream(dev).wait_stream(side)
         if generator is not None:
             generator.set_state(start)
@@ -127,7 +140,7 @@ class StepGraph:
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         with torch.cuda.graph(self.graph):
-            out, row = body(self.ms, self.cbw)
+            out, row = body(self.ms, self.cbw, self.bias)
             dst, src = leaves(self.ms), leaves(out)
             if [(t.shape, t.dtype) for t in dst] != \
                     [(t.shape, t.dtype) for t in src]:
@@ -154,15 +167,18 @@ class StepGraph:
         self.launches = Counter(_build.launches) - before
         _build.launches -= self.launches
 
-    def run(self, ms, cbw, n):
-        """n steps from `ms`: (the MDState after them, its tensors fresh
-        copies; the (n, D) rows on the card)."""
+    def run(self, ms, cbw, n, bias=None):
+        """n steps from `ms` under the restraint `bias` (the capture's
+        structure): (the MDState after them, its tensors fresh copies;
+        the (n, D) rows on the card)."""
         if n > self.rows.shape[0]:
             raise ValueError(f"{n} steps: a chunk holds at most "
                              f"{self.rows.shape[0]}")
         for d, s in zip(leaves(self.ms), leaves(ms)):
             d.copy_(s)
         self.cbw.copy_(cbw)
+        for d, s in zip(leaves(self.bias), leaves(bias), strict=True):
+            d.copy_(s)
         self.k.zero_()
         for _ in range(n):
             self.graph.replay()

@@ -21,7 +21,13 @@ replays the step captured as a CUDA graph (md/graphs.py); on the CPU it
 runs the same step eagerly.  A capacity that did not hold (neighbor rows,
 cells, on-demand rows, kernel A's cells, the PME slab cap, the EVB state
 cap) makes the step's result not valid, and the simulation loop
-(md/simulation.py) regrows the capacities and replays the chunk.
+(md/simulation.py) regrows the capacities by the JAX package's factors
+(grow_capacities) and replays the chunk.
+
+An umbrella restraint (md/bias.py), when given as `bias`, adds its force
+to the physical force before the second half kick; MDState.force,
+force_overflow and potential then include it (the breakdown does not),
+and md_scan's cv column holds its primary CV after every step.
 """
 
 import dataclasses
@@ -38,6 +44,7 @@ from ..evb import hamiltonian as ham
 from ..evb.enumerate import molecule_com
 from ..topology import State, Topology
 from ..utils import pbc
+from . import bias as bias_mod
 from . import graphs, velocities
 
 
@@ -243,40 +250,102 @@ def neighbor_plan(system, box, capacity, cells=None, react_cap=None,
                 react_cells=react_cells or ())
 
 
+def grow_capacities(names, system, capacity, cells, react_cap, react_cells,
+                    hard_max_states, step, redo):
+    """The capacities of `names` (CAPACITIES) grown by the JAX package's
+    factors (md/simulation.py:189-238 there): (System, (capacity, cells,
+    react_cap, react_cells), log lines, one for the state cap and one
+    for the others, each naming `step` and ending with `redo`).  The
+    state cap grows to min(hard_max_states, max(2S, S + 8)).  The JAX
+    package grows all of the others, its flag being shared; the port's
+    flags are separate, so the others keep their size (a kernel A or
+    slab cap grown for nothing costs shared memory and time).  The
+    System returned is always a new object."""
+    n1 = system.n_atoms - 1
+    kw = {}
+    lines = []
+    if EVB_STATE_CAP in names:
+        S = system.evb_max_states
+        kw["evb_max_states"] = min(hard_max_states, max(2 * S, S + 8))
+        lines.append(f"step {step}: diabat enumeration exceeded the "
+                     f"state cap; evb_max_states regrown to "
+                     f"{kw['evb_max_states']}, {redo}\n")
+    if {NEIGHBOR_CAP, ROW_CAP} & set(names):
+        capacity = min(int(capacity * 1.5) + 8, n1)
+        if cells:
+            nc1, nc2, nc3, ccap = cells
+            cells = (nc1, nc2, nc3, int(ccap * 1.5) + 4)
+        if react_cap:
+            react_cap = min(int(react_cap * 1.5) + 8, n1)
+        if react_cells:
+            rn1, rn2, rn3, rcc = react_cells
+            react_cells = (rn1, rn2, rn3, int(rcc * 1.5) + 4)
+    if RS_CELL_CAP in names:
+        n1_, n2_, n3_, rcap = system.rs_cells
+        kw["rs_cells"] = (n1_, n2_, n3_, -(-int(rcap * 1.3 + 8) // 8) * 8)
+    if SLAB_CAP in names:
+        # multiplicative: a melting lattice concentrates whole planes
+        # into single slabs (~2.7x the mean on the 10k box)
+        kw["pme_scap"] = -(-int(system.pme_scap * 1.3 + 16) // 8) * 8
+    system = system.replace(**kw)
+    others = [n for n in names if n != EVB_STATE_CAP]
+    if others:
+        lines.append(
+            f"step {step}: regrow ({', '.join(others)} exceeded): "
+            f"capacity {capacity} cells {cells} react_cap "
+            f"{react_cap} react_cells {react_cells} rs_cells "
+            f"{system.rs_cells} pme_scap {system.pme_scap}, "
+            f"{redo}\n")
+    return system, (capacity, cells, react_cap, react_cells), lines
+
+
 def initial_md_state(state: State, topo, system, cbw, capacity, cells=None,
-                     react_cap=None, react_cells=None, comp=None) -> MDState:
+                     react_cap=None, react_cells=None, comp=None,
+                     bias=None) -> MDState:
     """The state before the first step: neighbor lists (neighbor_plan's
-    configuration) and forces.  MDState.overflow flags the capacities
-    that did not hold (overflowed() names them).  comp: the Kahan carries
-    to keep (zeros when None and the system is compensated)."""
+    configuration) and forces, the restraint `bias` (md/bias.py) included
+    when given.  MDState.overflow flags the capacities that did not hold
+    (overflowed() names them).  comp: the Kahan carries to keep (zeros
+    when None and the system is compensated)."""
     nlist = neighbors.build_neighbors(
         state.x, state.box, **neighbor_plan(system, state.box, capacity,
                                             cells, react_cap, react_cells))
     fe = evaluate_forces(state.x, state.box, topo, system, nlist, cbw)
+    force, potential = _with_bias(fe, state.x, state.box, bias)
     if comp is None and system.compensated_sum:
         comp = CompCarry(x=torch.zeros_like(state.x),
                          v=torch.zeros_like(state.v))
-    return MDState(state=state, topo=fe.topo, nlist=nlist, force=fe.force,
-                   potential=fe.potential, breakdown=fe.breakdown,
+    return MDState(state=state, topo=fe.topo, nlist=nlist, force=force,
+                   potential=potential, breakdown=fe.breakdown,
                    kinetic=velocities.kinetic_energy(state.v, system.mass),
                    n_states=fe.n_states, eigenvector=fe.eigenvector,
                    hydronium_of=fe.hydronium_of, n_hops_of=fe.n_hops_of,
                    overflow=capacity_flags(nlist, fe),
                    hopped=torch.zeros_like(fe.small_overflow),
-                   force_overflow=(fe.force.abs() > 1.0e4).any(),
+                   force_overflow=(force.abs() > 1.0e4).any(),
                    small_overflow=fe.small_overflow, gs_failed=fe.gs_failed,
                    comp=comp)
 
 
+def _with_bias(fe, x, box, bias):
+    """(force, potential) of `fe` with the restraint `bias` added."""
+    if bias is None:
+        return fe.force, fe.potential
+    be, bf = bias_mod.bias_energy_force(x, box, bias)
+    return fe.force + bf, fe.potential + be
+
+
 def md_step(ms: MDState, system, cbw, dt: float, ensemble="NVE",
             friction=0.1, temperature=300.0, noise=None,
-            tier="full") -> MDState:
+            tier="full", bias=None) -> MDState:
     """One step of `ensemble`: velocity Verlet for NVE and NPT (the
     barostat moves between steps), Langevin for both half kicks under
     NVT with the step's standard normal draws noise = (g1, g2), each
     (N, 3) in the state's dtype.  Under NVE and NPT with
     System.compensated_sum the kicks and the drift are Kahan sums
-    (ms.comp).  `tier`: the EVB two-tier mode ("small" or "full").  The
+    (ms.comp).  `tier`: the EVB two-tier mode ("small" or "full").
+    `bias`: an umbrella restraint (md/bias.py), its force added before
+    the second half kick and its energy to the potential.  The
     result is valid only if no flag of its `overflow` and not its
     `small_overflow` is set; else regrow (or take the full tier) and redo
     it from `ms` with the same noise."""
@@ -325,22 +394,23 @@ def md_step(ms: MDState, system, cbw, dt: float, ensemble="NVE",
 
     fe = evaluate_forces(x, box, topo, system, nlist, cbw, com=com,
                          tier=tier)
+    force, potential = _with_bias(fe, x, box, bias)
     if compensated:
-        v, vc = masked_two_sum(v, dt / 2.0 * fe.force / mass * conv, vc)
+        v, vc = masked_two_sum(v, dt / 2.0 * force / mass * conv, vc)
         comp = CompCarry(x=xc, v=vc)
     else:
-        v = torch.where(mobile, kick(v, fe.force, g2), v)
+        v = torch.where(mobile, kick(v, force, g2), v)
         comp = ms.comp
     v = velocities.remove_com_momentum(v, system.mass, mobile[:, 0])
     return MDState(state=State(x=x, v=v, box=box, step=state.step + 1),
-                   topo=fe.topo, nlist=nlist, force=fe.force,
-                   potential=fe.potential, breakdown=fe.breakdown,
+                   topo=fe.topo, nlist=nlist, force=force,
+                   potential=potential, breakdown=fe.breakdown,
                    kinetic=velocities.kinetic_energy(v, system.mass),
                    n_states=fe.n_states, eigenvector=fe.eigenvector,
                    hydronium_of=fe.hydronium_of, n_hops_of=fe.n_hops_of,
                    overflow=capacity_flags(nlist, fe),
                    hopped=fe.topo.hydronium_mol != topo.hydronium_mol,
-                   force_overflow=(fe.force.abs() > 1.0e4).any(),
+                   force_overflow=(force.abs() > 1.0e4).any(),
                    small_overflow=fe.small_overflow, gs_failed=fe.gs_failed,
                    comp=comp)
 
@@ -355,9 +425,11 @@ def draw_noise(x, generator):
 @dataclass
 class ChunkDiagnostics:
     """Per-step values of a chunk, (n_steps,) CPU tensors from one host
-    read (the JAX package's ChunkDiagnostics; its cv waits for the
-    umbrella bias).  The capacity flags are kept apart, one field each
-    (CAPACITY_FIELDS, in CAPACITIES order); small_overflow flags the steps
+    read (the JAX package's ChunkDiagnostics; parallel/ensemble.py stacks
+    them to (W, n_steps)).  cv is the restraint's primary CV (md/bias.py)
+    after the step, 0 when the chunk runs unbiased.  The capacity flags
+    are kept apart, one field each (CAPACITY_FIELDS, in CAPACITIES
+    order); small_overflow flags the steps
     whose small-tier enumeration overflowed in the chunk's first run (the
     chunk was then replayed at the full cap); gs_failed the steps where
     kernel E did not converge."""
@@ -367,6 +439,7 @@ class ChunkDiagnostics:
     hopped: torch.Tensor
     hydronium: torch.Tensor
     max_ci2: torch.Tensor
+    cv: torch.Tensor
     force_overflow: torch.Tensor
     small_overflow: torch.Tensor
     gs_failed: torch.Tensor
@@ -394,11 +467,12 @@ class ChunkDiagnostics:
 _ROW = tuple(f.name for f in dataclasses.fields(ChunkDiagnostics))
 
 
-def _diag_row(ms):
-    """The step's (len(_ROW),) float64 row (every value exact in fp64)."""
+def _diag_row(ms, cv):
+    """The step's (len(_ROW),) float64 row (every value exact in fp64),
+    `cv` its 0-d CV."""
     f = torch.float64
     vals = [ms.potential, ms.kinetic, ms.n_states, ms.hopped,
-            ms.topo.hydronium_mol, (ms.eigenvector ** 2).max(),
+            ms.topo.hydronium_mol, (ms.eigenvector ** 2).max(), cv,
             ms.force_overflow, ms.small_overflow, ms.gs_failed]
     return torch.cat([torch.stack([v.to(f) for v in vals]),
                       ms.overflow.to(f)])
@@ -408,51 +482,59 @@ def _diagnostics(rows, dtype):
     """ChunkDiagnostics of the (n, len(_ROW)) rows (one host read)."""
     rows = rows.cpu()
     kinds = {"potential": dtype, "kinetic": dtype, "max_ci2": dtype,
-             "n_states": torch.int64, "hydronium": torch.int64}
+             "cv": dtype, "n_states": torch.int64, "hydronium": torch.int64}
     return ChunkDiagnostics(**{
         name: rows[:, i].to(kinds.get(name, torch.bool))
         for i, name in enumerate(_ROW)})
 
 
 def scan_step(ms, system, cbw, dt, ensemble, friction, temperature,
-              generator, tier):
-    """One step of md_scan: the NVT draws from `generator`, md_step, the
-    diagnostics row.  The body the CUDA graph captures and the CPU runs."""
+              generator, tier, bias=None):
+    """One step of md_scan: the NVT draws from `generator`, md_step under
+    the restraint `bias`, the diagnostics row.  The body the CUDA graph
+    captures and the CPU runs."""
     noise = (draw_noise(ms.state.x, generator) if ensemble == "NVT"
              else None)
     ms = md_step(ms, system, cbw, dt, ensemble, friction, temperature,
-                 noise=noise, tier=tier)
-    return ms, _diag_row(ms)
+                 noise=noise, tier=tier, bias=bias)
+    x = ms.state.x
+    cv = (torch.zeros((), dtype=x.dtype, device=x.device) if bias is None
+          else bias_mod.primary_cv(x, ms.state.box, bias))
+    return ms, _diag_row(ms, cv)
 
 
 def graph_key(ms, system, cbw, dt, ensemble, friction, temperature,
-              generator, tier):
+              generator, tier, bias=None):
     """The StepGraphs key of a captured step.  The System (whose kernel A
     cell cap, slab cap and state cap live nowhere else) and the generator
     enter held (graphs.Held), not by id(): a kept key keeps them alive,
-    so no later System can match a graph captured for another."""
+    so no later System can match a graph captured for another.  A
+    restraint (a tuple, md_scan's) enters by its signature (cv_type,
+    shapes, dtypes), never its values: they are static inputs of the
+    graph, copied in at each chunk's start, so one capture serves every
+    window of a ladder."""
     return (ensemble, ms.state.x.dtype, tier, dt, friction, temperature,
             graphs.Held(system), graphs.Held(generator),
-            graphs.signature(ms), tuple(cbw.shape))
+            graphs.signature(ms), tuple(cbw.shape), graphs.signature(bias))
 
 
 def _scan(ms, system, cbw, dt, ensemble, n_steps, friction, temperature,
-          generator, tier, step_graphs, eager):
+          generator, tier, step_graphs, eager, bias):
     """n_steps steps at one tier: (MDState, ChunkDiagnostics)."""
-    def body(m, w):
+    def body(m, w, b):
         return scan_step(m, system, w, dt, ensemble, friction, temperature,
-                         generator, tier)
+                         generator, tier, b)
 
     if ms.state.x.is_cuda and not eager:
         key = graph_key(ms, system, cbw, dt, ensemble, friction,
-                        temperature, generator, tier)
+                        temperature, generator, tier, bias)
         g = step_graphs.get(key, lambda: graphs.StepGraph(
-            body, ms, cbw, generator if ensemble == "NVT" else None))
-        out, rows = g.run(ms, cbw, n_steps)
+            body, ms, cbw, generator if ensemble == "NVT" else None, bias))
+        out, rows = g.run(ms, cbw, n_steps, bias)
     else:
         out, rows = ms, []
         for _ in range(n_steps):
-            out, row = body(out, cbw)
+            out, row = body(out, cbw, bias)
             rows.append(row)
         rows = torch.stack(rows)
     out = dataclasses.replace(out, state=dataclasses.replace(
@@ -462,7 +544,7 @@ def _scan(ms, system, cbw, dt, ensemble, n_steps, friction, temperature,
 
 def md_scan(ms: MDState, system, cbw, dt: float, ensemble="NVE",
             n_steps=1, friction=0.1, temperature=300.0, generator=None,
-            step_graphs=None, eager=False):
+            step_graphs=None, eager=False, bias=None):
     """n_steps (<= MAX_CHUNK on the card) MD steps from `ms`: (MDState
     after them, ChunkDiagnostics).
 
@@ -478,7 +560,8 @@ def md_scan(ms: MDState, system, cbw, dt: float, ensemble="NVE",
     that of per-step selection up to rounding.  The result is valid only
     if diag.capacities() is empty (else regrow and replay the chunk).
     eager: no graph on the card either (the reference that chip_smoke.py
-    holds the graphs against)."""
+    holds the graphs against).  bias: an umbrella restraint (md/bias.py;
+    one HarmonicBias or a tuple), whose primary CV is diag.cv."""
     if ensemble not in ENSEMBLES:
         raise ValueError(f"ensemble {ensemble!r}: expected one of "
                          f"{', '.join(ENSEMBLES)}")
@@ -488,14 +571,15 @@ def md_scan(ms: MDState, system, cbw, dt: float, ensemble="NVE",
         step_graphs = graphs.StepGraphs()
     small = system.ms_evb and ham.small_state_tier(system) > 0
     start = generator.get_state() if ensemble == "NVT" else None
+    bias = bias_mod.as_tuple(bias)
     args = (system, cbw, dt, ensemble, n_steps, friction, temperature,
             generator)
     out, diag = _scan(ms, *args, "small" if small else "full", step_graphs,
-                      eager)
+                      eager, bias)
     if small and bool(diag.small_overflow.any()):
         if start is not None:
             generator.set_state(start)
         first = diag.small_overflow
-        out, diag = _scan(ms, *args, "full", step_graphs, eager)
+        out, diag = _scan(ms, *args, "full", step_graphs, eager, bias)
         diag = dataclasses.replace(diag, small_overflow=first)
     return out, diag

@@ -308,48 +308,13 @@ class Simulation:
 
     def _grow(self, names, step, redo):
         """Grow the capacities that did not hold by the JAX package's
-        factors (md/simulation.py:189-238 there) and log one line each
-        for the state cap and the others, ending with `redo`.  The JAX
-        package grows all of the others, its flag being shared; the
-        port's flags are separate, so the others keep their size (a
-        kernel A or slab cap grown for nothing costs shared memory and
-        time)."""
-        n1 = self.system.n_atoms - 1
-        kw = {}
-        lines = []
-        if integrators.EVB_STATE_CAP in names:
-            S = self.system.evb_max_states
-            kw["evb_max_states"] = min(self.cfg.evb_hard_max_states,
-                                       max(2 * S, S + 8))
-            lines.append(f"step {step}: diabat enumeration exceeded the "
-                         f"state cap; evb_max_states regrown to "
-                         f"{kw['evb_max_states']}, {redo}\n")
-        if {integrators.NEIGHBOR_CAP, integrators.ROW_CAP} & set(names):
-            self.capacity = min(int(self.capacity * 1.5) + 8, n1)
-            if self.cells:
-                nc1, nc2, nc3, ccap = self.cells
-                self.cells = (nc1, nc2, nc3, int(ccap * 1.5) + 4)
-            if self.react_cap:
-                self.react_cap = min(int(self.react_cap * 1.5) + 8, n1)
-            if self.react_cells:
-                rn1, rn2, rn3, rcc = self.react_cells
-                self.react_cells = (rn1, rn2, rn3, int(rcc * 1.5) + 4)
-        if integrators.RS_CELL_CAP in names:
-            n1_, n2_, n3_, rcap = self.system.rs_cells
-            kw["rs_cells"] = (n1_, n2_, n3_, -(-int(rcap * 1.3 + 8) // 8) * 8)
-        if integrators.SLAB_CAP in names:
-            # multiplicative: a melting lattice concentrates whole planes
-            # into single slabs (~2.7x the mean on the 10k box)
-            kw["pme_scap"] = -(-int(self.system.pme_scap * 1.3 + 16) // 8) * 8
-        self.system = self.system.replace(**kw)
-        others = [n for n in names if n != integrators.EVB_STATE_CAP]
-        if others:
-            lines.append(
-                f"step {step}: regrow ({', '.join(others)} exceeded): "
-                f"capacity {self.capacity} cells {self.cells} react_cap "
-                f"{self.react_cap} react_cells {self.react_cells} rs_cells "
-                f"{self.system.rs_cells} pme_scap {self.system.pme_scap}, "
-                f"{redo}\n")
+        factors (integrators.grow_capacities, which the replica scan of
+        parallel/ensemble.py shares) and log one line each for the state
+        cap and the others, ending with `redo`."""
+        self.system, caps, lines = integrators.grow_capacities(
+            names, self.system, self.capacity, self.cells, self.react_cap,
+            self.react_cells, self.cfg.evb_hard_max_states, step, redo)
+        self.capacity, self.cells, self.react_cap, self.react_cells = caps
         self._log(lines)
 
     def _log(self, lines):

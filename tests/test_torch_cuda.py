@@ -9,6 +9,7 @@ Tolerances: fp64 1e-10 relative to the largest reference value; fp32 as
 chip_smoke.py states them (the Pallas tests' own, or a loosening for the
 other summation order of atomics and tiles)."""
 
+import dataclasses
 import functools
 import pathlib
 
@@ -799,3 +800,92 @@ def test_mutate_system_captures_a_fresh_graph(tmp_path):
                                ref.state.x.cpu().numpy(), rtol=0, atol=1e-9)
     np.testing.assert_allclose(float(ms.potential), float(ref.potential),
                                rtol=0, atol=1e-8)
+
+
+# ---- umbrella sampling (md/bias.py, parallel/ensemble.py, umbrella.py)
+
+def _flagship_ladder(f, centers):
+    """(system, cbw, ms, atoms, ladder) at the equilibrated flagship: the
+    window restraint at `centers` (k 400) and the R_OO keeper (k 100 at
+    2.5 A)."""
+    from reactive_pb_nn_md_tpu_torch.parallel import umbrella
+    system, x, box, topo = _flagship_x(f)
+    cbw = pme.cb_half(box, system.pme_grid, system.spline_order,
+                      system.alpha_sqrt, dtype=f)
+    _, _, meta = load_equilibrated_npz(EQ_STATE, "cuda", f)
+    ms = integrators.initial_md_state(
+        State(x=x, v=torch.zeros_like(x), box=box), topo, system, cbw,
+        meta["capacity"], react_cap=meta["react_cap"])
+    atoms = umbrella.transfer_triple(ms, system)
+    W = len(centers)
+    ladder = (umbrella.make_ladder(atoms, centers, 400.0, 0, f),
+              umbrella.make_ladder(atoms, [2.5] * W, 100.0, 1, f))
+    return system, cbw, ms, atoms, ladder
+
+
+def test_bias_force_cuda_matches_cpu():
+    _need_card()
+    from reactive_pb_nn_md_tpu_torch.md import bias
+    from reactive_pb_nn_md_tpu_torch.parallel import ensemble
+    _, _, ms, _, ladder = _flagship_ladder(torch.float64, [-0.4, 0.4])
+    for w in range(2):
+        b = ensemble.window_bias(ladder, w)
+        e, f = bias.bias_energy_force(ms.state.x, ms.state.box, b)
+        cpu = tuple(dataclasses.replace(
+            r, atoms=r.atoms.cpu(), k=r.k.cpu(), center=r.center.cpu())
+            for r in b)
+        ec, fc = bias.bias_energy_force(ms.state.x.cpu(),
+                                        ms.state.box.cpu(), cpu)
+        assert abs(float(e) - float(ec)) <= 1e-12
+        assert float((f.cpu() - fc).abs().max()) <= 1e-12
+
+
+def test_graphed_ladder_matches_eager_under_one_capture():
+    """2 windows, 8 NVT steps each: the replays of one captured step (the
+    restraint copied in a window at a time) against eager steps, one
+    generator state a window."""
+    _need_card()
+    from reactive_pb_nn_md_tpu_torch.parallel import umbrella
+    centers = [-0.4, 0.4]
+    system, cbw, ms, atoms, ladder = _flagship_ladder(torch.float64,
+                                                      centers)
+    runs = []
+    for eager in (False, True):
+        scan = umbrella.make_ladder_scan(system, cbw, 0.0005, "NVT", 8,
+                                         friction=5.0)
+        scan.eager = eager
+        batch = umbrella.seeded_window_states(ms, scan.system, cbw, atoms,
+                                              centers, ladder=ladder)
+        runs.append(scan(batch, ladder) + (scan,))
+    (g, gd, gscan), (e, ed, _) = runs
+    assert len(gscan.step_graphs.captures) == 1 and not gscan.regrows
+    assert not gd.capacities()
+    for w in range(2):
+        dx = (g.states[w].state.x - e.states[w].state.x).abs().max()
+        assert float(dx) <= 1e-9
+    np.testing.assert_allclose(gd.cv.numpy(), ed.cv.numpy(), rtol=0,
+                               atol=1e-9)
+    np.testing.assert_allclose(gd.potential.numpy(), ed.potential.numpy(),
+                               rtol=0, atol=1e-8)
+    assert float(gd.cv[0].mean()) < 0.0 < float(gd.cv[1].mean())
+
+
+def test_replica_generator_swap_on_the_card():
+    """3 NVT replicas through one captured step on the card: distinct
+    generator states part, replica 2 given replica 0's state follows it
+    (to the card's accumulating-op rounding), and each replica's
+    generator comes back advanced."""
+    _need_card()
+    from reactive_pb_nn_md_tpu_torch.parallel import ensemble
+    system, cbw, ms, _, _ = _flagship_ladder(torch.float64, [0.0])
+    batch = ensemble.stack_replicas(ms, 3, seed=5)
+    batch.generators[2] = batch.generators[0].clone()
+    scan = ensemble.make_replica_scan(system, cbw, 0.0005, "NVT", 8,
+                                      friction=1.0)
+    out, diag = scan(batch)
+    assert len(scan.step_graphs.captures) == 1 and not diag.capacities()
+    x = [m.state.x for m in out.states]
+    assert float((x[0] - x[1]).abs().max()) > 1e-6
+    assert float((x[0] - x[2]).abs().max()) <= 1e-9
+    assert torch.equal(out.generators[0], out.generators[2])
+    assert not torch.equal(out.generators[0], batch.generators[0])

@@ -67,8 +67,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                     if n.split(".")[0] in ("jax", "jaxlib", "flax",
                                            "reactive_pb_nn_md_tpu")]
     assert len(_port_sources()) > 30
-    assert {"nn", "md", "ops", "run"} <= {p.parent.name
-                                         for p in _port_sources()}
+    assert {"nn", "md", "ops", "run", "parallel", "analysis"} <= {
+        p.parent.name for p in _port_sources()}
     assert not bad, bad
 
 

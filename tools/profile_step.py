@@ -118,10 +118,12 @@ def sm_clock():
     return [int(v) for v in r.stdout.splitlines()[0].split(",")]
 
 
-def measure(deck, ensemble, tag, out_dir, steps, eager, mutate=None):
-    """One mode's numbers (see the module docstring); mutate: a function
-    of the System for Simulation.mutate_system before the run (chip_smoke
-    phase 9f attaches a PB-NN MLP)."""
+def measure(deck, ensemble, tag, out_dir, steps, eager, mutate=None,
+            profiled=PROFILED):
+    """One mode's numbers (see the module docstring) over `profiled`
+    profiled steps; mutate: a function of the System for
+    Simulation.mutate_system before the run (chip_smoke phase 9f attaches
+    a PB-NN MLP)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     dtype = torch.float64 if tag == "fp64" else torch.float32
@@ -150,15 +152,15 @@ def measure(deck, ensemble, tag, out_dir, steps, eager, mutate=None):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sim._chunk(step, PROFILED)
+        sim._chunk(step, profiled)
         torch.cuda.synchronize()
-        profiled_ms = (time.perf_counter() - t0) * 1e3 / PROFILED
+        profiled_ms = (time.perf_counter() - t0) * 1e3 / profiled
     clocks.append(sm_clock())
-    step += PROFILED
+    step += profiled
     ka = prof.key_averages()
     dev = [e for e in ka if e.device_type.name == "CUDA"
            and not e.key.startswith("P:")]
-    device_ms = sum(e.self_device_time_total for e in dev) / 1e3 / PROFILED
+    device_ms = sum(e.self_device_time_total for e in dev) / 1e3 / profiled
     res = dict(deck=deck, ensemble=ensemble, dtype=tag,
                mode="eager" if eager else "graphed", steps=int(done[0]),
                steps_per_s=rate, steady_ms_per_step=steady_ms,
@@ -167,13 +169,13 @@ def measure(deck, ensemble, tag, out_dir, steps, eager, mutate=None):
                device_busy_share=device_ms / profiled_ms,
                sm_clock_mhz=[c for c, _ in clocks],
                sm_clock_max_mhz=clocks[0][1],
-               device_ops_per_step=sum(e.count for e in dev) / PROFILED,
+               device_ops_per_step=sum(e.count for e in dev) / profiled,
                E_device_ms=sum(e.self_device_time_total for e in dev
                                if "ground_state_kernel" in e.key)
-               / 1e3 / PROFILED,
+               / 1e3 / profiled,
                regrows=[ln for ln in text.splitlines() if "regrow" in ln],
                top=[dict(op=e.key[:70], ms=e.self_device_time_total / 1e3
-                         / PROFILED, per_step=e.count / PROFILED)
+                         / profiled, per_step=e.count / profiled)
                     for e in sorted(dev, key=lambda e:
                                     -e.self_device_time_total)[:12]])
     name = f"profile_{deck}_{ensemble}_{tag}_{res['mode']}.txt"
@@ -182,10 +184,10 @@ def measure(deck, ensemble, tag, out_dir, steps, eager, mutate=None):
     if eager:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            sim._chunk(step, PROFILED)
+            sim._chunk(step, profiled)
             torch.cuda.synchronize()
         res["ranges_device_ms"] = {
-            e.key[2:]: e.device_time_total / 1e3 / PROFILED
+            e.key[2:]: e.device_time_total / 1e3 / profiled
             for e in prof.key_averages()
             if e.key.startswith("P:") and e.device_type.name == "CPU"}
     else:
