@@ -142,6 +142,20 @@ Phases, in order, one line each (any failure raises, exit code != 0):
         A), replica 15 given replica 0's generator state within 1e-4 A of
         it (the card's accumulating ops), one capture when nothing
         regrew.
+  11. one replica's step shared over ranks (parallel/shard.py) at world
+     size 1 over nccl (a store in a temporary file): 64 graphed fp64 NVE
+     steps of the equilibrated flagship through make_atom_sharded_scan
+     (the collectives inside the captured step), launch counts from 0 (A,
+     B1, B2, C1, C2, E launch), against 64 graphed unsharded steps from
+     the same state: max |dx| <= 1e-12 A, whether the bits are equal, the
+     potentials within 1e-10 relative; the collectives of one step by
+     name and kind (grid, energy, force sums, the flags' max); kernel A's
+     range launch, the flagship's 64 cells in 4 ranges, summed against
+     its full launch, B1 spreading 4 atom ranges summed against the
+     whole spread, and D1 spreading the 10k lattice's 4 atom ranges
+     (K = 64, the deck's slab cap and SCAP_10K, no slab overflowing)
+     summed against its whole slab spread, all fp64 within 1e-12 of the
+     largest value; the sharded and unsharded ms a step.
 The line before the last is nvidia-smi's name and power limit, the one
 before it the per-kernel JSON (times, errors and bounds in fp64; fp32 in
 the fp32_ keys); the last line is the result JSON.
@@ -226,6 +240,12 @@ LADDER = dict(n_windows=16, span=0.65, k_spring=400.0, k_roo=100.0,
               r_oo=2.5, n_equil=64, n_sample=128, chunk=64,
               temperature=300.0, friction=5.0)
 REPLICAS, REPLICA_STEPS, REPLICA_CAP = 16, 40, 48
+# phase 11: the sharded scan's steps, its bound against the unsharded
+# scan (A), and the ranges' sums against the full launches (of max|ref|)
+SHARD_STEPS, SHARD_DX, RANGE_TOL = 64, 1e-12, 1e-12
+# the 10k lattice's slab cap once it melts (the deck's 280 overflows at
+# step 31 of a fp32 NVE run)
+SCAP_10K = 520
 
 # Tolerances (|got - ref| <= atol + rtol |ref|, atol relative to max|ref|):
 #  fp64: 1e-10 relative for every kernel.
@@ -1798,6 +1818,134 @@ def phase_umbrella(tmp):
     return counts
 
 
+def range_launches(n_ranges=4):
+    """Phase 11's kernel checks: A over `n_ranges` cell ranges and B1
+    over as many atom ranges at the equilibrated flagship, and D1 over as
+    many atom ranges at the 10k lattice's shapes (K = 64, the deck's slab
+    cap and SCAP_10K), each sum against the full launch (fp64): the max
+    errors over max|full|, and whether a slab overflowed."""
+    import torch
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import pme_slab, pme_spread
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import realspace_pair as rsp
+    from reactive_pb_nn_md_tpu_torch.parallel.shard import AtomShard
+    f = torch.float64
+    system, state, topo, _, _, _ = flagship(torch.device("cuda"), f)
+    cells, x, box = system.rs_cells, state.x, state.box
+    slot, _ = rsp.bin_atoms(x, box, cells, system.real_space_cutoff)
+    cm = rsp.pack_cells(x, topo.charge.to(f), topo.atom_type.to(f),
+                        topo.atom_mol.to(f), slot, cells)
+    args = (rsp.build_tabs(system, f), cells, box, system.real_space_cutoff,
+            system.alpha_sqrt, system.has_sapt)
+    full = rsp.pair_rows(cm, *args)
+    parts = [rsp.pair_rows(cm, *args, cell_range=AtomShard(
+        None, r, n_ranges).cells(cells)) for r in range(n_ranges)]
+    a_err = float((sum(parts) - full).abs().max() / full.abs().max())
+    a_bits = bool(torch.equal(sum(parts), full))
+    K, order, N = system.pme_grid, system.spline_order, system.n_atoms
+    q = topo.charge.to(f)
+    grid = pme_spread.charge_grid(x, q, box, K, order)
+    shares = [pme_spread.charge_grid(x[sh], q[sh], box, K, order)
+              for sh in (AtomShard(None, r, n_ranges).atoms(N)
+                         for r in range(n_ranges))]
+    b_err = float((sum(shares) - grid).abs().max() / grid.abs().max())
+    system, x, box, topo, _ = lattice_10k(torch.device("cuda"), f)
+    K, order, N = system.pme_grid, system.spline_order, system.n_atoms
+    q = topo.charge.to(f)
+    d_err, d_over = 0.0, False
+    for scap in (system.pme_scap, SCAP_10K):
+        grid, over = pme_slab.charge_grid_slab(x, q, box, K, order, scap)
+        d_over |= bool(over)
+        total = torch.zeros_like(grid)
+        for sh in (AtomShard(None, r, n_ranges).atoms(N)
+                   for r in range(n_ranges)):
+            g, over = pme_slab.charge_grid_slab(x[sh], q[sh], box, K, order,
+                                                scap)
+            d_over |= bool(over)
+            total += g
+        d_err = max(d_err, float((total - grid).abs().max()
+                                 / grid.abs().max()))
+    return a_err, a_bits, b_err, d_err, d_over
+
+
+def phase_sharded(tmp):
+    """Phase 11 (see the module docstring)."""
+    import torch
+    import torch.distributed as dist
+    from reactive_pb_nn_md_tpu_torch.md import graphs, integrators
+    from reactive_pb_nn_md_tpu_torch.parallel import ensemble
+    t11 = time.perf_counter()
+    (tmp / "11").mkdir()
+    dist.init_process_group("nccl", init_method="file://" + str(
+        tmp / "11" / "store"), rank=0, world_size=1)
+    try:
+        mesh = ensemble.make_mesh(1, sp=1, device="cuda")
+        sim = eq_sim(tmp / "11", torch.float64)
+        system, cbw, dt, _, fr, temp = scan_args(sim, "NVE")
+        sscan = ensemble.make_atom_sharded_scan(system, cbw, dt, "NVE",
+                                                mesh, SHARD_STEPS)
+        ref_graphs = graphs.StepGraphs()
+        out = {}
+
+        def sharded():
+            out["s"] = sscan(sim.ms)
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            return r, (time.perf_counter() - t0) / SHARD_STEPS * 1e3
+
+        counts = main_path("11 sharded flagship scan, world size 1",
+                           sharded, FLAGSHIP_KERNELS,
+                           ("A'", "A''", "D1", "D2"))
+        (g, gd), ref_ms = timed(lambda: integrators.md_scan(
+            sim.ms, system, cbw, dt, "NVE", SHARD_STEPS, fr, temp,
+            step_graphs=ref_graphs))
+        (g, gd), ref_ms = timed(lambda: integrators.md_scan(
+            sim.ms, system, cbw, dt, "NVE", SHARD_STEPS, fr, temp,
+            step_graphs=ref_graphs))
+        (s, sd), sh_ms = timed(lambda: sscan(sim.ms))
+        s0, sd0 = out["s"]
+        dx = float((s.state.x - g.state.x).abs().max())
+        bits = bool(torch.equal(s.state.x, g.state.x))
+        again = bool(torch.equal(s.state.x, s0.state.x))
+        de = float(((sd.potential - gd.potential).abs()
+                    / gd.potential.abs()).max())
+        step = ensemble.make_atom_sharded_step(system, cbw, dt, "NVE", mesh)
+        colls = ensemble.collective_summary(lambda: step(sim.ms))
+        a_err, a_bits, b_err, d_err, d_over = range_launches()
+        log(f"  11 {SHARD_STEPS} graphed fp64 NVE flagship steps sharded "
+            f"(world size 1, nccl) vs unsharded: max|dx| {dx:.3e} A, bits "
+            f"equal {bits}, two sharded chunks equal {again}, potential "
+            f"rel {de:.3e}, {int(sd.hopped.sum())} hops; {sh_ms:.2f} ms a "
+            f"step sharded, {ref_ms:.2f} unsharded; captures "
+            f"{len(sscan.step_graphs.captures)}; collectives a step "
+            f"{colls}; A over 4 cell ranges vs full {a_err:.3e} (bits "
+            f"equal {a_bits}), B1 over 4 atom ranges vs full {b_err:.3e}, "
+            f"D1 over 4 atom ranges vs full (10k, the deck's slab cap and "
+            f"{SCAP_10K}) {d_err:.3e}; launches {counts}")
+        check(not sd.capacities() and not gd.capacities()
+              and not sd0.capacities(), "11: a capacity flag stands")
+        check(dx <= SHARD_DX, f"11: sharded and unsharded scans differ by "
+              f"{dx} A")
+        check(de <= 1e-10, f"11: potentials differ by {de} (relative)")
+        check(colls["by_name"] == {"grid": 1, "energy": 1, "force": 1,
+                                   "flags": 1},
+              f"11: the collectives of a step are {colls}")
+        check(a_err <= RANGE_TOL and b_err <= RANGE_TOL
+              and d_err <= RANGE_TOL,
+              "11: a range launch does not sum to the full launch")
+        check(not d_over, "11: a slab overflowed in D1's range check")
+        bad = {k: counts.get(k, 0) for k in FLAGSHIP_KERNELS
+               if counts.get(k, 0) < SHARD_STEPS}
+        check(not bad, f"11: launches {bad}, fewer than {SHARD_STEPS}")
+    finally:
+        dist.destroy_process_group()
+    log(f"  phase 11: {time.perf_counter() - t11:.1f} s")
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1922,6 +2070,10 @@ def main():
             "full-width ladder through run_pmf, replicas")
         ladder = phase_umbrella(tmp)
 
+        log("[11 sharded step] one replica's step shared over ranks at "
+            "world size 1: graphed scan vs unsharded, range launches")
+        sharded = phase_sharded(tmp)
+
     k64, k32 = measured["fp64"], measured["fp32"]
     kernels = []
     for k, (src, rep) in KERNELS.items():
@@ -1930,6 +2082,7 @@ def main():
             name=k, route="cuda", source=src, replaces=rep,
             launches=launches[k], nvt_launches=nvt.get(k, 0),
             ladder_launches=ladder.get(k, 0),
+            sharded_launches=sharded.get(k, 0),
             max_abs_err=m64["max_abs_err"],
             ms=m64["ms"], device_ms=m64["device_ms"],
             plain_ms=m64["plain_ms"],

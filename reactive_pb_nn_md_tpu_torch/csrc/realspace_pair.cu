@@ -237,12 +237,15 @@ __device__ __forceinline__ int wrap1(int c, int o, int n) {
 //    the end; the warp's 8 sums by butterfly into the item's partial row;
 //  - out: each atom's row = its P partial rows in order (energies
 //    halved), to its slot; part 0 writes the empty slots' zeros.
+// A range launch takes the home cells c0, c0 + 1, ..., c0 + gridDim.x - 1
+// only (one replica's step shared over ranks: each rank its own cells);
+// the rows of the other cells are not written.
 template <typename T>
 __global__ void __launch_bounds__(FULL_THREADS)
 rs_full_kernel(const T* __restrict__ cm, const T* __restrict__ tabs,
                const T* __restrict__ box, T* __restrict__ out, int nc1,
-               int nc2, int nc3, int ccap, int T_, int n_tab, int has_sapt,
-               T rcut2, T alpha, T conv) {
+               int nc2, int nc3, int ccap, int c0, int T_, int n_tab,
+               int has_sapt, T rcut2, T alpha, T conv) {
     extern __shared__ unsigned char smem_raw[];
     const int n_tabv = n_tab * T_ * T_, N = 27 * ccap, NW = (N + 31) >> 5;
     const int R = ccap > FULL_WARPS ? ccap : FULL_WARPS;
@@ -259,7 +262,7 @@ rs_full_kernel(const T* __restrict__ cm, const T* __restrict__ tabs,
     int* ring = reinterpret_cast<int*>(occw + NW);
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const unsigned lt = (1u << lane) - 1u;
-    const int c = blockIdx.x, part = blockIdx.y, parts = gridDim.y;
+    const int c = c0 + blockIdx.x, part = blockIdx.y, parts = gridDim.y;
     const int c1 = c / (nc2 * nc3), c2 = (c / nc3) % nc2, c3 = c % nc3;
 
     // stage: thread tid takes u = tid, tid + FULL_THREADS, ..., the rows
@@ -710,16 +713,18 @@ __global__ void rs_fold_kernel(const T* __restrict__ own,
 template <typename T>
 static int rs_pair_launch(const void* cm, const void* tabs, const void* box,
                           void* out, void* stream, int nc1, int nc2, int nc3,
-                          int ccap, int parts, int T_, int n_tab,
-                          int has_sapt, double rcut2, double alpha,
-                          double conv) {
+                          int ccap, int parts, int c0, int n_c, int T_,
+                          int n_tab, int has_sapt, double rcut2,
+                          double alpha, double conv) {
     const size_t shm = full_smem_t<T>(n_tab * T_ * T_, ccap);
     int err = allow_smem((const void*)rs_full_kernel<T>, shm);
     if (err) return err;
-    rs_full_kernel<T><<<dim3(nc1 * nc2 * nc3, parts), FULL_THREADS, shm,
+    if (c0 < 0 || n_c < 1 || c0 + n_c > nc1 * nc2 * nc3)
+        return (int)cudaErrorInvalidValue;
+    rs_full_kernel<T><<<dim3(n_c, parts), FULL_THREADS, shm,
                         (cudaStream_t)stream>>>(
         (const T*)cm, (const T*)tabs, (const T*)box, (T*)out, nc1, nc2, nc3,
-        ccap, T_, n_tab, has_sapt, (T)rcut2, (T)alpha, (T)conv);
+        ccap, c0, T_, n_tab, has_sapt, (T)rcut2, (T)alpha, (T)conv);
     return (int)cudaGetLastError();
 }
 
@@ -762,12 +767,12 @@ RS_ENTRY(rs_half_f64, double)
 #define RS_PAIR_ENTRY(NAME, T)                                               \
     KERNELS_API int NAME(const void* cm, const void* tabs, const void* box, \
                          void* out, void* stream, int nc1, int nc2, int nc3, \
-                         int ccap, int parts, int T_, int n_tab,             \
-                         int has_sapt, double rcut2, double alpha,           \
-                         double conv) {                                      \
+                         int ccap, int parts, int c0, int n_c, int T_,       \
+                         int n_tab, int has_sapt, double rcut2,              \
+                         double alpha, double conv) {                        \
         return rs_pair_launch<T>(cm, tabs, box, out, stream, nc1, nc2, nc3,  \
-                                 ccap, parts, T_, n_tab, has_sapt, rcut2,    \
-                                 alpha, conv);                               \
+                                 ccap, parts, c0, n_c, T_, n_tab, has_sapt,  \
+                                 rcut2, alpha, conv);                        \
     }
 RS_PAIR_ENTRY(rs_pair_f32, float)
 RS_PAIR_ENTRY(rs_pair_f64, double)

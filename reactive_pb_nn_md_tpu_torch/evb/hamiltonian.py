@@ -11,6 +11,12 @@ construct_evb_hamiltonian / diagonalize_evb_hamiltonian, ms_evb.f90:181-490).
     spectrum): kernel E on the card, eigh on the CPU (ops/ground_state.py);
   * forces F = -d/dx [c^T H(x) c] with c held fixed (Hellmann-Feynman).
 
+With `shard` (parallel/shard.py) one evaluation is shared over ranks: the
+bulk energy_no_recip and the base charge spread are split, everything
+else (enumeration, U, the deltas, the couplings, the ground state) is
+computed alike on every rank from x read through shard.shared, and the
+forces are summed over the ranks.
+
 Every per-state quantity carries a leading state axis; the padded state
 cap is static.  The two-tier switch is chosen by the caller (`tier`):
 the small tier's overflow is a device flag, on which md_scan replays its
@@ -106,7 +112,8 @@ def _vdw(system, ta, tb, r, r2):
 
 
 def diabat_diagonal_energies(x, box, batch: DiabatBatch, system, pairs, cbw,
-                             base_charge, topo0, full_idx, xa_pc0=None):
+                             base_charge, topo0, full_idx, xa_pc0=None,
+                             shard=None):
     """Field decomposition of the diagonals.
 
     A pair (u in U, j outside U) keeps j's charge, type and molecule in
@@ -116,13 +123,19 @@ def diabat_diagonal_energies(x, box, batch: DiabatBatch, system, pairs, cbw,
     inside U x U are summed per state.  full_idx is the (N, Kf) full
     adjacency or, on the on-demand cell path, a CellTable whose rows are
     extracted for U only.  Returns (diag (S,), principle breakdown with
-    the base grid's slab overflow, e_recip (S,), row overflow ())."""
+    the base grid's slab overflow, e_recip (S,), row overflow ()).  With
+    `shard` the bulk and the base grid are this rank's shares summed over
+    the ranks, and the rest reads x through shard.shared (the module
+    docstring)."""
     dset = batch.dset
     S = system.evb_max_states
     M, N = system.n_mole, system.n_atoms
     dev = x.device
     bd0 = total_mod.energy_no_recip(x, box, topo0, system, pairs,
-                                    xa_pc=xa_pc0)
+                                    xa_pc=xa_pc0, shard=shard)
+    x_split = x
+    if shard is not None:
+        x = shard.shared(x)
 
     # ---------------- changed-molecule superset U (constant in x)
     mols_all = torch.cat([dset.hop_log[:, :, 0], dset.hop_log[:, :, 3]],
@@ -229,9 +242,9 @@ def diabat_diagonal_energies(x, box, batch: DiabatBatch, system, pairs, cbw,
     # ---------------- reciprocal space per state: one base grid + one FFT
     # + the per-state spectrum contraction
     K = system.pme_grid
-    Q0, slab_over = pme.charge_grid(x, base_charge, box, K,
+    Q0, slab_over = pme.charge_grid(x_split, base_charge, box, K,
                                     system.spline_order,
-                                    scap=system.pme_scap)
+                                    scap=system.pme_scap, shard=shard)
     F0 = torch.fft.rfftn(Q0)
     e0 = 0.5 * CONV_E2A_KJMOL * (cbw * (F0.real ** 2 + F0.imag ** 2)).sum()
     e_recip = e0 + pme.recip_delta_perstate(xu, ua_mask, masked_q, box, K,
@@ -294,19 +307,20 @@ def coupling_elements(x, box, batch: DiabatBatch, system, com0, xa_pc0,
 
 
 def assemble_hamiltonian(x, box, batch: DiabatBatch, system, pairs, cbw,
-                         base_charge, topo0, full_idx, com0):
+                         base_charge, topo0, full_idx, com0, shard=None):
     S = system.evb_max_states
     dset = batch.dset
     sidx = torch.arange(S, device=x.device)
     active = sidx < dset.n_states
-    xa_pc0 = total_mod.mol_sites_packed(x, topo0.charge, topo0.mol_atoms)
+    xs = x if shard is None else shard.shared(x)
+    xa_pc0 = total_mod.mol_sites_packed(xs, topo0.charge, topo0.mol_atoms)
     diag, bd0, e_recip, row_over = diabat_diagonal_energies(
         x, box, batch, system, pairs, cbw, base_charge, topo0, full_idx,
-        xa_pc0=xa_pc0)
+        xa_pc0=xa_pc0, shard=shard)
     # the principle diabat's reported decomposition includes its recip
     bds = replace(bd0, elec=bd0.elec + e_recip[0],
                   total=bd0.total + e_recip[0])
-    offdiag = coupling_elements(x, box, batch, system, com0, xa_pc0, topo0)
+    offdiag = coupling_elements(xs, box, batch, system, com0, xa_pc0, topo0)
     park = diag[0].detach() + INACTIVE_DIAG * (1.0 + sidx.to(x.dtype) / S)
     diag = torch.where(active, diag, park)
     par = dset.parent.clamp(min=0)
@@ -341,19 +355,22 @@ class EvbResult:
 
 
 def _eval_at_cap(x, box, topo, system, pairs, cbw, full_idx, com,
-                 dset: DiabatSet):
+                 dset: DiabatSet, shard=None):
     """Diabat topologies -> H -> ground state -> Hellmann-Feynman forces,
-    at cap system.evb_max_states."""
+    at cap system.evb_max_states; with `shard` the forces are the sum of
+    the ranks' shares."""
     batch = build_diabat_topologies(topo, dset, system)
     xg = x.detach().requires_grad_(True)
     with torch.enable_grad():
         H, bds, _, row_over = assemble_hamiltonian(
             xg, box, batch, system, pairs, cbw, topo.charge, topo, full_idx,
-            com)
+            com, shard=shard)
         _, c, gs_failed = ground_state(H)
         c = c.detach()
         energy = c @ H @ c
         grad, = torch.autograd.grad(energy, xg)
+    if shard is not None:
+        grad = shard.sum_force(grad)
     principle = torch.argmax(c.abs())
     ptopo = state_topology(batch.topo, principle)
     bds = replace(bds, **{k: getattr(bds, k).detach()
@@ -422,7 +439,8 @@ def _pad_states(res: EvbResult, batch: DiabatBatch, S: int):
 
 
 def adiabatic_energy_force(x, box, topo, system, pairs, cbw, full_idx,
-                           react_idx=None, com=None, tier="full"):
+                           react_idx=None, com=None, tier="full",
+                           shard=None):
     """Full MS-EVB energy/force evaluation -> (EvbResult, DiabatBatch).
 
     full_idx: the (N, K) full adjacency; react_idx: the short-cutoff rows
@@ -434,7 +452,8 @@ def adiabatic_energy_force(x, box, topo, system, pairs, cbw, full_idx,
     and sets EvbResult.small_overflow when its enumeration overflowed (the
     result is then not valid: evaluate at the full cap); "full" evaluates
     at the full cap.  The small-tier state set equals the full
-    enumeration whenever it fits, so the physics is the same."""
+    enumeration whenever it fits, so the physics is the same.  `shard`:
+    the evaluation shared over ranks (the module docstring)."""
     if com is None:
         com = molecule_com(x, topo.mol_atoms, system.mass, box)
     com = com.detach()
@@ -444,7 +463,7 @@ def adiabatic_energy_force(x, box, topo, system, pairs, cbw, full_idx,
         sys_small = system.replace(evb_max_states=S1)
         dset = enumerate_diabats(x, box, topo, sys_small, enum_src, com)
         res, batch = _eval_at_cap(x, box, topo, sys_small, pairs, cbw,
-                                  full_idx, com, dset)
+                                  full_idx, com, dset, shard)
         # where the small set holds, the full cap's is the same and did
         # not overflow
         res = replace(res, small_overflow=dset.overflow,
@@ -452,4 +471,4 @@ def adiabatic_energy_force(x, box, topo, system, pairs, cbw, full_idx,
         return _pad_states(res, batch, system.evb_max_states)
     dset = enumerate_diabats(x, box, topo, system, enum_src, com)
     return _eval_at_cap(x, box, topo, system, pairs, cbw, full_idx, com,
-                        dset)
+                        dset, shard)

@@ -26,7 +26,9 @@ captured anew.
 
 Launch counts: a replay runs the kernels without calling their wrappers,
 so the counts that the capture added to ops.kernels._build.launches are
-taken back off and added again at every replay.
+taken back off and added again at every replay; so are the collectives
+of a step shared over ranks (_build.collectives, counted by parallel/
+shard.py), which the graph holds as it holds the kernels.
 """
 
 import dataclasses
@@ -137,6 +139,7 @@ class StepGraph:
         self.rows = torch.zeros((MAX_CHUNK, row.shape[0]), dtype=row.dtype,
                                 device=dev)
         before = Counter(_build.launches)
+        before_coll = Counter(_build.collectives)
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         with torch.cuda.graph(self.graph):
@@ -166,6 +169,8 @@ class StepGraph:
                               if seg["segment_pool_id"] == pool)
         self.launches = Counter(_build.launches) - before
         _build.launches -= self.launches
+        self.collectives = Counter(_build.collectives) - before_coll
+        _build.collectives -= self.collectives
 
     def run(self, ms, cbw, n, bias=None):
         """n steps from `ms` under the restraint `bias` (the capture's
@@ -184,6 +189,8 @@ class StepGraph:
             self.graph.replay()
         for name, c in self.launches.items():
             _build.launches[name] += c * n
+        for name, c in self.collectives.items():
+            _build.collectives[name] += c * n
         out = with_leaves(self.ms, (t.clone() for t in leaves(self.ms)))
         return out, self.rows[:n]
 

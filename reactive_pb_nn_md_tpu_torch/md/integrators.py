@@ -28,6 +28,12 @@ An umbrella restraint (md/bias.py), when given as `bias`, adds its force
 to the physical force before the second half kick; MDState.force,
 force_overflow and potential then include it (the breakdown does not),
 and md_scan's cv column holds its primary CV after every step.
+
+With `shard` (parallel/shard.py) one replica's step is shared over the
+ranks of a process group: the state stays replicated, each rank
+computes its share of the force evaluation, the forces are summed over
+the ranks and the step's flags are OR-ed over them, so every rank takes
+the same step and the same host decisions.  Without it nothing changes.
 """
 
 import dataclasses
@@ -164,9 +170,10 @@ def wrap_molecules(x, box, topo, mass):
 
 
 def evaluate_forces(x, box, topo, system, nlist, cbw, com=None,
-                    tier="full"):
+                    tier="full", shard=None):
     """Reactive (MS-EVB) or plain force evaluation; `tier` the EVB
-    two-tier mode of hamiltonian.adiabatic_energy_force."""
+    two-tier mode of hamiltonian.adiabatic_energy_force; `shard` the
+    evaluation shared over ranks (parallel/shard.py)."""
     pairs = neighbors.neighbor_pairs(nlist)
     S = system.evb_max_states
     dev = x.device
@@ -179,7 +186,7 @@ def evaluate_forces(x, box, topo, system, nlist, cbw, com=None,
                      else nlist.react_idx)
         res, _ = ham.adiabatic_energy_force(
             x, box, topo, system, pairs, cbw, full_src, react_idx=react_src,
-            com=com, tier=tier)
+            com=com, tier=tier, shard=shard)
         return ForceEval(potential=res.energy, breakdown=res.breakdown,
                          force=res.force, topo=res.principle_topo,
                          n_states=res.n_states, eigenvector=res.eigenvector,
@@ -191,8 +198,11 @@ def evaluate_forces(x, box, topo, system, nlist, cbw, com=None,
                          gs_failed=res.gs_failed)
     xg = x.detach().requires_grad_(True)
     with torch.enable_grad():
-        bd = total_mod.total_energy(xg, box, topo, system, pairs, cbw)
+        bd = total_mod.total_energy(xg, box, topo, system, pairs, cbw,
+                                    shard=shard)
         grad, = torch.autograd.grad(bd.total, xg)
+    if shard is not None:
+        grad = shard.sum_force(grad)
     bd = dataclasses.replace(bd, **{k: getattr(bd, k).detach() for k in (
         "total", "elec", "vdw", "bond", "angle", "dihedral")})
     no = torch.zeros((), dtype=torch.bool, device=dev)
@@ -213,6 +223,18 @@ def capacity_flags(nlist, fe):
     bd = fe.breakdown
     return torch.stack([nlist.overflow, fe.row_overflow, bd.rs_overflow,
                         bd.slab_overflow, fe.evb_overflow])
+
+
+def step_flags(nlist, fe, shard=None):
+    """(capacity_flags, small_overflow, gs_failed) of a step, OR-ed over
+    the ranks of `shard` in one collective when given."""
+    flags = capacity_flags(nlist, fe)
+    if shard is None:
+        return flags, fe.small_overflow, fe.gs_failed
+    n = flags.shape[0]
+    v = shard.any(torch.cat([flags, fe.small_overflow[None],
+                             fe.gs_failed[None]]))
+    return v[:n], v[n], v[n + 1]
 
 
 def neighbor_plan(system, box, capacity, cells=None, react_cap=None,
@@ -301,16 +323,19 @@ def grow_capacities(names, system, capacity, cells, react_cap, react_cells,
 
 def initial_md_state(state: State, topo, system, cbw, capacity, cells=None,
                      react_cap=None, react_cells=None, comp=None,
-                     bias=None) -> MDState:
+                     bias=None, shard=None) -> MDState:
     """The state before the first step: neighbor lists (neighbor_plan's
     configuration) and forces, the restraint `bias` (md/bias.py) included
     when given.  MDState.overflow flags the capacities that did not hold
     (overflowed() names them).  comp: the Kahan carries to keep (zeros
-    when None and the system is compensated)."""
+    when None and the system is compensated).  shard: the evaluation
+    shared over ranks (parallel/shard.py)."""
     nlist = neighbors.build_neighbors(
         state.x, state.box, **neighbor_plan(system, state.box, capacity,
                                             cells, react_cap, react_cells))
-    fe = evaluate_forces(state.x, state.box, topo, system, nlist, cbw)
+    fe = evaluate_forces(state.x, state.box, topo, system, nlist, cbw,
+                         shard=shard)
+    overflow, small_overflow, gs_failed = step_flags(nlist, fe, shard)
     force, potential = _with_bias(fe, state.x, state.box, bias)
     if comp is None and system.compensated_sum:
         comp = CompCarry(x=torch.zeros_like(state.x),
@@ -320,10 +345,10 @@ def initial_md_state(state: State, topo, system, cbw, capacity, cells=None,
                    kinetic=velocities.kinetic_energy(state.v, system.mass),
                    n_states=fe.n_states, eigenvector=fe.eigenvector,
                    hydronium_of=fe.hydronium_of, n_hops_of=fe.n_hops_of,
-                   overflow=capacity_flags(nlist, fe),
+                   overflow=overflow,
                    hopped=torch.zeros_like(fe.small_overflow),
                    force_overflow=(force.abs() > 1.0e4).any(),
-                   small_overflow=fe.small_overflow, gs_failed=fe.gs_failed,
+                   small_overflow=small_overflow, gs_failed=gs_failed,
                    comp=comp)
 
 
@@ -337,7 +362,7 @@ def _with_bias(fe, x, box, bias):
 
 def md_step(ms: MDState, system, cbw, dt: float, ensemble="NVE",
             friction=0.1, temperature=300.0, noise=None,
-            tier="full", bias=None) -> MDState:
+            tier="full", bias=None, shard=None) -> MDState:
     """One step of `ensemble`: velocity Verlet for NVE and NPT (the
     barostat moves between steps), Langevin for both half kicks under
     NVT with the step's standard normal draws noise = (g1, g2), each
@@ -345,10 +370,11 @@ def md_step(ms: MDState, system, cbw, dt: float, ensemble="NVE",
     System.compensated_sum the kicks and the drift are Kahan sums
     (ms.comp).  `tier`: the EVB two-tier mode ("small" or "full").
     `bias`: an umbrella restraint (md/bias.py), its force added before
-    the second half kick and its energy to the potential.  The
-    result is valid only if no flag of its `overflow` and not its
-    `small_overflow` is set; else regrow (or take the full tier) and redo
-    it from `ms` with the same noise."""
+    the second half kick and its energy to the potential.  `shard`: the
+    step shared over ranks (parallel/shard.py; under NVT every rank draws
+    the same noise).  The result is valid only if no flag of its
+    `overflow` and not its `small_overflow` is set; else regrow (or take
+    the full tier) and redo it from `ms` with the same noise."""
     if ensemble not in ENSEMBLES:
         raise ValueError(f"ensemble {ensemble!r}: expected one of "
                          f"{', '.join(ENSEMBLES)}")
@@ -393,7 +419,8 @@ def md_step(ms: MDState, system, cbw, dt: float, ensemble="NVE",
         ms.nlist)
 
     fe = evaluate_forces(x, box, topo, system, nlist, cbw, com=com,
-                         tier=tier)
+                         tier=tier, shard=shard)
+    overflow, small_overflow, gs_failed = step_flags(nlist, fe, shard)
     force, potential = _with_bias(fe, x, box, bias)
     if compensated:
         v, vc = masked_two_sum(v, dt / 2.0 * force / mass * conv, vc)
@@ -408,10 +435,10 @@ def md_step(ms: MDState, system, cbw, dt: float, ensemble="NVE",
                    kinetic=velocities.kinetic_energy(v, system.mass),
                    n_states=fe.n_states, eigenvector=fe.eigenvector,
                    hydronium_of=fe.hydronium_of, n_hops_of=fe.n_hops_of,
-                   overflow=capacity_flags(nlist, fe),
+                   overflow=overflow,
                    hopped=fe.topo.hydronium_mol != topo.hydronium_mol,
                    force_overflow=(force.abs() > 1.0e4).any(),
-                   small_overflow=fe.small_overflow, gs_failed=fe.gs_failed,
+                   small_overflow=small_overflow, gs_failed=gs_failed,
                    comp=comp)
 
 
@@ -489,14 +516,14 @@ def _diagnostics(rows, dtype):
 
 
 def scan_step(ms, system, cbw, dt, ensemble, friction, temperature,
-              generator, tier, bias=None):
+              generator, tier, bias=None, shard=None):
     """One step of md_scan: the NVT draws from `generator`, md_step under
     the restraint `bias`, the diagnostics row.  The body the CUDA graph
     captures and the CPU runs."""
     noise = (draw_noise(ms.state.x, generator) if ensemble == "NVT"
              else None)
     ms = md_step(ms, system, cbw, dt, ensemble, friction, temperature,
-                 noise=noise, tier=tier, bias=bias)
+                 noise=noise, tier=tier, bias=bias, shard=shard)
     x = ms.state.x
     cv = (torch.zeros((), dtype=x.dtype, device=x.device) if bias is None
           else bias_mod.primary_cv(x, ms.state.box, bias))
@@ -504,7 +531,7 @@ def scan_step(ms, system, cbw, dt, ensemble, friction, temperature,
 
 
 def graph_key(ms, system, cbw, dt, ensemble, friction, temperature,
-              generator, tier, bias=None):
+              generator, tier, bias=None, shard=None):
     """The StepGraphs key of a captured step.  The System (whose kernel A
     cell cap, slab cap and state cap live nowhere else) and the generator
     enter held (graphs.Held), not by id(): a kept key keeps them alive,
@@ -512,22 +539,24 @@ def graph_key(ms, system, cbw, dt, ensemble, friction, temperature,
     restraint (a tuple, md_scan's) enters by its signature (cv_type,
     shapes, dtypes), never its values: they are static inputs of the
     graph, copied in at each chunk's start, so one capture serves every
-    window of a ladder."""
+    window of a ladder.  A shard (parallel/shard.py) enters held: its
+    collectives are captured on its group."""
     return (ensemble, ms.state.x.dtype, tier, dt, friction, temperature,
             graphs.Held(system), graphs.Held(generator),
-            graphs.signature(ms), tuple(cbw.shape), graphs.signature(bias))
+            graphs.signature(ms), tuple(cbw.shape), graphs.signature(bias),
+            graphs.Held(shard))
 
 
 def _scan(ms, system, cbw, dt, ensemble, n_steps, friction, temperature,
-          generator, tier, step_graphs, eager, bias):
+          generator, tier, step_graphs, eager, bias, shard):
     """n_steps steps at one tier: (MDState, ChunkDiagnostics)."""
     def body(m, w, b):
         return scan_step(m, system, w, dt, ensemble, friction, temperature,
-                         generator, tier, b)
+                         generator, tier, b, shard)
 
     if ms.state.x.is_cuda and not eager:
         key = graph_key(ms, system, cbw, dt, ensemble, friction,
-                        temperature, generator, tier, bias)
+                        temperature, generator, tier, bias, shard)
         g = step_graphs.get(key, lambda: graphs.StepGraph(
             body, ms, cbw, generator if ensemble == "NVT" else None, bias))
         out, rows = g.run(ms, cbw, n_steps, bias)
@@ -544,7 +573,7 @@ def _scan(ms, system, cbw, dt, ensemble, n_steps, friction, temperature,
 
 def md_scan(ms: MDState, system, cbw, dt: float, ensemble="NVE",
             n_steps=1, friction=0.1, temperature=300.0, generator=None,
-            step_graphs=None, eager=False, bias=None):
+            step_graphs=None, eager=False, bias=None, shard=None):
     """n_steps (<= MAX_CHUNK on the card) MD steps from `ms`: (MDState
     after them, ChunkDiagnostics).
 
@@ -561,7 +590,11 @@ def md_scan(ms: MDState, system, cbw, dt: float, ensemble="NVE",
     if diag.capacities() is empty (else regrow and replay the chunk).
     eager: no graph on the card either (the reference that chip_smoke.py
     holds the graphs against).  bias: an umbrella restraint (md/bias.py;
-    one HarmonicBias or a tuple), whose primary CV is diag.cv."""
+    one HarmonicBias or a tuple), whose primary CV is diag.cv.  shard:
+    every step shared over the ranks of a process group (parallel/
+    shard.py), its collectives inside the captured step; every rank of
+    the group calls md_scan with the same arguments, and the replay of
+    the small tier's chunk is decided from flags OR-ed over the ranks."""
     if ensemble not in ENSEMBLES:
         raise ValueError(f"ensemble {ensemble!r}: expected one of "
                          f"{', '.join(ENSEMBLES)}")
@@ -575,11 +608,11 @@ def md_scan(ms: MDState, system, cbw, dt: float, ensemble="NVE",
     args = (system, cbw, dt, ensemble, n_steps, friction, temperature,
             generator)
     out, diag = _scan(ms, *args, "small" if small else "full", step_graphs,
-                      eager, bias)
+                      eager, bias, shard)
     if small and bool(diag.small_overflow.any()):
         if start is not None:
             generator.set_state(start)
         first = diag.small_overflow
-        out, diag = _scan(ms, *args, "full", step_graphs, eager, bias)
+        out, diag = _scan(ms, *args, "full", step_graphs, eager, bias, shard)
         diag = dataclasses.replace(diag, small_overflow=first)
     return out, diag

@@ -21,7 +21,7 @@ from ..ops.bspline import bspline_weights, bm_sq_factors
 from ..ops.kernels import pme_slab, pme_spread, recip_perstate
 
 
-def charge_grid(x, q, box, K, order, scap=0):
+def charge_grid(x, q, box, K, order, scap=0, shard=None):
     """((K, K, K) charge grid of all atoms, slab overflow ()).
 
     With a static slab capacity (scap > 0, System.pme_scap) the slab path
@@ -29,7 +29,16 @@ def charge_grid(x, q, box, K, order, scap=0):
     held more than scap atoms: the grid then lacks atoms and the
     simulation loop regrows scap.  Otherwise the per-atom spread (kernels
     B1/B2), which cannot overflow.  The dispatch is the JAX package's
-    (models/pme.py:93-114), so both packages take one path per deck."""
+    (models/pme.py:93-114), so both packages take one path per deck.
+
+    With `shard` (parallel/shard.py) each rank spreads its own atoms and
+    the grids are summed over the ranks before the grid is returned (its
+    gradient passed through: each rank's backward gathers its own atoms);
+    the overflow is this rank's."""
+    if shard is not None:
+        a = shard.atoms(x.shape[0])
+        Q, over = charge_grid(x[a], q[a], box, K, order, scap)
+        return shard.sum(Q, "grid"), over
     if scap:
         return pme_slab.charge_grid_slab(x, q, box, K, order, scap)
     return (pme_spread.charge_grid(x, q, box, K, order),

@@ -7,6 +7,9 @@ calculate_total_force_energy, total_energy_forces.f90).
   intra-molecular nonbonded  : exclusion-coded template pairs
   PME reciprocal + Ewald self
   bonds / angles / dihedrals
+
+With `shard` (parallel/shard.py) each rank computes its share of these
+terms and the shares are summed over the ranks.
 """
 
 from dataclasses import dataclass
@@ -30,7 +33,7 @@ class EnergyBreakdown:
     slab_overflow: torch.Tensor    # () bool: the PME slab cap did not hold
 
 
-def realspace_inter(x, box, topo, system, pairs):
+def realspace_inter(x, box, topo, system, pairs, shard=None):
     """(e_elec, e_vdw, overflow) of the inter-molecular pairs within the
     cutoff.
 
@@ -38,13 +41,19 @@ def realspace_inter(x, box, topo, system, pairs):
     A's path (the plain cell sweep for CPU tensors), and overflow says
     that a cell's capacity or width did not hold; otherwise the half pair
     list on the same device, which cannot overflow here.  Same-molecule
-    pairs are masked with this topology's molecule assignment."""
+    pairs are masked with this topology's molecule assignment.  With
+    `shard`, this rank's share: its home cells, or its atoms' rows of the
+    half list."""
     if system.rs_cells and x.ndim == 2:
         f = x.dtype
         return realspace_pair.realspace_inter_cells(
             x, topo.charge.to(f), topo.atom_type.to(f), topo.atom_mol.to(f),
             box, realspace_pair.build_tabs(system, f), system.rs_cells,
-            system.real_space_cutoff, system.alpha_sqrt, system.has_sapt)
+            system.real_space_cutoff, system.alpha_sqrt, system.has_sapt,
+            None if shard is None else shard.cells(system.rs_cells))
+    if shard is not None:
+        rows = shard.atoms(system.n_atoms)
+        pairs = tuple(p[rows] for p in pairs)
     e_el, e_vdw = _realspace_inter_pairs(x, box, topo, system, pairs)
     return e_el, e_vdw, torch.zeros((), dtype=torch.bool, device=x.device)
 
@@ -122,30 +131,45 @@ def intra_terms(xa_pc, mtype, box, system, mmask=None):
     return el.sum(-1), torch.where(nonexcl, e_vdw, zero).sum(-1)
 
 
-def energy_no_recip(x, box, topo, system, pairs, xa_pc=None):
-    """All terms except reciprocal PME, including the Ewald self term."""
-    e_real_elec, e_real_vdw, rs_overflow = realspace_inter(x, box, topo,
-                                                           system, pairs)
+def energy_no_recip(x, box, topo, system, pairs, xa_pc=None, shard=None):
+    """All terms except reciprocal PME, including the Ewald self term.
+    With `shard` (xa_pc not used) every rank computes its share: its
+    real-space share, its molecules' intra and bonded terms and its
+    atoms' self term; the five scalars are summed over the ranks
+    (parallel/shard.py: the gradient passed through, so each rank's
+    backward gives its own share's)."""
+    e_real_elec, e_real_vdw, rs_overflow = realspace_inter(
+        x, box, topo, system, pairs, shard)
+    mols, atoms = slice(None), slice(None)
+    if shard is not None:
+        mols, atoms = shard.mols(system.n_mole), shard.atoms(system.n_atoms)
+        xa_pc = None
     if xa_pc is None:
-        xa_pc = mol_sites_packed(x, topo.charge, topo.mol_atoms)
-    ie, iv = intra_terms(xa_pc, topo.mol_mtype, box, system)
+        xa_pc = mol_sites_packed(x, topo.charge, topo.mol_atoms[mols])
+    mtype = topo.mol_mtype[mols]
+    ie, iv = intra_terms(xa_pc, mtype, box, system)
     e_intra_elec, e_intra_vdw = ie.sum(), iv.sum()
-    e_self = pme.ewald_self(topo.charge, system.alpha_sqrt)
+    e_self = pme.ewald_self(topo.charge[atoms], system.alpha_sqrt)
     eb, ea, ed = (t.sum() for t in bonded.bonded_energies(
-        xa_pc[..., 0:3], topo.mol_mtype, box, system))
+        xa_pc[..., 0:3], mtype, box, system))
     elec = e_real_elec + e_intra_elec + e_self
     vdw = e_real_vdw + e_intra_vdw
+    if shard is not None:
+        elec, vdw, eb, ea, ed = shard.sum(
+            torch.stack([elec, vdw, eb, ea, ed]), "energy").unbind()
     return EnergyBreakdown(total=elec + vdw + eb + ea + ed, elec=elec,
                            vdw=vdw, bond=eb, angle=ea, dihedral=ed,
                            rs_overflow=rs_overflow,
                            slab_overflow=torch.zeros_like(rs_overflow))
 
 
-def total_energy(x, box, topo, system, pairs, cbw):
-    """Full potential energy of one topology (non-reactive path)."""
-    bd = energy_no_recip(x, box, topo, system, pairs)
+def total_energy(x, box, topo, system, pairs, cbw, shard=None):
+    """Full potential energy of one topology (non-reactive path); with
+    `shard` every rank's share summed over the ranks (parallel/shard.py)."""
+    bd = energy_no_recip(x, box, topo, system, pairs, shard=shard)
     Q, slab_over = pme.charge_grid(x, topo.charge, box, system.pme_grid,
-                                   system.spline_order, scap=system.pme_scap)
+                                   system.spline_order, scap=system.pme_scap,
+                                   shard=shard)
     e_recip = pme.recip_energy(Q, cbw)
     return EnergyBreakdown(total=bd.total + e_recip, elec=bd.elec + e_recip,
                            vdw=bd.vdw, bond=bd.bond, angle=bd.angle,

@@ -33,6 +33,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "--expt-relaxed-constexpr"]
 
 launches = Counter()
+# collectives a step shared over ranks issued (parallel/shard.py), by
+# name; kept here so md/graphs.py moves them across a capture and its
+# replays as it moves the launches
+collectives = Counter()
 build_info = {}            # seconds, path, nvcc output of the last build
 _lib = None
 _functions = {}

@@ -23,6 +23,14 @@ What bounds them on the H100 and what the designs do about it: see the
 source.  ``pair_rows`` runs a CUDA kernel for a CUDA tensor and the plain
 torch sweep below, the plain version of all three, for a CPU tensor;
 nothing else selects between them.
+
+A cell range (c0, c1) takes the rows of the home cells c0 .. c1 - 1 only,
+the others zero: kernel A and the plain sweep compute those cells alone
+(A's range launch), A' and A'' sweep every cell and their rows outside
+the range are zeroed (their fold assembles each slot's j side from other
+cells' blocks).  A row holds its atom's whole gradient and its share of
+the pair energies, so the ranges of a partition of the cells sum to the
+full sweep (parallel/shard.py splits one step's sweep so over ranks).
 The kernel assumes an orthorhombic box (L = diag(box)), as the reference
 kernel does; ``suggest_rs_cells`` returns () for any other box.
 """
@@ -131,18 +139,19 @@ def _stencil(cells, device):
             + (c3[:, None] + o[:, 2]) % nc3)
 
 
-def pair_rows_plain(cm, tabs, cells, L, rcut, alpha, has_sapt):
+def pair_rows_plain(cm, tabs, cells, L, rcut, alpha, has_sapt,
+                    cell_range=None):
     """Plain torch version of the kernel: same inputs, same output."""
     nc1, nc2, nc3, ccap = cells
     n_cells = nc1 * nc2 * nc3
+    lo, hi = (0, n_cells) if cell_range is None else cell_range
     T = tabs.shape[-1]
     cmr = cm.view(n_cells, ccap, 8)
     nb = _stencil(cells, cm.device)
     conv = CONV_E2A_KJMOL
     out = []
-    for c0 in range(0, n_cells, _CELL_CHUNK):
-        cs = torch.arange(c0, min(c0 + _CELL_CHUNK, n_cells),
-                          device=cm.device)
+    for c0 in range(lo, hi, _CELL_CHUNK):
+        cs = torch.arange(c0, min(c0 + _CELL_CHUNK, hi), device=cm.device)
         own = cmr[cs][:, :, None, :]                           # (n, ccap, 1, 8)
         cand = cmr[nb[cs]].reshape(len(cs), 1, 27 * ccap, 8)   # (n, 1, J, 8)
         gid_i = (cs[:, None] * ccap
@@ -211,7 +220,12 @@ def pair_rows_plain(cm, tabs, cells, L, rcut, alpha, has_sapt):
         out.append(torch.cat([-(s_el * d).sum(2), -(s_v * d).sum(2),
                               0.5 * e_el.sum(2, keepdim=True),
                               0.5 * e_v.sum(2, keepdim=True)], dim=-1))
-    return torch.cat(out).reshape(n_cells * ccap, 8)
+    if cell_range is None:
+        return torch.cat(out).reshape(n_cells * ccap, 8)
+    rows = torch.zeros((n_cells * ccap, 8), dtype=cm.dtype, device=cm.device)
+    if out:
+        rows[lo * ccap:hi * ccap] = torch.cat(out).reshape(-1, 8)
+    return rows
 
 
 def _check(cm, tabs, cells, box, name):
@@ -256,21 +270,40 @@ def check_full_smem(n_tabv, cells, itemsize, name="A"):
     return smem
 
 
-def pair_rows_cuda(cm, tabs, cells, box, rcut, alpha, has_sapt):
-    """Launch kernel A (box: (3, 3), orthorhombic)."""
+def _cell_range(cells, cell_range):
+    """(c0, c1) of `cell_range` (None: every cell), checked."""
+    n_cells = cells[0] * cells[1] * cells[2]
+    if cell_range is None:
+        return 0, n_cells
+    c0, c1 = (int(c) for c in cell_range)
+    if not 0 <= c0 <= c1 <= n_cells:
+        raise ValueError(f"cell range {cell_range} outside the "
+                         f"{n_cells} cells")
+    return c0, c1
+
+
+def pair_rows_cuda(cm, tabs, cells, box, rcut, alpha, has_sapt,
+                   cell_range=None):
+    """Launch kernel A (box: (3, 3), orthorhombic), over the home cells
+    of `cell_range` only when given (the other rows zero)."""
     n_tab, T = _check(cm, tabs, cells, box, "A")
     nc1, nc2, nc3, ccap = cells
+    c0, c1 = _cell_range(cells, cell_range)
     check_full_smem(n_tab * T * T, cells, cm.element_size())
     if cm.data_ptr() % 16:
         raise ValueError("kernel A reads cm rows in 16-byte loads: cm must "
                          "be 16-byte aligned")
     f = cm.dtype
-    out = torch.empty_like(cm)
-    fn = _build.function("rs_pair_" + _build.suffix(f), 5, 8, 3)
+    full = c1 - c0 == nc1 * nc2 * nc3
+    out = torch.empty_like(cm) if full else torch.zeros_like(cm)
+    if c1 == c0:
+        return out
+    fn = _build.function("rs_pair_" + _build.suffix(f), 5, 10, 3)
     _build.check(fn(cm.data_ptr(), tabs.data_ptr(), box.data_ptr(),
                     out.data_ptr(), _build.stream_ptr(cm), nc1, nc2, nc3,
-                    ccap, full_parts(cells), T, n_tab, int(bool(has_sapt)),
-                    float(rcut) ** 2, float(alpha), CONV_E2A_KJMOL), "A")
+                    ccap, full_parts(cells), c0, c1 - c0, T, n_tab,
+                    int(bool(has_sapt)), float(rcut) ** 2, float(alpha),
+                    CONV_E2A_KJMOL), "A")
     _build.launches["A"] += 1
     return out
 
@@ -322,32 +355,47 @@ def pair_rows_half_cuda(cm, tabs, cells, box, rcut, alpha, has_sapt,
     return out
 
 
-def pair_rows(cm, tabs, cells, box, rcut, alpha, has_sapt, impl="full"):
+def pair_rows(cm, tabs, cells, box, rcut, alpha, has_sapt, impl="full",
+              cell_range=None):
     """Per-slot [dE_el/dx (3), dE_vdw/dx (3), e_el, e_vdw]: for a CUDA
     tensor the kernel of `impl` (A "full", A' "half", A'' "column"), for
     a CPU tensor the plain sweep (whose rows split each pair energy in
-    two, as A's do; the sums agree)."""
+    two, as A's do; the sums agree).  cell_range: the home cells (c0,
+    c1) whose rows to give, the others zero (see the module
+    docstring)."""
     if not cm.is_cuda:
+        if cell_range is not None:
+            cell_range = _cell_range(cells, cell_range)
         return pair_rows_plain(cm, tabs, cells, torch.diagonal(box), rcut,
-                               alpha, has_sapt)
+                               alpha, has_sapt, cell_range)
     box = box.contiguous()
     if impl == "full":
-        return pair_rows_cuda(cm, tabs, cells, box, rcut, alpha, has_sapt)
-    return pair_rows_half_cuda(cm, tabs, cells, box, rcut, alpha, has_sapt,
+        return pair_rows_cuda(cm, tabs, cells, box, rcut, alpha, has_sapt,
+                              cell_range)
+    rows = pair_rows_half_cuda(cm, tabs, cells, box, rcut, alpha, has_sapt,
                                column=impl == "column")
+    if cell_range is None:
+        return rows
+    c0, c1 = _cell_range(cells, cell_range)
+    ccap = cells[3]
+    slot = torch.arange(rows.shape[0], device=rows.device)[:, None]
+    keep = (slot >= c0 * ccap) & (slot < c1 * ccap)
+    return torch.where(keep, rows, torch.zeros_like(rows))
 
 
 class RealspaceInterCells(torch.autograd.Function):
     """(e_elec, e_vdw, overflow) over all inter-molecular pairs within the
-    cutoff; differentiable in x only (the stored analytic gradients)."""
+    cutoff; differentiable in x only (the stored analytic gradients).
+    With a cell range, the home cells' share: their atoms' gradients and
+    their rows' energies (pair_rows)."""
 
     @staticmethod
     def forward(ctx, x, charge, atype, mol, box, tabs, cells, rcut, alpha,
-                has_sapt):
+                has_sapt, cell_range=None):
         slot, overflow = bin_atoms(x, box, cells, rcut)
         cm = pack_cells(x, charge, atype, mol, slot, cells)
         f = pair_rows(cm, tabs, cells, box, rcut, alpha, has_sapt,
-                      _impl_for(cells))
+                      _impl_for(cells), cell_range)
         g = torch.cat([f, torch.zeros_like(f[:1])])[slot]
         ctx.save_for_backward(g[:, 0:3], g[:, 3:6])
         ctx.mark_non_differentiable(overflow)
@@ -356,11 +404,11 @@ class RealspaceInterCells(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ge, gv, _):
         g_el, g_vdw = ctx.saved_tensors
-        return (ge * g_el + gv * g_vdw,) + (None,) * 9
+        return (ge * g_el + gv * g_vdw,) + (None,) * 10
 
 
 def realspace_inter_cells(x, charge, atype, mol, box, tabs, cells, rcut,
-                          alpha, has_sapt):
+                          alpha, has_sapt, cell_range=None):
     return RealspaceInterCells.apply(x, charge, atype, mol, box, tabs,
                                      cells, float(rcut), float(alpha),
-                                     bool(has_sapt))
+                                     bool(has_sapt), cell_range)

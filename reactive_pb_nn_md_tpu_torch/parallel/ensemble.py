@@ -1,6 +1,8 @@
-"""Replica ensembles on one card (counterpart of the one-card half of
-reactive_pb_nn_md_tpu/parallel/ensemble.py: stack_replicas, _no_tier,
-make_replica_step, make_replica_scan).
+"""Replica ensembles and their meshes (counterpart of
+reactive_pb_nn_md_tpu/parallel/ensemble.py: make_mesh, stack_replicas,
+replica_sharding, _no_tier, make_replica_step, make_replica_scan,
+atom_sharding, make_atom_sharded_step, make_atom_sharded_scan,
+collective_summary).
 
 The JAX package vmaps the step over a leading replica axis.  Here a batch
 of W replicas is a list of W MDStates of one signature (the same shapes,
@@ -26,7 +28,23 @@ replayed, so no sample comes from truncated data (the JAX ladder only
 reports the overflow).  A regrow is a new System and so one capture more;
 otherwise a W-replica batch needs one capture.
 
-The multi-device half (meshes, sharded replicas and atoms) is not here.
+Over several ranks (parallel/mesh.py, a dp x sp mesh):
+
+  * replicas over the "replica" axis (MeshReplicaScan): rank block d of
+    dp holds the contiguous replicas d W/dp .. (d+1) W/dp - 1 (W must
+    divide by dp) and runs them through its own captured step on its own
+    device.  Replica w's generator is seeded from replica_seed(seed, w)
+    whatever rank holds it, so a W-replica run gives the same
+    trajectories on any number of ranks.  The capacity flags of a chunk
+    (and kernel E's failure) are OR-ed over the replica group before any
+    rank decides, so every rank regrows to the same caps and replays
+    together (a decision from one rank's own flags could leave one rank
+    capturing while another replays, a hang under NCCL); the
+    diagnostics come back as (W, n) fields in replica order, gathered
+    from every rank.  States stay with their ranks;
+  * one replica's step over the "atoms" axis (atom_sharding, make_atom_
+    sharded_step / _scan): parallel/shard.py.  On a dp x sp mesh with
+    sp > 1 each block's replicas run so.
 """
 
 import dataclasses
@@ -34,9 +52,13 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..md import bias as bias_mod
 from ..md import graphs, integrators
+# the JAX module's names
+from .mesh import make_mesh  # noqa: F401
+from .shard import collective_summary  # noqa: F401
 
 # regrow rounds before a capacity that still overflows is an error
 MAX_REGROWS = 16
@@ -64,13 +86,27 @@ def generator_state(device, seed):
     return torch.Generator(device=device).manual_seed(seed).get_state()
 
 
-def stack_replicas(ms, n_replicas, seed):
-    """n_replicas copies of `ms` with distinct generator states."""
+def replica_sharding(mesh, n_replicas):
+    """The range of the replicas this rank's block of `mesh` holds (W must
+    divide by the "replica" axis)."""
+    if n_replicas % mesh.dp:
+        raise ValueError(f"{n_replicas} replicas do not divide over the "
+                         f"{mesh.dp} ranks of the replica axis")
+    per = n_replicas // mesh.dp
+    return range(mesh.replica_index * per, (mesh.replica_index + 1) * per)
+
+
+def stack_replicas(ms, n_replicas, seed, mesh=None):
+    """n_replicas copies of `ms` with distinct generator states; with a
+    mesh, this rank's block of them (replica_sharding), replica w's
+    generator seeded as on one rank."""
     dev = ms.state.x.device
+    block = (range(n_replicas) if mesh is None
+             else replica_sharding(mesh, n_replicas))
     return ReplicaBatch(
-        states=[ms] * n_replicas,
+        states=[ms] * len(block),
         generators=[generator_state(dev, replica_seed(seed, w))
-                    for w in range(n_replicas)])
+                    for w in block])
 
 
 def _no_tier(system):
@@ -114,10 +150,12 @@ class ReplicaScan:
     `regrows` keeps the regrow log lines (one or two a regrow),
     `n_regrows` counts the regrows, `step_graphs` keeps the captures (on
     the card).  eager: no graph on the card either (for
-    comparisons)."""
+    comparisons).  shard: every replica's step shared over ranks
+    (parallel/shard.py)."""
 
     def __init__(self, system, cbw, dt, ensemble, n_steps, friction=0.1,
-                 temperature=300.0, hard_max_states=None, eager=False):
+                 temperature=300.0, hard_max_states=None, eager=False,
+                 shard=None):
         if ensemble not in integrators.ENSEMBLES:
             raise ValueError(f"ensemble {ensemble!r}: expected one of "
                              f"{', '.join(integrators.ENSEMBLES)}")
@@ -129,6 +167,7 @@ class ReplicaScan:
                                 if hard_max_states is None
                                 else hard_max_states)
         self.eager = eager
+        self.shard = shard
         self.caps = None
         self.regrows = []
         self.n_regrows = 0
@@ -142,7 +181,7 @@ class ReplicaScan:
         """n_steps steps of one replica from (ms, gen_state), in chunks of
         at most MAX_CHUNK: (MDState, generator state, diagnostics); the
         run stops after the first chunk with a capacity that did not
-        hold."""
+        hold or a failed kernel E."""
         g = self.generator
         g.set_state(gen_state)
         diags, done = [], 0
@@ -151,16 +190,32 @@ class ReplicaScan:
             ms, d = integrators.md_scan(
                 ms, self.system, self.cbw, self.dt, self.ensemble, n,
                 self.friction, self.temperature, generator=g,
-                step_graphs=self.step_graphs, eager=self.eager, bias=bias)
+                step_graphs=self.step_graphs, eager=self.eager, bias=bias,
+                shard=self.shard)
             diags.append(d)
             done += n
-            if bool(d.gs_failed.any()):
-                raise integrators.GroundStateError(
-                    "a replica's EVB ground state (kernel E) did not "
-                    "converge")
-            if d.capacities():
+            if bool(d.gs_failed.any()) or d.capacities():
                 break
         return ms, g.get_state(), _cat(diags, torch.cat)
+
+    def _reduce(self, flags):
+        """The (len(CAPACITIES) + 1,) bool flags of this rank's replicas
+        (the capacities, then kernel E's failure) as every rank that takes
+        the decision with it sees them: here they are."""
+        return flags
+
+    def _gather(self, diag):
+        """The (W, n) diagnostics of all replicas from this rank's."""
+        return diag
+
+    def _decide(self, flags):
+        """The capacities to regrow by the reduced `flags`; raises when
+        kernel E failed in a replica."""
+        flags = self._reduce(flags)
+        if bool(flags[-1]):
+            raise integrators.GroundStateError(
+                "a replica's EVB ground state (kernel E) did not converge")
+        return integrators.overflow_names(flags[:-1])
 
     def _grow(self, names, states, biases):
         """Grow the capacities of `names` for every replica and set each of
@@ -188,52 +243,154 @@ class ReplicaScan:
         return integrators.initial_md_state(
             ms.state, ms.topo, self.system, self.cbw, capacity, cells,
             react_cap=react_cap, react_cells=react_cells, comp=ms.comp,
-            bias=bias)
+            bias=bias, shard=self.shard)
 
-    def __call__(self, batch, ladder=None):
+    def __call__(self, batch, ladder=None, first=0):
+        """The chunk of every replica of `batch`; `first` the index in the
+        whole ensemble of its replica 0 (its window of `ladder`)."""
         W = len(batch)
-        biases = [window_bias(ladder, w) for w in range(W)]
+        biases = [window_bias(ladder, first + w) for w in range(W)]
         states, gens = list(batch.states), list(batch.generators)
         if self.caps is None:
             nl = states[0].nlist
             self.caps = (nl.capacity, nl.cells, nl.react_cap or None,
                          nl.react_cells or None)
-        # the start states' own flags: a replica set up under a capacity
-        # that did not hold has forces from truncated data
-        names = integrators.overflow_names(
-            torch.stack([m.overflow for m in states]).any(0))
+        n_cap = len(integrators.CAPACITIES)
+
+        def start_flags():
+            # a replica set up under a capacity that did not hold has
+            # forces from truncated data
+            f = torch.stack([m.overflow for m in states]).any(0).cpu()
+            return torch.cat([f, torch.zeros(1, dtype=torch.bool)])
+
+        names = self._decide(start_flags())
         while names:
             states = self._grow(names, states, biases)
-            names = integrators.overflow_names(
-                torch.stack([m.overflow for m in states]).any(0))
-        w = 0
-        out, out_gens, diags = [], [], []
-        while w < W:
-            ms, gen, d = self._replica(states[w], gens[w], biases[w])
-            names = d.capacities()
-            if names:
-                states = self._grow(names, states, biases)
-                out, out_gens, diags, w = [], [], [], 0
-                continue
-            out.append(ms)
-            out_gens.append(gen)
-            diags.append(d)
-            w += 1
+            names = self._decide(start_flags())
+        while True:
+            out, out_gens, diags = [], [], []
+            flags = torch.zeros(n_cap + 1, dtype=torch.bool)
+            for w in range(W):
+                ms, gen, d = self._replica(states[w], gens[w], biases[w])
+                flags = torch.tensor(
+                    [bool(getattr(d, f).any())
+                     for f in integrators.CAPACITY_FIELDS]
+                    + [bool(d.gs_failed.any())])
+                if flags.any():
+                    break
+                out.append(ms)
+                out_gens.append(gen)
+                diags.append(d)
+            names = self._decide(flags)
+            if not names:
+                break
+            states = self._grow(names, states, biases)
         self.steps_done += self.n_steps
-        return ReplicaBatch(out, out_gens), _cat(diags, torch.stack)
+        return (ReplicaBatch(out, out_gens),
+                self._gather(_cat(diags, torch.stack)))
+
+
+class MeshReplicaScan(ReplicaScan):
+    """A ReplicaScan over the "replica" axis of a mesh (parallel/mesh.py):
+    scan(block[, ladder]) -> (this rank's block after the chunk,
+    ChunkDiagnostics of (W, n_steps) fields of all replicas in replica
+    order).  `block` is this rank's replicas (stack_replicas(..., mesh));
+    every rank of the world calls it together.  The regrow decision is
+    taken from flags OR-ed over the replica group, so every rank grows
+    to the same caps and replays.  With sp > 1 every replica's step is
+    shared over the rank's atoms group."""
+
+    def __init__(self, mesh, system, cbw, dt, ensemble, n_steps,
+                 friction=0.1, temperature=300.0, hard_max_states=None,
+                 eager=False):
+        super().__init__(system, cbw, dt, ensemble, n_steps, friction,
+                         temperature, hard_max_states, eager,
+                         shard=atom_sharding(mesh) if mesh.sp > 1 else None)
+        self.mesh = mesh
+
+    def _reduce(self, flags):
+        v = flags.to(torch.int32).to(self.mesh.device)
+        dist.all_reduce(v, op=dist.ReduceOp.MAX,
+                        group=self.mesh.replica_group)
+        return (v != 0).cpu()
+
+    def _gather(self, diag):
+        fields = [f.name for f in dataclasses.fields(diag)]
+        local = torch.stack([getattr(diag, f).to(torch.float64)
+                             for f in fields], -1)      # (W_b, n, F)
+        parts = [torch.empty_like(local, device=self.mesh.device)
+                 for _ in range(self.mesh.dp)]
+        dist.all_gather(parts, local.to(self.mesh.device),
+                        group=self.mesh.replica_group)
+        full = torch.cat(parts).cpu()
+        return integrators.ChunkDiagnostics(**{
+            f: full[..., i].to(getattr(diag, f).dtype)
+            for i, f in enumerate(fields)})
+
+    def __call__(self, block, ladder=None):
+        per = len(block)
+        return super().__call__(block, ladder,
+                                first=self.mesh.replica_index * per)
 
 
 def make_replica_step(system, cbw, dt, ensemble, friction=0.1,
-                      temperature=300.0, hard_max_states=None):
+                      temperature=300.0, hard_max_states=None, mesh=None):
     """One step of every replica: scan(batch) -> (batch, diagnostics of
-    (W, 1) fields)."""
-    return ReplicaScan(system, cbw, dt, ensemble, 1, friction, temperature,
-                       hard_max_states)
+    (W, 1) fields); with a mesh, over its ranks (MeshReplicaScan)."""
+    return make_replica_scan(system, cbw, dt, ensemble, 1, friction,
+                             temperature, hard_max_states, mesh)
 
 
 def make_replica_scan(system, cbw, dt, ensemble, n_steps, friction=0.1,
-                      temperature=300.0, hard_max_states=None):
+                      temperature=300.0, hard_max_states=None, mesh=None):
     """n_steps steps of every replica: scan(batch) -> (batch, diagnostics
-    of (W, n_steps) fields)."""
+    of (W, n_steps) fields); with a mesh, over its ranks
+    (MeshReplicaScan)."""
+    if mesh is not None:
+        return MeshReplicaScan(mesh, system, cbw, dt, ensemble, n_steps,
+                               friction, temperature, hard_max_states)
     return ReplicaScan(system, cbw, dt, ensemble, n_steps, friction,
                        temperature, hard_max_states)
+
+
+def atom_sharding(mesh):
+    """This rank's AtomShard on the mesh's "atoms" axis (parallel/
+    shard.py): what the JAX package's shardings of one MDState are to its
+    step."""
+    return mesh.atom_shard()
+
+
+def make_atom_sharded_step(system, cbw, dt, ensemble, mesh, friction=0.1,
+                           temperature=300.0):
+    """One step of one replica shared over the mesh's "atoms" axis:
+    step(ms, noise=None) -> MDState, the same on every rank of the
+    group (md_step with the shard; under NVT every rank passes the same
+    draws)."""
+    shard = atom_sharding(mesh)
+
+    def step(ms, noise=None):
+        return integrators.md_step(ms, system, cbw, dt, ensemble, friction,
+                                   temperature, noise=noise, shard=shard)
+
+    return step
+
+
+def make_atom_sharded_scan(system, cbw, dt, ensemble, mesh, n_steps,
+                           friction=0.1, temperature=300.0):
+    """The chunked production loop of one replica shared over the mesh's
+    "atoms" axis: scan(ms, generator=None) -> (MDState, ChunkDiagnostics),
+    md_scan with the shard; on the card the replays of one captured step
+    that holds its collectives (its captures kept in scan.step_graphs).
+    The state stays replicated between chunks (parallel/shard.py)."""
+    shard = atom_sharding(mesh)
+    step_graphs = graphs.StepGraphs() if mesh.device.type == "cuda" \
+        else None
+
+    def scan(ms, generator=None):
+        return integrators.md_scan(ms, system, cbw, dt, ensemble, n_steps,
+                                   friction, temperature, generator,
+                                   step_graphs=step_graphs, shard=shard)
+
+    scan.step_graphs = step_graphs
+    return scan
+

@@ -889,3 +889,114 @@ def test_replica_generator_swap_on_the_card():
     assert float((x[0] - x[2]).abs().max()) <= 1e-9
     assert torch.equal(out.generators[0], out.generators[2])
     assert not torch.equal(out.generators[0], batch.generators[0])
+
+
+# ---- one replica's step shared over ranks (parallel/shard.py)
+
+@pytest.mark.parametrize("impl", ["full", "half", "column"])
+def test_pair_kernel_cell_ranges_sum_to_the_full_launch(impl):
+    """A's range launch (and A' / A'' with their rows outside the range
+    zeroed), the flagship's cells in 4 ranges: each range's rows equal the
+    full launch's there and are zero elsewhere; the ranges sum to it."""
+    _need_card()
+    from reactive_pb_nn_md_tpu_torch.parallel.shard import AtomShard, split
+    for f, rtol, _ in DTYPES:
+        system, x, box, topo = _flagship_x(f)
+        cells = system.rs_cells
+        slot, _ = rsp.bin_atoms(x, box, cells, system.real_space_cutoff)
+        cm = rsp.pack_cells(x, topo.charge.to(f), topo.atom_type.to(f),
+                            topo.atom_mol.to(f), slot, cells)
+        args = (rsp.build_tabs(system, f), cells, box,
+                system.real_space_cutoff, system.alpha_sqrt,
+                system.has_sapt, impl)
+        full = rsp.pair_rows(cm, *args)
+        n_cells, ccap = cells[0] * cells[1] * cells[2], cells[3]
+        parts = []
+        for r in range(4):
+            p = rsp.pair_rows(cm, *args,
+                              cell_range=AtomShard(None, r, 4).cells(cells))
+            lo, hi = split(n_cells, 4, r)
+            assert not p[:lo * ccap].any() and not p[hi * ccap:].any()
+            _close(p[lo * ccap:hi * ccap], full[lo * ccap:hi * ccap], rtol)
+            parts.append(p)
+        _close(sum(parts), full, rtol)
+
+
+def test_charge_spread_shares_sum_on_the_card():
+    """B1 over 4 atom ranges, summed, against the whole spread (fp64)."""
+    _need_card()
+    from reactive_pb_nn_md_tpu_torch.parallel.shard import AtomShard
+    system, x, box, topo = _flagship_x(torch.float64)
+    q = topo.charge.to(torch.float64)
+    K, order = system.pme_grid, system.spline_order
+    full = pme_spread.charge_grid(x, q, box, K, order)
+    shares = [pme_spread.charge_grid(x[a], q[a], box, K, order)
+              for a in (AtomShard(None, r, 4).atoms(system.n_atoms)
+                        for r in range(4))]
+    _close(sum(shares), full, 1e-12)
+
+
+@pytest.mark.parametrize("scap", [280, 520])
+def test_slab_spread_shares_sum_on_the_card(scap):
+    """D1 over the 4 atom ranges of a step sharded over 4 ranks, summed,
+    against the whole slab spread at the 10k lattice's shapes (K = 64,
+    order 6; the deck's slab cap 280 and the 520 a melting run regrows
+    to), fp64, no slab overflowing."""
+    _need_card()
+    from reactive_pb_nn_md_tpu_torch.parallel.shard import AtomShard
+    x0, q0, L = _water_10k()
+    x = torch.tensor(x0, device="cuda")
+    q = torch.tensor(q0, device="cuda")
+    box = torch.eye(3, dtype=torch.float64, device="cuda") * L
+    full, over = pme_slab.charge_grid_slab(x, q, box, 64, 6, scap)
+    assert not bool(over)
+    shares = []
+    for a in (AtomShard(None, r, 4).atoms(x.shape[0]) for r in range(4)):
+        g, over = pme_slab.charge_grid_slab(x[a], q[a], box, 64, 6, scap)
+        assert not bool(over)
+        shares.append(g)
+    _close(sum(shares), full, 1e-12)
+
+
+def test_sharded_scan_world_size_one_matches_unsharded(tmp_path):
+    """16 graphed NVE steps through make_atom_sharded_scan at world size 1
+    (nccl; the collectives in the captured step) against 16 graphed
+    unsharded steps: max |dx| <= 1e-12 A, potentials 1e-10; the graph
+    counts four collectives a replay."""
+    _need_card()
+    import torch.distributed as dist
+    from reactive_pb_nn_md_tpu_torch.md import graphs
+    from reactive_pb_nn_md_tpu_torch.parallel import ensemble, shard
+    sim = _reactive_sim(tmp_path, "NVE")
+    args = (sim.system, sim.cbw, sim.cfg.delta_t, "NVE")
+    dist.init_process_group("nccl", init_method="file://" + str(
+        tmp_path / "store"), rank=0, world_size=1)
+    try:
+        mesh = ensemble.make_mesh(1, sp=1, device="cuda")
+        sscan = ensemble.make_atom_sharded_scan(*args, mesh, 16)
+        sscan(sim.ms)
+        shard.collectives.clear()
+        s, sd = sscan(sim.ms)
+        assert dict(shard.collectives) == {"grid": 16, "energy": 16,
+                                           "force": 16, "flags": 16}
+        assert len(sscan.step_graphs.captures) == 1
+    finally:
+        dist.destroy_process_group()
+    g, gd = integrators.md_scan(sim.ms, *args, 16,
+                                step_graphs=graphs.StepGraphs())
+    assert not sd.capacities() and not gd.capacities()
+    np.testing.assert_allclose(s.state.x.cpu().numpy(),
+                               g.state.x.cpu().numpy(), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(sd.potential.numpy(), gd.potential.numpy(),
+                               rtol=1e-10)
+
+
+def test_dryrun_on_the_cards():
+    """The port's dryrun_multichip on up to 2 cards (nccl ranks)."""
+    _need_card()
+    from reactive_pb_nn_md_tpu_torch.parallel import dryrun, mesh
+    n = min(2, torch.cuda.device_count())
+    p1, p2, bad = mesh.launch(dryrun.dryrun_rank, n, n, "cuda",
+                              device="cuda", timeout=600, threads=0)[0]
+    assert bad == []
+    assert p2["match"] <= dryrun.POT_ATOL and p2["x_err"] <= dryrun.X_ATOL
