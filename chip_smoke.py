@@ -124,7 +124,8 @@ Phases, in order, one line each (any failure raises, exit code != 0):
         at a time) against eager: max |dx| <= 1e-9 A and |dEtot| <= 1e-8
         kJ/mol a window (8c's bound), the cv series within 1e-9, the
         windows' CV means apart, one capture;
-     c. the full-width ladder through run_pmf, fp32, 16 windows, 64
+     c. the full-width ladder through run_pmf (its windows batched: one
+        captured step for all 16), fp32, 16 windows, 64
         equilibration + 128 sampled steps a window (a depth cut from
         run_bench_umbrella's 400 + 1200), launch counts from 0: A, B1, B2,
         C1, C2, E launch, A', A'', D1, D2 do not; no capacity flag left
@@ -136,8 +137,8 @@ Phases, in order, one line each (any failure raises, exit code != 0):
         the aggregate windows x steps / wall, the captures, the graph
         pool MiB, the peak memory beside what earlier phases still held,
         and the barrier (NaN allowed at this depth);
-     d. bench.py run_bench_replicas' ensemble: 16 NVT replicas of the
-        lattice deck (examples/water_msevb/in.gro), fp32, cap 48 with no
+     d. bench.py run_bench_replicas' ensemble, batched: 16 NVT replicas
+        of the lattice deck (examples/water_msevb/in.gro), fp32, cap 48 with no
         tier, 40 steps: the trajectories pairwise apart (max |dx| > 1e-3
         A), replica 15 given replica 0's generator state within 1e-4 A of
         it (the card's accumulating ops), one capture when nothing
@@ -156,6 +157,29 @@ Phases, in order, one line each (any failure raises, exit code != 0):
      (K = 64, the deck's slab cap and SCAP_10K, no slab overflowing)
      summed against its whole slab spread, all fp64 within 1e-12 of the
      largest value; the sharded and unsharded ms a step.
+  12. the replica batch (md/integrators.py batched_md_scan, parallel/
+     ensemble.py BatchedReplicaScan: one step vmapped over the replicas,
+     captured once, each kernel one launch a step for all of them):
+     a. each kernel of the flagship path (A, B1, B2, C1, C2, E), its op's
+        batching rule under torch.func.vmap at W = 4 replicas of the
+        flagship's shapes (the equilibrated state moved by 0.02 A, S =
+        80), against 4 single launches, fp64 and fp32: one launch, fp64
+        within BATCH_TOL of the largest value, whether the bits are
+        equal; then at W = 16 the batch's launch against 16 single
+        launches by cuda_ms and graphed_device_ms, beside 16 times a
+        single launch's bound (the w16_* keys of the kernels line);
+     b. 4 windows (phase 10's restraints, centers in [-0.4, 0.4]) x 64
+        graphed fp64 flagship steps, NVE and NVT, batched against in turn
+        (ReplicaScan): per window max |dx| and |dEtot| within phase 8c's
+        fp64 bounds; each kernel launches 64 + 1 times batched (the
+        replays and the capture's warm-up) against 4 x 64 + 1; one
+        capture;
+     c. fp32 flagship NVT window-steps/s, batched and in turn, at W = 1,
+        4 and 16 (64 steps timed after a 4-step chunk holding the
+        capture), the device ms and device ops of a batched step and of
+        a window's step in turn (at W = 1; tools/profile_step.py
+        profiled_chunk), graph pool MiB and peak memory: printed, not
+        gated.
 The line before the last is nvidia-smi's name and power limit, the one
 before it the per-kernel JSON (times, errors and bounds in fp64; fp32 in
 the fp32_ keys); the last line is the result JSON.
@@ -184,6 +208,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 ROOT = pathlib.Path(__file__).resolve().parent
 DECK = ROOT / "examples" / "water_msevb"
@@ -246,6 +271,12 @@ SHARD_STEPS, SHARD_DX, RANGE_TOL = 64, 1e-12, 1e-12
 # the 10k lattice's slab cap once it melts (the deck's 280 overflows at
 # step 31 of a fp32 NVE run)
 SCAP_10K = 520
+# phase 12: the replica batch: 12a's and 12b's replicas, 12b's graphed
+# steps, 12a's bound on a batched launch against W single launches (of
+# max |singles|, fp64: the same arithmetic in the same order, but for
+# torch's sums over C1's partials), 12c's batch sizes and steps a chunk
+BATCH_W, BATCH_STEPS, BATCH_TOL = 4, 64, 1e-13
+BATCH_RATE_W, BATCH_RATE_STEPS = (1, 4, 16), 64
 
 # Tolerances (|got - ref| <= atol + rtol |ref|, atol relative to max|ref|):
 #  fp64: 1e-10 relative for every kernel.
@@ -502,19 +533,17 @@ def pair_kernels(out, tag, system, x, box, topo, names):
             rsp.set_stencil_impl("auto")
 
 
-def perstate_kernels(out, tag, x, box, topo, system, cbw, S, rng, key):
-    """C1 / C2 at S states, U = 4 S, on the real spectra of `x`."""
+def perstate_inputs(x, box, topo, system, cbw, S, rng):
+    """Kernel C's eight arguments at S states, U = 4 S, on the real
+    spectra of `x` (perstate_kernels' inputs)."""
     import torch
-    from reactive_pb_nn_md_tpu_torch.ops.kernels import recip_perstate as rp
     from reactive_pb_nn_md_tpu_torch.models import pme
-    fp64 = tag == "fp64"
     dtype, dev = x.dtype, x.device
     K, order = system.pme_grid, system.spline_order
     Q0, _ = pme.charge_grid(x, topo.charge.contiguous(), box, K, order,
                             scap=system.pme_scap)
     F0 = torch.fft.rfftn(Q0)
-    Mh = K * (K // 2 + 1)
-    U = 4 * S
+    Mh, U = K * (K // 2 + 1), 4 * S
     (Ar, Ai), (Br, Bi), (Cr, Ci) = pme.structure_axis_factors(
         x[:U], box, K, order)
     BCr = (Br[:, :, None] * Cr[:, None, :]
@@ -523,9 +552,21 @@ def perstate_kernels(out, tag, x, box, topo, system, cbw, S, rng, key):
            + Bi[:, :, None] * Cr[:, None, :]).reshape(U, Mh)
     dq = torch.tensor(rng.standard_normal((S, U)) * 0.3, dtype=dtype,
                       device=dev)
-    ins = [t.contiguous() for t in (
+    return [t.contiguous() for t in (
         dq, Ar.T, Ai.T, BCr, BCi, F0.real.reshape(K, Mh),
         F0.imag.reshape(K, Mh), cbw.reshape(K, Mh))]
+
+
+def perstate_kernels(out, tag, x, box, topo, system, cbw, S, rng, key):
+    """C1 / C2 at S states, U = 4 S, on the real spectra of `x`."""
+    import torch
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import recip_perstate as rp
+    fp64 = tag == "fp64"
+    dtype, dev = x.dtype, x.device
+    K = system.pme_grid
+    Mh, U = K * (K // 2 + 1), 4 * S
+    ins = perstate_inputs(x, box, topo, system, cbw, S, rng)
+    dq, BCr, BCi = ins[0], ins[3], ins[4]
     gbar = torch.tensor(rng.standard_normal(S), dtype=dtype, device=dev)
     e_k = rp.perstate_fwd_cuda(*ins)
     e_p = rp.perstate_plain(*ins)
@@ -1744,7 +1785,8 @@ def phase_ladder_pmf():
         f"{LADDER['chunk']}, fp32, cap {out['config']['evb_max_states']}, "
         f"triple {out['config']['atoms']}")
     log(f"  10c {out['aggregate_steps_per_s']} window-steps/s aggregate "
-        f"(windows x steps / wall), first chunk with the capture "
+        f"(windows x steps / wall; the windows batched; the windows in "
+        f"turn before the batch: 70.9), first chunk with the capture "
         f"{out['compile_s']} s, total {out['total_s']} s; "
         f"{len(scan.step_graphs.captures)} captures, graph pool "
         f"{pool:.1f} MiB, peak memory {peak:.1f} MiB ({before:.1f} MiB "
@@ -1798,7 +1840,9 @@ def phase_replicas(tmp):
     rate = REPLICAS * REPLICA_STEPS / wall
     log(f"  10d {REPLICAS} NVT replicas x {REPLICA_STEPS} fp32 steps of the "
         f"lattice deck, cap {REPLICA_CAP} no tier: {rate:.1f} "
-        f"replica-steps/s aggregate ({wall:.2f} s, the capture "
+        f"replica-steps/s aggregate, batched (in turn before the batch: "
+        f"66.1; "
+        f"{wall:.2f} s, the capture "
         f"included), min pairwise max|dx| {apart:.3e} A, the same generator "
         f"state {same:.3e} A, {caps} captures, regrows {scan.regrows}")
     check(not diag.capacities(), "10d: a capacity flag stands")
@@ -1946,6 +1990,294 @@ def phase_sharded(tmp):
     return counts
 
 
+# ---- phase 12: the replica batch (integrators.batched_md_scan)
+
+def batch_cases(dtype, W, seed=12):
+    """Per kernel of the flagship path: (batched fn, the batch's direct
+    launch (no vmap), one replica's launch fn(w), per-replica bytes and
+    operations, whether its work is GEMMs) for W replicas at the
+    flagship's shapes: W copies of the equilibrated state moved by
+    0.02 A, S = 80, K = 32; the batched fn is the op under torch.func.vmap
+    (its batching rule), with the inputs a batch shares unbatched."""
+    import numpy as np
+    import torch
+    from reactive_pb_nn_md_tpu_torch.ops import ground_state as gs
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import pme_spread as sp
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import realspace_pair as rsp
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import recip_perstate as rp
+    from reactive_pb_nn_md_tpu_torch.utils import pbc
+    vmap = torch.func.vmap
+    dev = torch.device("cuda")
+    system, state, topo, _, cbw, _ = flagship(dev, dtype)
+    rng = np.random.default_rng(seed)
+    xs = [state.x + torch.tensor(rng.normal(scale=0.02, size=state.x.shape),
+                                 dtype=dtype, device=dev) for _ in range(W)]
+    box, f = state.box, dtype
+    cells, K, order = system.rs_cells, system.pme_grid, system.spline_order
+    rc, alpha, sapt = (system.real_space_cutoff, system.alpha_sqrt,
+                       system.has_sapt)
+    tabs = rsp.build_tabs(system, f)
+    cms = torch.stack([rsp.pack_cells(
+        x, topo.charge.to(f), topo.atom_type.to(f), topo.atom_mol.to(f),
+        rsp.bin_atoms(x, box, cells, rc)[0], cells) for x in xs])
+    n = state.x.shape[0]
+    n_pairs = pairs_within(xs[0], box, topo.atom_mol, rc)
+    cases = {"A": (
+        lambda: vmap(lambda c: rsp.pair_rows(c, tabs, list(cells), box, rc,
+                                             alpha, sapt))(cms),
+        lambda: rsp.pair_rows_cuda(cms, tabs, cells, box, rc, alpha, sapt,
+                                   nb=W),
+        lambda w: rsp.pair_rows(cms[w], tabs, cells, box, rc, alpha, sapt),
+        2 * nbytes(cms[0]) + nbytes(tabs, box), FLOP_PAIR * n_pairs, False)}
+    spl = [sp.spline_setup(x, box, K, order) for x in xs]
+    ws, dws, nps = (torch.stack([s[i] for s in spl]) for i in range(3))
+    q = topo.charge.contiguous()
+    cases["B1"] = (
+        lambda: vmap(lambda a, b: sp.spread(a, b, q, K))(ws, nps),
+        lambda: sp.spread_cuda(ws, nps, q, K, nb=W),
+        lambda w: sp.spread(ws[w], nps[w], q, K),
+        nbytes(ws[0], nps[0], q) + K ** 3 * ws.element_size(),
+        4 * n * order ** 3, False)
+    gQ = torch.tensor(rng.standard_normal((W, K ** 3)), dtype=f, device=dev)
+    recip = pbc.recip_vectors(box).contiguous()
+    cases["B2"] = (
+        lambda: torch.cat([t.reshape(W, -1) for t in vmap(
+            lambda g, a, b, c: sp.gather(g, a, b, c, q, recip, K))(
+                gQ, ws, dws, nps)], 1),
+        lambda: sp.gather_cuda(gQ, ws, dws, nps, q, recip, K, nb=W),
+        lambda w: torch.cat([t.reshape(-1) for t in sp.gather(
+            gQ[w], ws[w], dws[w], nps[w], q, recip, K)]),
+        nbytes(gQ[0], ws[0], dws[0], nps[0], q, recip) + 4 * n
+        * ws.element_size(), 16 * n * order ** 3, False)
+    S = 80
+    ins = [perstate_inputs(x, box, topo, system, cbw, S, rng) for x in xs]
+    bat = [torch.stack([i[k] for i in ins]) for k in range(7)]
+    cbw2 = ins[0][7]
+    gbar = torch.tensor(rng.standard_normal((W, S)), dtype=f, device=dev)
+    U, Mh = 4 * S, K * (K // 2 + 1)
+    gemm = 8.0 * S * K * U * Mh
+    cases["C1"] = (
+        lambda: vmap(rp.perstate_fwd, in_dims=(0,) * 7 + (None,))(*bat,
+                                                                  cbw2),
+        lambda: rp.perstate_fwd_cuda(*bat, cbw2, nb=W),
+        lambda w: rp.perstate_fwd(*ins[w]),
+        nbytes(*ins[0]) + S * gbar.element_size(), gemm, True)
+    cases["C2"] = (
+        lambda: torch.cat([t.reshape(W, -1) for t in vmap(
+            rp.perstate_bwd, in_dims=(0,) * 8 + (None,))(gbar, *bat,
+                                                          cbw2)], 1),
+        lambda: rp.perstate_bwd_cuda(gbar, *bat, cbw2, nb=W),
+        lambda w: torch.cat([t.reshape(-1) for t in rp.perstate_bwd(
+            gbar[w], *ins[w])]),
+        nbytes(gbar[0], *ins[0]) + nbytes(*ins[0][:7]), 3 * gemm, True)
+    Hs = torch.stack([torch.tensor(evb_like(S, 60, rng), dtype=f,
+                                   device=dev) for _ in range(W)])
+    cases["E"] = (
+        lambda: torch.cat([t.reshape(W, -1).to(f) for t in vmap(
+            gs.ground_state_op)(Hs)], 1),
+        lambda: gs.ground_state_cuda(Hs, W),
+        lambda w: torch.cat([t.reshape(-1).to(f) for t in
+                             gs.ground_state_op(Hs[w])]),
+        nbytes(Hs[0]) + (S + 1) * Hs.element_size(),
+        4.0 / 3.0 * S ** 3, False)
+    return cases
+
+
+def phase_batch_kernels(W, timed=None):
+    """Phase 12a: each kernel's batched launch (the op's batching rule
+    under torch.func.vmap) against W single launches, fp64 and fp32: one
+    launch a batched call, max |batched - singles| over max |singles|
+    (fp64 <= BATCH_TOL), whether the bits are equal.  With `timed` (a
+    dict), the W = 16 times go there: the batch's direct launch against
+    16 single launches by cuda_ms and graphed_device_ms, and W times a
+    single launch's bound."""
+    import torch
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import _build
+    for dtype in (torch.float64, torch.float32):
+        tag = "fp64" if dtype == torch.float64 else "fp32"
+        for name, (bat, direct, one, n_b, n_op, gemm) in batch_cases(
+                dtype, W).items():
+            _build.launches.clear()
+            got = bat()
+            n_launch = _build.launches[name]
+            _build.launches.clear()
+            ref = torch.stack([one(w) for w in range(W)])
+            singles = _build.launches[name]
+            scale = float(ref.abs().max())
+            err = float((got - ref).abs().max()) / max(scale, 1e-300)
+            bits = bool(torch.equal(got, ref))
+            line = (f"  12a {name} {tag} W={W}: {n_launch} launch batched "
+                    f"({singles} single), max|batched - singles| / "
+                    f"max|singles| {err:.3e}, bits equal {bits}")
+            if timed is not None:
+                t = dict(ms=cuda_ms(direct),
+                         single_ms=cuda_ms(lambda: [one(w)
+                                                    for w in range(W)]),
+                         device_ms=graphed_device_ms(direct, n=8, reps=7),
+                         single_device_ms=graphed_device_ms(
+                             lambda: [one(w) for w in range(W)], n=8,
+                             reps=7),
+                         bound_ms=bound(W * n_b, W * n_op, tag, gemm)[0])
+                timed.setdefault(tag, {})[name] = t
+                line += (f"; cuda_ms {fmt(t['ms'])} against {W} singles "
+                         f"{fmt(t['single_ms'])}, device "
+                         f"{fmt(t['device_ms'])} against "
+                         f"{fmt(t['single_device_ms'])}, bound "
+                         f"{fmt(t['bound_ms'])}")
+            log(line)
+            check(n_launch == 1 and singles == W,
+                  f"12a: {name} launched {n_launch} times for a batch")
+            check(err <= (BATCH_TOL if tag == "fp64" else 1e-5),
+                  f"12a: {name} ({tag}) batched differs from {W} singles")
+
+
+def batch_windows(dtype, W, ensemble_name):
+    """(system, cbw, the W-window ladder, the seeded batch) of a W-window
+    ladder on the equilibrated flagship (phase 10's restraint, centers
+    in [-0.4, 0.4])."""
+    import numpy as np
+    import torch
+    from reactive_pb_nn_md_tpu_torch.md import integrators
+    from reactive_pb_nn_md_tpu_torch.parallel import ensemble, umbrella
+    system, state, topo, meta, cbw, _ = flagship(torch.device("cuda"),
+                                                 dtype)
+    system = ensemble._no_tier(system)
+    ms = integrators.initial_md_state(state, topo, system, cbw,
+                                      meta["capacity"],
+                                      react_cap=meta["react_cap"])
+    atoms = umbrella.transfer_triple(ms, system)
+    centers = np.linspace(-0.4, 0.4, W)
+    ladder = (umbrella.make_ladder(atoms, centers, LADDER["k_spring"], 0,
+                                   dtype),
+              umbrella.make_ladder(atoms, np.full(W, LADDER["r_oo"]),
+                                   LADDER["k_roo"], 1, dtype))
+    batch = umbrella.seeded_window_states(ms, system, cbw, atoms, centers,
+                                          ladder=ladder)
+    return system, cbw, ladder, batch
+
+
+def phase_batch_graphed():
+    """Phase 12b: W = BATCH_W windows x BATCH_STEPS graphed fp64 flagship
+    steps, batched (one capture for all) against in turn (ReplicaScan,
+    the reference), NVE and NVT: per window max |dx| and |dEtot| within
+    GRAPH_TOL fp64; each kernel launches once a batched step (BATCH_STEPS
+    + the capture's warm-up) against W a step in turn."""
+    import torch
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import _build
+    from reactive_pb_nn_md_tpu_torch.parallel import ensemble
+    W, n = BATCH_W, BATCH_STEPS
+    tol_x, tol_e = GRAPH_TOL["fp64"]
+    for ens in ("NVE", "NVT"):
+        system, cbw, ladder, batch = batch_windows(torch.float64, W, ens)
+        runs = {}
+        for cls in (ensemble.ReplicaScan, ensemble.BatchedReplicaScan):
+            scan = cls(system, cbw, 0.0005, ens, n,
+                       friction=LADDER["friction"],
+                       temperature=LADDER["temperature"])
+            _build.launches.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, diag = scan(batch, ladder)
+            torch.cuda.synchronize()
+            runs[cls.__name__] = (out, diag, scan, Counter(_build.launches),
+                                  time.perf_counter() - t0)
+        (t, td, _, tl, tt), (b, bd, bscan, bl, bt) = (
+            runs["ReplicaScan"], runs["BatchedReplicaScan"])
+        dx = max(float((t.states[w].state.x - b.states[w].state.x).abs()
+                       .max()) for w in range(W))
+        de = max(abs(float(t.states[w].kinetic + t.states[w].potential)
+                     - float(b.states[w].kinetic + b.states[w].potential))
+                 for w in range(W))
+        caps = len(bscan.step_graphs.captures)
+        log(f"  12b {W} windows x {n} {ens} fp64 steps, batched vs in "
+            f"turn: max|dx| {dx:.3e} A, max|dEtot| {de:.3e} kJ/mol, "
+            f"launches batched {dict(bl)} / in turn {dict(tl)}, "
+            f"{caps} captures; {bt:.2f} s batched, {tt:.2f} s in turn "
+            f"(the captures included)")
+        check(not td.capacities() and not bd.capacities(),
+              "12b: a capacity flag stands")
+        check(dx <= tol_x and de <= tol_e,
+              f"12b: the batched {ens} windows differ from in turn")
+        check(all(bl[k] == n + 1 and tl[k] == W * n + 1
+                  for k in FLAGSHIP_KERNELS),
+              f"12b: not one launch a batched step: {dict(bl)}")
+        check(caps == 1, f"12b: {caps} captures for one batch")
+
+
+def phase_batch_rates():
+    """Phase 12c: fp32 flagship NVT window-steps/s, batched against in
+    turn, at W = 1, 4 and 16 in one call (a chunk of BATCH_RATE_STEPS,
+    timed after a first chunk that holds the capture); the device ms and
+    device ops of a batched step and of a window's step in turn (at W =
+    1; tools/profile_step.py's profiled_chunk), the graph pool MiB and
+    the peak memory.  Printed, not gated."""
+    import torch
+    import importlib.util
+    from reactive_pb_nn_md_tpu_torch.parallel import ensemble
+    spec = importlib.util.spec_from_file_location(
+        "profile_step", ROOT / "tools" / "profile_step.py")
+    prof = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prof)
+    n = BATCH_RATE_STEPS
+    res = {}
+    for W in BATCH_RATE_W:
+        system, cbw, ladder, batch = batch_windows(torch.float32, W, "NVT")
+        for cls in (ensemble.ReplicaScan, ensemble.BatchedReplicaScan):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            # a first short chunk holds the capture
+            scan = cls(system, cbw, 0.0005, "NVT", 4,
+                       friction=LADDER["friction"],
+                       temperature=LADDER["temperature"])
+            out, _ = scan(batch, ladder)
+            scan.n_steps = n
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, diag = scan(out, ladder)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            r = dict(rate=W * n / wall,
+                     pool_mib=sum(b for _, _, b in
+                                  scan.step_graphs.captures) / 2 ** 20,
+                     peak_mib=(torch.cuda.max_memory_allocated() - held)
+                     / 2 ** 20, captures=len(scan.step_graphs.captures))
+            # device ms and ops a step of the batch; in turn a window's
+            # step, the same at any W: profiled at W = 1 only
+            if cls is ensemble.BatchedReplicaScan or W == 1:
+                scan.n_steps = 8
+                r["device_ms"], r["ops"] = prof.profiled_chunk(
+                    lambda: scan(out, ladder), 8)
+            res[(W, cls.__name__)] = r
+            check(not diag.capacities(), "12c: a capacity flag stands")
+        b, t = res[(W, "BatchedReplicaScan")], res[(W, "ReplicaScan")]
+        one = res[(BATCH_RATE_W[0], "ReplicaScan")]
+        log(f"  12c W={W}: {b['rate']:.2f} window-steps/s batched against "
+            f"{t['rate']:.2f} in turn ({b['rate'] / t['rate']:.2f}x); "
+            f"batched step: {b['device_ms']:.3f} device ms, "
+            f"{b['ops']:.0f} device ops (a window's step in turn: "
+            f"{one['device_ms']:.3f} ms, {one['ops']:.0f} ops); graph pool "
+            f"{b['pool_mib']:.1f} "
+            f"MiB batched / {t['pool_mib']:.1f} in turn, peak memory "
+            f"{b['peak_mib']:.1f} / {t['peak_mib']:.1f} MiB over what was "
+            f"held, {b['captures']} / {t['captures']} captures")
+    return res
+
+
+def phase_batch(measured):
+    """Phase 12 (see the module docstring); the W = 16 kernel times go to
+    measured["batch16"]."""
+    t12 = time.perf_counter()
+    phase_batch_kernels(BATCH_W)
+    timed = {}
+    phase_batch_kernels(16, timed)
+    measured["batch16"] = timed
+    phase_batch_graphed()
+    rates = phase_batch_rates()
+    log(f"  phase 12: {time.perf_counter() - t12:.1f} s")
+    return rates
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2074,6 +2406,10 @@ def main():
             "world size 1: graphed scan vs unsharded, range launches")
         sharded = phase_sharded(tmp)
 
+    log("[12 replica batch] batched launches vs single ones, the batched "
+        "graphed step vs in turn, window-steps/s at W = 1, 4, 16")
+    phase_batch(measured)
+
     k64, k32 = measured["fp64"], measured["fp32"]
     kernels = []
     for k, (src, rep) in KERNELS.items():
@@ -2092,11 +2428,14 @@ def main():
             fp32_max_abs_err=m32["max_abs_err"], fp32_ms=m32["ms"],
             fp32_device_ms=m32["device_ms"],
             fp32_plain_ms=m32["plain_ms"], fp32_bound_ms=m32["bound_ms"],
-            fp32_library_ms=m32["library_ms"]))
+            fp32_library_ms=m32["library_ms"],
+            **{f"w16_{tag}_{f}": v
+               for tag, res in measured["batch16"].items() if k in res
+               for f, v in res[k].items()}))
     extra = {f"{tag}_{k}": {f: r[f] for f in ("ms", "device_ms", "plain_ms",
                                                "bound_ms", "library_ms")}
-             for tag, res in measured.items() for k, r in res.items()
-             if k not in KERNELS}
+             for tag, res in measured.items() if tag != "batch16"
+             for k, r in res.items() if k not in KERNELS}
     log(f"  other shapes: {json.dumps(extra)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -228,11 +228,22 @@ __device__ __forceinline__ void gs_column_reflector(
 // lane holds in registers in warp 0's column of the update and in the
 // back-transform, when nact <= 32 JR; past that both take slower paths
 // through memory.
+// A batched launch (a replica batch of the vmapped step) runs one block a
+// replica: block b solves H + b h_bs (h_bs 0: one H for all) into its own
+// lambda, c, info and scratch, by the same arithmetic as its own launch.
 template <typename T, int JR>
 __global__ void __launch_bounds__(GS_THREADS, 1)
 ground_state_kernel(const T* __restrict__ H, T* __restrict__ lam_out,
                     T* __restrict__ c_out, int* __restrict__ info_out,
-                    double* __restrict__ scratch, int S) {
+                    double* __restrict__ scratch, int S, int h_bs) {
+    {
+        const size_t rep = blockIdx.x;
+        H += rep * h_bs;
+        lam_out += rep;
+        c_out += rep * S;
+        info_out += rep;
+        scratch += rep * (size_t)(S <= GS_SMEM_MAX_S ? 0 : S * (S | 1));
+    }
     extern __shared__ double smem[];
     // the warps' last coupled rows, then the lowest parked row
     __shared__ int red_i[GS_THREADS / 32 + 1];
@@ -700,12 +711,14 @@ KERNELS_API int ground_state_max_rounds() { return GS_MAX_ROUNDS; }
 template <typename T, int JR>
 static int ground_state_launch_jr(const void* H, void* lam, void* c,
                                   void* info, void* scratch, void* stream,
-                                  int S) {
+                                  int S, int nb, int h_bs) {
     const size_t shm = gs_smem(S);
     const int err = allow_smem((const void*)ground_state_kernel<T, JR>, shm);
     if (err) return err;
-    ground_state_kernel<T, JR><<<1, GS_THREADS, shm, (cudaStream_t)stream>>>(
-        (const T*)H, (T*)lam, (T*)c, (int*)info, (double*)scratch, S);
+    if (nb < 1) return (int)cudaErrorInvalidValue;
+    ground_state_kernel<T, JR><<<nb, GS_THREADS, shm,
+                                 (cudaStream_t)stream>>>(
+        (const T*)H, (T*)lam, (T*)c, (int*)info, (double*)scratch, S, h_bs);
     return (int)cudaGetLastError();
 }
 
@@ -714,21 +727,28 @@ static int ground_state_launch_jr(const void* H, void* lam, void* c,
 // through memory)
 template <typename T>
 static int ground_state_launch(const void* H, void* lam, void* c, void* info,
-                               void* scratch, void* stream, int S) {
+                               void* scratch, void* stream, int S, int nb,
+                               int h_bs) {
     if (S <= 32)
         return ground_state_launch_jr<T, 1>(H, lam, c, info, scratch, stream,
-                                            S);
-    return ground_state_launch_jr<T, 3>(H, lam, c, info, scratch, stream, S);
+                                            S, nb, h_bs);
+    return ground_state_launch_jr<T, 3>(H, lam, c, info, scratch, stream, S,
+                                        nb, h_bs);
 }
 
+// nb replicas (1: one H); h_bs the elements between two replicas' H (0: one
+// H for all); lam, c, info and the scratch (nb ground_state_scratch(S)
+// doubles) hold nb results in replica order
 KERNELS_API int ground_state_f32(const void* H, void* lam, void* c,
                                  void* info, void* scratch, void* stream,
-                                 int S) {
-    return ground_state_launch<float>(H, lam, c, info, scratch, stream, S);
+                                 int S, int nb, int h_bs) {
+    return ground_state_launch<float>(H, lam, c, info, scratch, stream, S,
+                                      nb, h_bs);
 }
 
 KERNELS_API int ground_state_f64(const void* H, void* lam, void* c,
                                  void* info, void* scratch, void* stream,
-                                 int S) {
-    return ground_state_launch<double>(H, lam, c, info, scratch, stream, S);
+                                 int S, int nb, int h_bs) {
+    return ground_state_launch<double>(H, lam, c, info, scratch, stream, S,
+                                       nb, h_bs);
 }

@@ -142,12 +142,15 @@ __host__ __device__ constexpr size_t spread_smem_t(int order) {
 
 // Kernel B1: block (bx, by, bz) owns x planes bx P .., y rows by 8 .. and
 // z values bz BZ .. of the grid.  O > 0: the order, known at compile time
-// (O <= K); O = 0: any order.
+// (O <= K); O = 0: any order.  A batched launch (a replica batch of the
+// vmapped step) stacks the replicas on z: blockIdx.z = replica nbz + bz,
+// replica r reading its w, nearpt and q `*_bs` elements past r - 1's (0:
+// shared) and writing grid r; the same arithmetic as its own launch.
 template <typename T, int O, int P>
 __global__ void __launch_bounds__(SpreadTile<P>::WARPS * 32, 1)
 spread_kernel(const T* __restrict__ w, const long long* __restrict__ nearpt,
               const T* __restrict__ q, T* __restrict__ grid, int n, int K,
-              int order) {
+              int order, int nbz, int w_bs, int np_bs, int q_bs) {
     using Tile = SpreadTile<P>;
     using Hit = SpreadHit<T, P>;
     constexpr int WARPS = Tile::WARPS, BY = Tile::BY, BZ = Tile::BZ,
@@ -183,7 +186,13 @@ spread_kernel(const T* __restrict__ w, const long long* __restrict__ nearpt,
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const unsigned below = (1u << lane) - 1u;
-    const int X0 = blockIdx.x * P, y0 = blockIdx.y * BY, z0 = blockIdx.z * BZ;
+    const int rep = blockIdx.z / nbz;
+    w += (size_t)rep * w_bs;
+    nearpt += (size_t)rep * np_bs;
+    q += (size_t)rep * q_bs;
+    grid += (size_t)rep * K * K * K;
+    const int X0 = blockIdx.x * P, y0 = blockIdx.y * BY,
+              z0 = (blockIdx.z - rep * nbz) * BZ;
     const int xp = min(P, K - X0), yb = min(BY, K - y0), zt = min(BZ, K - z0);
     // an atom reaches a range of grid points along an axis when its window
     // (base point - slot, slot < o) meets it: (b - start) mod K < width +
@@ -418,14 +427,26 @@ static size_t gather_smem_t(int order) {
 // Kernel B2: warp `warp` of block b takes atom b GATHER_WARPS + warp;
 // lane p takes the (j, k) pairs p, p + 32, ... and walks i.  O > 0: the
 // order, known at compile time (O <= K); O = 0: any order, the atom's
-// tables in shared memory.
+// tables in shared memory.  A batched launch runs replica blockIdx.y on
+// its own inputs, each `*_bs` elements past the previous replica's (0:
+// shared), and writes its own gq (n) and gx (n, 3).
 template <typename T, int O>
 __global__ void __launch_bounds__(GATHER_WARPS * 32)
 gather_kernel(const T* __restrict__ gq_grid, const T* __restrict__ w,
               const T* __restrict__ dw, const long long* __restrict__ nearpt,
               const T* __restrict__ q, const T* __restrict__ recip,
               T* __restrict__ gq, T* __restrict__ gx, int n, int K,
-              int order) {
+              int order, int g_bs, int w_bs, int np_bs, int q_bs,
+              int r_bs) {
+    const size_t rep = blockIdx.y;
+    gq_grid += rep * g_bs;
+    w += rep * w_bs;
+    dw += rep * w_bs;
+    nearpt += rep * np_bs;
+    q += rep * q_bs;
+    recip += rep * r_bs;
+    gq += rep * n;
+    gx += rep * 3 * n;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int a = blockIdx.x * GATHER_WARPS + warp;
     if (a >= n) return;
@@ -539,14 +560,17 @@ gather_kernel(const T* __restrict__ gq_grid, const T* __restrict__ w,
 
 template <typename T, int P>
 static int spread_go(const void* w, const void* nearpt, const void* q,
-                     void* grid, cudaStream_t s, int n, int K, int order) {
+                     void* grid, cudaStream_t s, int n, int K, int order,
+                     int nb, int w_bs, int np_bs, int q_bs) {
     using Tile = SpreadTile<P>;
+    const int nbz = (K + Tile::BZ - 1) / Tile::BZ;
+    if (nb < 1 || (long long)nb * nbz > 65535)
+        return (int)cudaErrorInvalidValue;
     const dim3 blocks((K + P - 1) / P,
-                      (K + Tile::BY - 1) / Tile::BY,
-                      (K + Tile::BZ - 1) / Tile::BZ);
+                      (K + Tile::BY - 1) / Tile::BY, nb * nbz);
     const dim3 th(Tile::WARPS * 32);
 #define SPREAD_ARGS (const T*)w, (const long long*)nearpt, (const T*)q,    \
-        (T*)grid, n, K, order
+        (T*)grid, n, K, order, nbz, w_bs, np_bs, q_bs
     if (order == 6 && order <= K) {
         spread_kernel<T, 6, P><<<blocks, th, 0, s>>>(SPREAD_ARGS);
     } else if (order == 4 && order <= K) {
@@ -566,64 +590,62 @@ static int spread_go(const void* w, const void* nearpt, const void* q,
 // launches for n = 0 too (a grid of zeros)
 template <typename T>
 static int spread_launch(const void* w, const void* nearpt, const void* q,
-                         void* grid, void* stream, int n, int K, int order) {
+                         void* grid, void* stream, int n, int K, int order,
+                         int nb, int w_bs, int np_bs, int q_bs) {
     cudaStream_t s = (cudaStream_t)stream;
-    if (K <= 32) return spread_go<T, 1>(w, nearpt, q, grid, s, n, K, order);
-    return spread_go<T, 4>(w, nearpt, q, grid, s, n, K, order);
+    if (K <= 32)
+        return spread_go<T, 1>(w, nearpt, q, grid, s, n, K, order, nb, w_bs,
+                               np_bs, q_bs);
+    return spread_go<T, 4>(w, nearpt, q, grid, s, n, K, order, nb, w_bs,
+                           np_bs, q_bs);
 }
 
 template <typename T>
 static int gather_launch(const void* gq_grid, const void* w, const void* dw,
                          const void* nearpt, const void* q,
                          const void* recip, void* gq, void* gx, void* stream,
-                         int n, int K, int order) {
+                         int n, int K, int order, int nb, int g_bs, int w_bs,
+                         int np_bs, int q_bs, int r_bs) {
     const int blocks = (n + GATHER_WARPS - 1) / GATHER_WARPS;
     if (blocks == 0) return (int)cudaGetLastError();
+    if (nb < 1 || nb > 65535) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     const dim3 th(GATHER_WARPS * 32);
+    const dim3 grid(blocks, nb);
 #define GATHER_ARGS (const T*)gq_grid, (const T*)w, (const T*)dw,         \
         (const long long*)nearpt, (const T*)q, (const T*)recip, (T*)gq,    \
-        (T*)gx, n, K, order
+        (T*)gx, n, K, order, g_bs, w_bs, np_bs, q_bs, r_bs
     if (order == 6 && order <= K) {
-        gather_kernel<T, 6><<<blocks, th, 0, s>>>(GATHER_ARGS);
+        gather_kernel<T, 6><<<grid, th, 0, s>>>(GATHER_ARGS);
     } else if (order == 4 && order <= K) {
-        gather_kernel<T, 4><<<blocks, th, 0, s>>>(GATHER_ARGS);
+        gather_kernel<T, 4><<<grid, th, 0, s>>>(GATHER_ARGS);
     } else {
         const size_t shm = gather_smem_t<T>(order);
         const int err = allow_smem((const void*)gather_kernel<T, 0>, shm);
         if (err) return err;
-        gather_kernel<T, 0><<<blocks, th, shm, s>>>(GATHER_ARGS);
+        gather_kernel<T, 0><<<grid, th, shm, s>>>(GATHER_ARGS);
     }
 #undef GATHER_ARGS
     return (int)cudaGetLastError();
 }
 
-KERNELS_API int pme_spread_f32(const void* w, const void* nearpt,
-                               const void* q, void* grid, void* stream,
-                               int n, int K, int order) {
-    return spread_launch<float>(w, nearpt, q, grid, stream, n, K, order);
-}
-
-KERNELS_API int pme_spread_f64(const void* w, const void* nearpt,
-                               const void* q, void* grid, void* stream,
-                               int n, int K, int order) {
-    return spread_launch<double>(w, nearpt, q, grid, stream, n, K, order);
-}
-
-KERNELS_API int pme_gather_f32(const void* gq_grid, const void* w,
-                               const void* dw, const void* nearpt,
-                               const void* q, const void* recip, void* gq,
-                               void* gx, void* stream, int n, int K,
-                               int order) {
-    return gather_launch<float>(gq_grid, w, dw, nearpt, q, recip, gq, gx,
-                                stream, n, K, order);
-}
-
-KERNELS_API int pme_gather_f64(const void* gq_grid, const void* w,
-                               const void* dw, const void* nearpt,
-                               const void* q, const void* recip, void* gq,
-                               void* gx, void* stream, int n, int K,
-                               int order) {
-    return gather_launch<double>(gq_grid, w, dw, nearpt, q, recip, gq, gx,
-                                 stream, n, K, order);
-}
+#define SPREAD_ENTRY(SUF, T)                                               \
+    KERNELS_API int pme_spread_##SUF(const void* w, const void* nearpt,    \
+                                     const void* q, void* grid,            \
+                                     void* stream, int n, int K, int order,\
+                                     int nb, int w_bs, int np_bs,          \
+                                     int q_bs) {                           \
+        return spread_launch<T>(w, nearpt, q, grid, stream, n, K, order,   \
+                                nb, w_bs, np_bs, q_bs);                    \
+    }                                                                      \
+    KERNELS_API int pme_gather_##SUF(                                      \
+        const void* gq_grid, const void* w, const void* dw,                \
+        const void* nearpt, const void* q, const void* recip, void* gq,    \
+        void* gx, void* stream, int n, int K, int order, int nb, int g_bs, \
+        int w_bs, int np_bs, int q_bs, int r_bs) {                         \
+        return gather_launch<T>(gq_grid, w, dw, nearpt, q, recip, gq, gx,  \
+                                stream, n, K, order, nb, g_bs, w_bs,       \
+                                np_bs, q_bs, r_bs);                        \
+    }
+SPREAD_ENTRY(f32, float)
+SPREAD_ENTRY(f64, double)

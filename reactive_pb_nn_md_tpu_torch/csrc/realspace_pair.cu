@@ -240,12 +240,22 @@ __device__ __forceinline__ int wrap1(int c, int o, int n) {
 // A range launch takes the home cells c0, c0 + 1, ..., c0 + gridDim.x - 1
 // only (one replica's step shared over ranks: each rank its own cells);
 // the rows of the other cells are not written.
+// A batched launch (a replica batch of the vmapped step) runs replica
+// blockIdx.z on its own cm, tables, box and rows, each `*_bs` elements
+// past the previous replica's (0: one array shared by the batch): the
+// same arithmetic in the same order as its own launch.
 template <typename T>
 __global__ void __launch_bounds__(FULL_THREADS)
 rs_full_kernel(const T* __restrict__ cm, const T* __restrict__ tabs,
                const T* __restrict__ box, T* __restrict__ out, int nc1,
                int nc2, int nc3, int ccap, int c0, int T_, int n_tab,
-               int has_sapt, T rcut2, T alpha, T conv) {
+               int has_sapt, int cm_bs, int tab_bs, int box_bs, T rcut2,
+               T alpha, T conv) {
+    const size_t rep = blockIdx.z;
+    cm += rep * cm_bs;
+    tabs += rep * tab_bs;
+    box += rep * box_bs;
+    out += rep * cm_bs;
     extern __shared__ unsigned char smem_raw[];
     const int n_tabv = n_tab * T_ * T_, N = 27 * ccap, NW = (N + 31) >> 5;
     const int R = ccap > FULL_WARPS ? ccap : FULL_WARPS;
@@ -714,17 +724,20 @@ template <typename T>
 static int rs_pair_launch(const void* cm, const void* tabs, const void* box,
                           void* out, void* stream, int nc1, int nc2, int nc3,
                           int ccap, int parts, int c0, int n_c, int T_,
-                          int n_tab, int has_sapt, double rcut2,
+                          int n_tab, int has_sapt, int nb, int cm_bs,
+                          int tab_bs, int box_bs, double rcut2,
                           double alpha, double conv) {
     const size_t shm = full_smem_t<T>(n_tab * T_ * T_, ccap);
     int err = allow_smem((const void*)rs_full_kernel<T>, shm);
     if (err) return err;
-    if (c0 < 0 || n_c < 1 || c0 + n_c > nc1 * nc2 * nc3)
+    if (c0 < 0 || n_c < 1 || c0 + n_c > nc1 * nc2 * nc3 || nb < 1
+        || nb > 65535)
         return (int)cudaErrorInvalidValue;
-    rs_full_kernel<T><<<dim3(n_c, parts), FULL_THREADS, shm,
+    rs_full_kernel<T><<<dim3(n_c, parts, nb), FULL_THREADS, shm,
                         (cudaStream_t)stream>>>(
         (const T*)cm, (const T*)tabs, (const T*)box, (T*)out, nc1, nc2, nc3,
-        ccap, c0, T_, n_tab, has_sapt, (T)rcut2, (T)alpha, (T)conv);
+        ccap, c0, T_, n_tab, has_sapt, cm_bs, tab_bs, box_bs, (T)rcut2,
+        (T)alpha, (T)conv);
     return (int)cudaGetLastError();
 }
 
@@ -768,11 +781,13 @@ RS_ENTRY(rs_half_f64, double)
     KERNELS_API int NAME(const void* cm, const void* tabs, const void* box, \
                          void* out, void* stream, int nc1, int nc2, int nc3, \
                          int ccap, int parts, int c0, int n_c, int T_,       \
-                         int n_tab, int has_sapt, double rcut2,              \
-                         double alpha, double conv) {                        \
+                         int n_tab, int has_sapt, int nb, int cm_bs,         \
+                         int tab_bs, int box_bs, double rcut2, double alpha, \
+                         double conv) {                                      \
         return rs_pair_launch<T>(cm, tabs, box, out, stream, nc1, nc2, nc3,  \
                                  ccap, parts, c0, n_c, T_, n_tab, has_sapt,  \
-                                 rcut2, alpha, conv);                        \
+                                 nb, cm_bs, tab_bs, box_bs, rcut2, alpha,    \
+                                 conv);                                      \
     }
 RS_PAIR_ENTRY(rs_pair_f32, float)
 RS_PAIR_ENTRY(rs_pair_f64, double)

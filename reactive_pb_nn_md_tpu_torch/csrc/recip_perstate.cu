@@ -54,6 +54,13 @@
 // few MB that stay in L2 (dG, 22 MB at S = 80, is written once and read
 // three times; at the 10k shapes it is 69 MB and does not fit); fp64 at
 // the DMMA peak, fp32 at the FMA peak.
+// A batched launch (a replica batch of the vmapped MD step) runs nb
+// replicas in every kernel of C1 and C2 at once: the cgemm's z axis
+// holds (replica, depth chunk), the other kernels take the replica on
+// blockIdx.y; every operand moves by its batch stride (0: shared), the
+// scratch and the outputs by a replica's size.  The depth split is the
+// one replica's, so each replica's sums run in the same order as its own
+// launch's.
 #include <stdint.h>
 #include <type_traits>
 
@@ -124,18 +131,24 @@ struct ArrOp {
     const T *re, *im;
     int ld;
     bool vec;
+    size_t bs;        // elements from one replica's array to the next's
     __device__ void operator()(int mn, int k, T& r, T& i) const {
         const size_t o = KC ? (size_t)mn * ld + k : (size_t)k * ld + mn;
         r = re[o];
         i = im[o];
     }
+    __device__ void at(size_t rep) {
+        re += rep * bs;
+        im += rep * bs;
+    }
 };
 
 template <bool KC, bool CONJ, typename T>
-ArrOp<T, KC, CONJ> arr_op(const T* re, const T* im, int ld) {
+ArrOp<T, KC, CONJ> arr_op(const T* re, const T* im, int ld, size_t bs) {
     const bool vec = (size_t)ld * sizeof(T) % 16 == 0
+                     && bs * sizeof(T) % 16 == 0
                      && (uintptr_t)re % 16 == 0 && (uintptr_t)im % 16 == 0;
-    return ArrOp<T, KC, CONJ>{re, im, ld, vec};
+    return ArrOp<T, KC, CONJ>{re, im, ld, vec, bs};
 }
 
 // One BK-deep slice of an operand into shared memory: MNS rows mn0.. of
@@ -392,15 +405,23 @@ struct Smem {
 };
 
 // out(R, C) = A(R, D) B(D, C) over depth chunk z: [z dchunk, (z+1) dchunk)
+// of replica rep, blockIdx.z = rep nzr + z (a batched launch: each
+// replica's operands and outputs `bs` elements past the previous one's)
 template <typename T, typename AOP, typename BOP, typename EP>
 __global__ void __launch_bounds__(Cfg<T>::NT, Cfg<T>::BPS)
-cgemm_kernel(AOP a, BOP b, EP ep, int R, int C, int D, int dchunk) {
+cgemm_kernel(AOP a, BOP b, EP ep, int R, int C, int D, int dchunk,
+             int nzr) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* sm = reinterpret_cast<T*>(smem_raw);
     using SM = Smem<T, AOP, BOP>;
     constexpr int BK = Cfg<T>::BK, BN = Cfg<T>::BN;
     const int tid = threadIdx.x;
-    const int r0 = blockIdx.y * BM, c0 = blockIdx.x * BN, z = blockIdx.z;
+    const int rep = blockIdx.z / nzr;
+    a.at(rep);
+    b.at(rep);
+    ep.at(rep);
+    const int r0 = blockIdx.y * BM, c0 = blockIdx.x * BN,
+              z = blockIdx.z - rep * nzr;
     const int kbeg = z * dchunk, kend = min(D, kbeg + dchunk);
     const int nk = (kend - kbeg + BK - 1) / BK;
 
@@ -437,6 +458,13 @@ struct EnergyEpi {        // per-row partials of cbw [F0 . G + |G|^2 / 2]
     const T *f0r, *f0i, *cbw;
     T* partial;
     int K, Mh, ncb;
+    size_t f0_bs, cbw_bs, p_bs;
+    __device__ void at(size_t rep) {
+        f0r += rep * f0_bs;
+        f0i += rep * f0_bs;
+        cbw += rep * cbw_bs;
+        partial += rep * p_bs;
+    }
     __device__ void operator()(int, int r, int m, T gr, T gi, T& acc) const {
         const size_t k = (size_t)(r % K) * Mh + m;
         acc += cbw[k] * (f0r[k] * gr + f0i[k] * gi
@@ -453,6 +481,15 @@ struct DGEpi {            // dG = gbar_s cbw (F0 + G), row r = s K + m1
     const T *gbar, *f0r, *f0i, *cbw;
     T *dgr, *dgi;
     int K, Mh;
+    size_t g_bs, f0_bs, cbw_bs, dg_bs;
+    __device__ void at(size_t rep) {
+        gbar += rep * g_bs;
+        f0r += rep * f0_bs;
+        f0i += rep * f0_bs;
+        cbw += rep * cbw_bs;
+        dgr += rep * dg_bs;
+        dgi += rep * dg_bs;
+    }
     __device__ void operator()(int, int r, int m, T gr, T gi, T&) const {
         const int s = r / K;
         const size_t k = (size_t)(r - s * K) * Mh + m;
@@ -469,7 +506,11 @@ struct StoreEpi {         // complex store, row stride ld, chunk z at z zs
     static constexpr bool REDUCE = false;
     T *outr, *outi;
     int ld;
-    size_t zs;
+    size_t zs, bs;
+    __device__ void at(size_t rep) {
+        outr += rep * bs;
+        outi += rep * bs;
+    }
     __device__ void operator()(int z, int r, int c, T gr, T gi, T&) const {
         const size_t o = z * zs + (size_t)r * ld + c;
         outr[o] = gr;
@@ -485,17 +526,19 @@ struct DWEpi : StoreEpi<T> {};
 template <typename T>
 struct DBCEpi : StoreEpi<T> {};
 
+// nz depth chunks of each of nb replicas
 template <typename T, typename AOP, typename BOP, typename EP>
 int cgemm(AOP a, BOP b, EP ep, int R, int C, int D, int nz, int dchunk,
-          cudaStream_t st) {
+          int nb, cudaStream_t st) {
     constexpr size_t smem = Smem<T, AOP, BOP>::BYTES;
     const void* kern = (const void*)cgemm_kernel<T, AOP, BOP, EP>;
     static const int attr = allow_smem(kern, smem);
     if (attr) return attr;
+    if ((long long)nz * nb > 65535) return (int)cudaErrorInvalidValue;
     constexpr int BN = Cfg<T>::BN;
-    dim3 grid((C + BN - 1) / BN, (R + BM - 1) / BM, nz);
+    dim3 grid((C + BN - 1) / BN, (R + BM - 1) / BM, nz * nb);
     cgemm_kernel<T, AOP, BOP, EP><<<grid, Cfg<T>::NT, smem, st>>>(
-        a, b, ep, R, C, D, dchunk);
+        a, b, ep, R, C, D, dchunk, nz);
     return (int)cudaGetLastError();
 }
 
@@ -559,12 +602,28 @@ struct Scratch {
     }
 };
 
-// W(r, u) = dq[s,u] (ar + i ai)[m1,u], r = s K + m1, row stride ldw
+// Strides of a batched launch (a replica batch of the vmapped step): the
+// elements from one replica's array to the next's, 0 for an array the
+// batch shares; every output and the scratch are per replica.
+struct Batch {
+    int nb;
+    size_t gbar, dq, a, bc, f0, cbw;
+};
+
+// W(r, u) = dq[s,u] (ar + i ai)[m1,u], r = s K + m1, row stride ldw;
+// replica blockIdx.y, its W `ws` elements past the previous one's
 template <typename T>
 __global__ void w_kernel(const T* dq, const T* ar, const T* ai, T* wr,
-                         T* wi, int S, int U, int K, int ldw) {
+                         T* wi, int S, int U, int K, int ldw, Batch bt,
+                         size_t ws) {
     const size_t t = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
     if (t >= (size_t)S * K * U) return;
+    const size_t rep = blockIdx.y;
+    dq += rep * bt.dq;
+    ar += rep * bt.a;
+    ai += rep * bt.a;
+    wr += rep * ws;
+    wi += rep * ws;
     const int u = (int)(t % U), r = (int)(t / U);
     const int s = r / K, m1 = r - s * K;
     const T w = dq[(size_t)s * U + u];
@@ -574,18 +633,26 @@ __global__ void w_kernel(const T* dq, const T* ar, const T* ai, T* wr,
 
 template <typename T>
 int make_w(const T* dq, const T* ar, const T* ai, T* wr, T* wi, int S,
-           int U, int K, int ldw, cudaStream_t st) {
+           int U, int K, int ldw, const Batch& bt, size_t ws,
+           cudaStream_t st) {
     const size_t n = (size_t)S * K * U;
-    w_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-        dq, ar, ai, wr, wi, S, U, K, ldw);
+    if (bt.nb < 1 || bt.nb > 65535) return (int)cudaErrorInvalidValue;
+    w_kernel<T><<<dim3((unsigned)((n + 255) / 256), bt.nb), 256, 0, st>>>(
+        dq, ar, ai, wr, wi, S, U, K, ldw, bt, ws);
     return (int)cudaGetLastError();
 }
 
+// replica blockIdx.y: its partials `ps`, its outputs `os` elements past
+// the previous replica's
 template <typename T>
 __global__ void fold_kernel(const T* part, int nz, size_t n, size_t zs,
-                            T* outr, T* outi) {
+                            T* outr, T* outi, size_t ps, size_t os) {
     const size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
     if (i >= n) return;
+    const size_t rep = blockIdx.y;
+    part += rep * ps;
+    outr += rep * os;
+    outi += rep * os;
     T sr = 0, si = 0;
     for (int z = 0; z < nz; ++z) {
         sr += part[zs * z + i];
@@ -598,10 +665,12 @@ __global__ void fold_kernel(const T* part, int nz, size_t n, size_t zs,
 // Sums over an axis j < n for outputs i < N, in a fixed order: lane l of
 // block b owns output 32 b + l, warp w the terms j = w, w + 8, ...; the 8
 // warp partials are folded in warp order.  term(i, j, a, b) adds to a, b.
+// Replica blockIdx.y (term.at moves its arrays).
 template <typename T, typename TERM>
 __global__ void __launch_bounds__(256)
 rowsum_kernel(TERM term, int N, int n) {
     __shared__ T pa[8][32], pb[8][32], extra;
+    term.at(blockIdx.y);
     const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
     const int i = blockIdx.x * 32 + lane;
     if (w == 0) term.block_init(lane, extra);
@@ -620,11 +689,22 @@ rowsum_kernel(TERM term, int N, int n) {
     }
 }
 
+// The terms of C2's row sums.  at(rep) moves a term's arrays to replica
+// rep: the scratch (dW, dG) ws elements a replica, the inputs by the
+// batch's strides, the outputs os elements a replica.
 template <typename T>
 struct DdqTerm {          // ddq[s,u] = sum_m1 Re(dW[s,m1,u] conj(A[m1,u]))
     const T *dwr, *dwi, *ar, *ai;
     T* ddq;
     int U, K;
+    size_t ws, a_bs, os;
+    __device__ void at(size_t rep) {
+        dwr += rep * ws;
+        dwi += rep * ws;
+        ar += rep * a_bs;
+        ai += rep * a_bs;
+        ddq += rep * os;
+    }
     __device__ void block_init(int, T&) const {}
     __device__ void operator()(int i, int m1, T& a, T&) const {
         const int s = i / U, u = i - s * U;
@@ -639,6 +719,14 @@ struct DaTerm {           // dA[m1,u] = sum_s dW[s,m1,u] dq[s,u]
     const T *dwr, *dwi, *dq;
     T *dar, *dai;
     int U, K;
+    size_t ws, dq_bs, os;
+    __device__ void at(size_t rep) {
+        dwr += rep * ws;
+        dwi += rep * ws;
+        dq += rep * dq_bs;
+        dar += rep * os;
+        dai += rep * os;
+    }
     __device__ void block_init(int, T&) const {}
     __device__ void operator()(int i, int s, T& a, T& b) const {
         const int u = i % U;
@@ -658,6 +746,17 @@ struct Df0Term {          // dF0 = sum_s dG - (sum_s gbar) cbw F0
     const T *dgr, *dgi, *gbar, *f0r, *f0i, *cbw;
     T *df0r, *df0i;
     int S, KMh;
+    size_t ws, g_bs, f0_bs, cbw_bs, os;
+    __device__ void at(size_t rep) {
+        dgr += rep * ws;
+        dgi += rep * ws;
+        gbar += rep * g_bs;
+        f0r += rep * f0_bs;
+        f0i += rep * f0_bs;
+        cbw += rep * cbw_bs;
+        df0r += rep * os;
+        df0i += rep * os;
+    }
     __device__ void block_init(int lane, T& gsum) const {
         T v = 0;
         for (int s = lane; s < S; s += 32) v += gbar[s];
@@ -675,77 +774,94 @@ struct Df0Term {          // dF0 = sum_s dG - (sum_s gbar) cbw F0
 };
 
 template <typename T, typename TERM>
-void rowsum(TERM term, int N, int n, cudaStream_t st) {
-    rowsum_kernel<T, TERM><<<(N + 31) / 32, 256, 0, st>>>(term, N, n);
+void rowsum(TERM term, int N, int n, int nb, cudaStream_t st) {
+    rowsum_kernel<T, TERM><<<dim3((N + 31) / 32, nb), 256, 0, st>>>(term, N,
+                                                                     n);
 }
 
+// C1 of nb replicas (Batch: the inputs' strides); partial holds nb
+// replicas' (S K, ncb) partials, scratch nb Scratch(fwd) totals
 template <typename T>
 int perstate_fwd(const T* dq, const T* ar, const T* ai, const T* bcr,
                  const T* bci, const T* f0r, const T* f0i, const T* cbw,
                  T* partial, T* scratch, cudaStream_t st, int S, int U, int K,
-                 int Mh) {
+                 int Mh, const Batch& bt) {
     const Scratch<T> sc(S, U, K, Mh, false);
-    const size_t SK = (size_t)S * K;
+    const size_t SK = (size_t)S * K, ws = sc.total;
     T *wr = scratch + sc.w, *wi = wr + SK * sc.ldw;
-    int err = make_w(dq, ar, ai, wr, wi, S, U, K, sc.ldw, st);
+    int err = make_w(dq, ar, ai, wr, wi, S, U, K, sc.ldw, bt, ws, st);
     if (err) return err;
     const int ncb = (Mh + Cfg<T>::BN - 1) / Cfg<T>::BN;
-    return cgemm<T>(arr_op<true, false>((const T*)wr, (const T*)wi, sc.ldw),
-                    arr_op<false, false>(bcr, bci, Mh),
-                    EnergyEpi<T>{f0r, f0i, cbw, partial, K, Mh, ncb}, S * K,
-                    Mh, U, 1, U, st);
+    return cgemm<T>(
+        arr_op<true, false>((const T*)wr, (const T*)wi, sc.ldw, ws),
+        arr_op<false, false>(bcr, bci, Mh, bt.bc),
+        EnergyEpi<T>{f0r, f0i, cbw, partial, K, Mh, ncb, bt.f0, bt.cbw,
+                     SK * ncb},
+        S * K, Mh, U, 1, U, bt.nb, st);
 }
 
+// C2 of nb replicas: every output holds nb replicas' values in order,
+// scratch nb Scratch(bwd) totals
 template <typename T>
 int perstate_bwd(const T* gbar, const T* dq, const T* ar, const T* ai,
                  const T* bcr, const T* bci, const T* f0r, const T* f0i,
                  const T* cbw, T* scratch, T* ddq, T* dar, T* dai, T* dbcr,
                  T* dbci, T* df0r, T* df0i, cudaStream_t st, int S, int U,
-                 int K, int Mh) {
+                 int K, int Mh, const Batch& bt) {
     const Scratch<T> sc(S, U, K, Mh, true);
-    const int SK = S * K, th = 256;
+    const int SK = S * K, th = 256, nb = bt.nb;
+    const size_t ws = sc.total, KU = (size_t)K * U, UMh = (size_t)U * Mh,
+                 KMh = (size_t)K * Mh;
     T *wr = scratch + sc.w, *wi = wr + (size_t)SK * sc.ldw;
     T *dgr = scratch + sc.dg, *dgi = dgr + up16<T>((size_t)SK * Mh);
     T *dwr = scratch + sc.dw, *dwi = dwr + up16<T>((size_t)SK * U);
     T* part = scratch + sc.part;
-    int err = make_w(dq, ar, ai, wr, wi, S, U, K, sc.ldw, st);
+    int err = make_w(dq, ar, ai, wr, wi, S, U, K, sc.ldw, bt, ws, st);
     if (err) return err;
     // dG = gbar cbw (F0 + G), G recomputed
-    err = cgemm<T>(arr_op<true, false>((const T*)wr, (const T*)wi, sc.ldw),
-                   arr_op<false, false>(bcr, bci, Mh),
-                   DGEpi<T>{gbar, f0r, f0i, cbw, dgr, dgi, K, Mh}, SK, Mh, U,
-                   1, U, st);
+    err = cgemm<T>(
+        arr_op<true, false>((const T*)wr, (const T*)wi, sc.ldw, ws),
+        arr_op<false, false>(bcr, bci, Mh, bt.bc),
+        DGEpi<T>{gbar, f0r, f0i, cbw, dgr, dgi, K, Mh, bt.gbar, bt.f0,
+                 bt.cbw, ws},
+        SK, Mh, U, 1, U, nb, st);
     if (err) return err;
     // dW (S K, U) = dG conj(BC)^T, depth Mh
     int dchunk;
     int nz = bwd_split<T>(2, S, U, K, Mh, dchunk);
     size_t n = (size_t)SK * U, zs = 2 * up16<T>(n);
-    err = cgemm<T>(arr_op<true, false>((const T*)dgr, (const T*)dgi, Mh),
-                   arr_op<true, true>(bcr, bci, Mh),
-                   nz == 1 ? DWEpi<T>{{dwr, dwi, U, 0}}
-                           : DWEpi<T>{{part, part + zs / 2, U, zs}},
-                   SK, U, Mh, nz, dchunk, st);
+    err = cgemm<T>(
+        arr_op<true, false>((const T*)dgr, (const T*)dgi, Mh, ws),
+        arr_op<true, true>(bcr, bci, Mh, bt.bc),
+        nz == 1 ? DWEpi<T>{{dwr, dwi, U, 0, ws}}
+                : DWEpi<T>{{part, part + zs / 2, U, zs, ws}},
+        SK, U, Mh, nz, dchunk, nb, st);
     if (err) return err;
     if (nz > 1)
-        fold_kernel<T><<<(unsigned)((n + th - 1) / th), th, 0, st>>>(
-            part, nz, n, zs, dwr, dwi);
+        fold_kernel<T><<<dim3((unsigned)((n + th - 1) / th), nb), th, 0,
+                         st>>>(part, nz, n, zs, dwr, dwi, ws, ws);
     // dBC (U, Mh) = conj(W)^T dG, depth S K in whole states
     nz = bwd_split<T>(3, S, U, K, Mh, dchunk);
-    n = (size_t)U * Mh;
+    n = UMh;
     zs = 2 * up16<T>(n);
-    err = cgemm<T>(arr_op<false, true>((const T*)wr, (const T*)wi, sc.ldw),
-                   arr_op<false, false>((const T*)dgr, (const T*)dgi, Mh),
-                   nz == 1 ? DBCEpi<T>{{dbcr, dbci, Mh, 0}}
-                           : DBCEpi<T>{{part, part + zs / 2, Mh, zs}},
-                   U, Mh, SK, nz, dchunk, st);
+    err = cgemm<T>(
+        arr_op<false, true>((const T*)wr, (const T*)wi, sc.ldw, ws),
+        arr_op<false, false>((const T*)dgr, (const T*)dgi, Mh, ws),
+        nz == 1 ? DBCEpi<T>{{dbcr, dbci, Mh, 0, UMh}}
+                : DBCEpi<T>{{part, part + zs / 2, Mh, zs, ws}},
+        U, Mh, SK, nz, dchunk, nb, st);
     if (err) return err;
     if (nz > 1)
-        fold_kernel<T><<<(unsigned)((n + th - 1) / th), th, 0, st>>>(
-            part, nz, n, zs, dbcr, dbci);
-    rowsum<T>(DdqTerm<T>{dwr, dwi, ar, ai, ddq, U, K}, S * U, K, st);
-    rowsum<T>(DaTerm<T>{dwr, dwi, dq, dar, dai, U, K}, K * U, S, st);
+        fold_kernel<T><<<dim3((unsigned)((n + th - 1) / th), nb), th, 0,
+                         st>>>(part, nz, n, zs, dbcr, dbci, ws, UMh);
+    rowsum<T>(DdqTerm<T>{dwr, dwi, ar, ai, ddq, U, K, ws, bt.a,
+                         (size_t)S * U},
+              S * U, K, nb, st);
+    rowsum<T>(DaTerm<T>{dwr, dwi, dq, dar, dai, U, K, ws, bt.dq, KU},
+              K * U, S, nb, st);
     rowsum<T>(Df0Term<T>{dgr, dgi, gbar, f0r, f0i, cbw, df0r, df0i, S,
-                         K * Mh}, K * Mh, S, st);
+                         K * Mh, ws, bt.gbar, bt.f0, bt.cbw, KMh},
+              K * Mh, S, nb, st);
     return (int)cudaGetLastError();
 }
 
@@ -763,29 +879,39 @@ KERNELS_API int perstate_scratch(int f64, int bwd, int S, int U, int K,
                : (int)Scratch<float>(S, U, K, Mh, bwd).total;
 }
 
+// nb replicas; *_bs: the elements between two replicas' arrays of an
+// input (0: one array shared by the batch); partial, scratch and every
+// output hold nb replicas' in order
 #define PERSTATE_API(SUF, T)                                                 \
     KERNELS_API int perstate_fwd_##SUF(                                     \
         const void* dq, const void* ar, const void* ai, const void* bcr,    \
         const void* bci, const void* f0r, const void* f0i, const void* cbw, \
         void* partial, void* scratch, void* st, int S, int U, int K,        \
-        int Mh) {                                                           \
+        int Mh, int nb, int dq_bs, int a_bs, int bc_bs, int f0_bs,          \
+        int cbw_bs) {                                                       \
+        const Batch bt{nb, 0, (size_t)dq_bs, (size_t)a_bs, (size_t)bc_bs,  \
+                       (size_t)f0_bs, (size_t)cbw_bs};                      \
         return perstate_fwd<T>((const T*)dq, (const T*)ar, (const T*)ai,    \
                                (const T*)bcr, (const T*)bci, (const T*)f0r, \
                                (const T*)f0i, (const T*)cbw, (T*)partial,   \
-                               (T*)scratch, (cudaStream_t)st, S, U, K, Mh); \
+                               (T*)scratch, (cudaStream_t)st, S, U, K, Mh,  \
+                               bt);                                         \
     }                                                                       \
     KERNELS_API int perstate_bwd_##SUF(                                     \
         const void* gbar, const void* dq, const void* ar, const void* ai,   \
         const void* bcr, const void* bci, const void* f0r, const void* f0i, \
         const void* cbw, void* scratch, void* ddq, void* dar, void* dai,    \
         void* dbcr, void* dbci, void* df0r, void* df0i, void* st, int S,    \
-        int U, int K, int Mh) {                                             \
+        int U, int K, int Mh, int nb, int gbar_bs, int dq_bs, int a_bs,     \
+        int bc_bs, int f0_bs, int cbw_bs) {                                 \
+        const Batch bt{nb, (size_t)gbar_bs, (size_t)dq_bs, (size_t)a_bs,   \
+                       (size_t)bc_bs, (size_t)f0_bs, (size_t)cbw_bs};       \
         return perstate_bwd<T>(                                             \
             (const T*)gbar, (const T*)dq, (const T*)ar, (const T*)ai,       \
             (const T*)bcr, (const T*)bci, (const T*)f0r, (const T*)f0i,     \
             (const T*)cbw, (T*)scratch, (T*)ddq, (T*)dar, (T*)dai,          \
             (T*)dbcr, (T*)dbci, (T*)df0r, (T*)df0i, (cudaStream_t)st, S, U, \
-            K, Mh);                                                         \
+            K, Mh, bt);                                                     \
     }
 
 PERSTATE_API(f32, float)

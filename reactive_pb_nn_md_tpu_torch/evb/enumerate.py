@@ -83,10 +83,12 @@ def enumerate_diabats(x, box, topo, system, full_idx=None, com=None):
 
     hop_log = torch.full((S, C, 5), -1, dtype=torch.int64, device=dev)
     # meta columns: [n_hops, parent, donor_of, stop]
-    meta = torch.full((S, 4), -1, dtype=torch.int64, device=dev)
-    meta[:, 0] = 0
-    meta[:, 3] = 0
-    meta[0, 2] = principle_h
+    # (built out of place: a replica batch vmaps this function)
+    sidx = torch.arange(S, device=dev)
+    zero_s = torch.zeros(S, dtype=torch.int64, device=dev)
+    meta = torch.stack([zero_s, zero_s - 1,
+                        torch.where(sidx == 0, principle_h, zero_s - 1),
+                        zero_s], dim=-1)
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
     row_overflow = torch.zeros((), dtype=torch.bool, device=dev)
     lvl_begin = torch.zeros((), dtype=torch.int64, device=dev)
@@ -156,17 +158,15 @@ def enumerate_diabats(x, box, topo, system, full_idx=None, com=None):
         new_hop = torch.stack([d_all[src_state], g_p[src_state, p_rep],
                                heavy_g[src_state, p_rep], a_mol, j_safe],
                               dim=-1)
-        chain = hop_log[src_state].clone()
-        chain[:, level, :] = new_hop
+        chain = torch.where(
+            (torch.arange(C, device=dev) == level)[None, :, None],
+            new_hop[:, None, :], hop_log[src_state])
         new_meta = torch.stack(
             [torch.full_like(a_mol, level + 1), src_state, a_mol,
              (a_mol == principle_h).to(torch.int64)], dim=-1)
-        hop_log = torch.cat([hop_log, hop_log[:1]])
-        hop_log[tgt] = chain
-        hop_log = hop_log[:S]
-        meta = torch.cat([meta, meta[:1]])
-        meta[tgt] = new_meta
-        meta = meta[:S]
+        hop_log = torch.cat([hop_log, hop_log[:1]]).index_put(
+            (tgt,), chain)[:S]
+        meta = torch.cat([meta, meta[:1]]).index_put((tgt,), new_meta)[:S]
 
         n_new = valid.sum()
         overflow = overflow | (lvl_end + n_new > S)

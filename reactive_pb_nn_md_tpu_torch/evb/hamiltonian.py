@@ -30,6 +30,7 @@ import torch
 from ..utils.constants import CONV_E2A_KJMOL, SQRT_PI
 from ..models import total as total_mod
 from ..models import bonded, coupling, nonbonded, pme, repulsion
+from ..md.graphs import leaves, with_leaves
 from ..ops.ground_state import ground_state
 from ..ops.neighbors import CellTable, rows_on_demand
 from ..topology import Topology
@@ -140,12 +141,13 @@ def diabat_diagonal_energies(x, box, batch: DiabatBatch, system, pairs, cbw,
     # ---------------- changed-molecule superset U (constant in x)
     mols_all = torch.cat([dset.hop_log[:, :, 0], dset.hop_log[:, :, 3]],
                          dim=1).reshape(-1)
-    in_U = torch.zeros(M, dtype=torch.int64, device=dev)
-    in_U.scatter_reduce_(0, mols_all.clamp(min=0),
-                         (mols_all >= 0).to(torch.int64), reduce="amax")
+    # (out of place: a replica batch vmaps this function)
+    in_U = torch.zeros(M, dtype=torch.int64, device=dev).scatter_reduce(
+        0, mols_all.clamp(min=0), (mols_all >= 0).to(torch.int64),
+        reduce="amax")
     h0 = topo0.hydronium_mol.reshape(1)
-    in_U.scatter_reduce_(0, h0.clamp(min=0), (h0 >= 0).to(torch.int64),
-                         reduce="amax")
+    in_U = in_U.scatter_reduce(0, h0.clamp(min=0),
+                               (h0 >= 0).to(torch.int64), reduce="amax")
     UM = min(S, M)
     order_m = torch.argsort(-in_U, stable=True)[:UM]
     umol_ok = in_U[order_m] > 0
@@ -153,10 +155,10 @@ def diabat_diagonal_energies(x, box, batch: DiabatBatch, system, pairs, cbw,
     ua_mask = (umol_ok[:, None] & (ua_mat >= 0)).reshape(-1)
     ua = ua_mat.clamp(min=0).reshape(-1)                        # (U,)
     U = ua.shape[0]
-    pos_in_U = torch.full((N + 1,), -1, dtype=torch.int64, device=dev)
-    pos_in_U[torch.where(ua_mask, ua, torch.full_like(ua, N))] = \
-        torch.arange(U, device=dev)
-    pos_in_U = pos_in_U[:N]
+    pos_in_U = torch.full((N + 1,), -1, dtype=torch.int64,
+                          device=dev).index_put(
+        (torch.where(ua_mask, ua, torch.full_like(ua, N)),),
+        torch.arange(U, device=dev))[:N]
 
     # ---------------- state-independent pair data over U's neighbor rows
     on_demand = isinstance(full_idx, CellTable)
@@ -354,21 +356,49 @@ class EvbResult:
     gs_failed: torch.Tensor = None # () bool: kernel E did not converge
 
 
+def energy_and_grad(fn, x):
+    """(energy, aux, d energy / dx) of `fn(x) -> (energy (), aux)`, aux a
+    tuple of tensors and dataclasses of tensors.  An unbatched x takes
+    torch.autograd.grad (the step's own path, unchanged); an x inside a
+    torch.func transform (a replica batch vmaps the step: md/
+    integrators.py) takes the functional torch.func.grad, which vmap can
+    batch and which runs the same backward."""
+    if not torch._C._functorch.is_functorch_wrapped_tensor(x):
+        xg = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            energy, aux = fn(xg)
+            grad, = torch.autograd.grad(energy, xg)
+        return energy.detach(), aux, grad
+    structure = []
+
+    def flat(xg):
+        # functorch unwraps a pytree of tensors only: the dataclasses go
+        # through as their leaves, and come back in their structure
+        energy, aux = fn(xg)
+        structure.append(aux)
+        return energy, (energy, leaves(aux))
+
+    grad, (energy, vals) = torch.func.grad(flat, has_aux=True)(x)
+    return energy, with_leaves(structure[0], iter(vals)), grad
+
+
 def _eval_at_cap(x, box, topo, system, pairs, cbw, full_idx, com,
                  dset: DiabatSet, shard=None):
     """Diabat topologies -> H -> ground state -> Hellmann-Feynman forces,
     at cap system.evb_max_states; with `shard` the forces are the sum of
     the ranks' shares."""
     batch = build_diabat_topologies(topo, dset, system)
-    xg = x.detach().requires_grad_(True)
-    with torch.enable_grad():
+
+    def hf_energy(xg):
         H, bds, _, row_over = assemble_hamiltonian(
             xg, box, batch, system, pairs, cbw, topo.charge, topo, full_idx,
             com, shard=shard)
         _, c, gs_failed = ground_state(H)
         c = c.detach()
-        energy = c @ H @ c
-        grad, = torch.autograd.grad(energy, xg)
+        return c @ H @ c, (H.detach(), bds, row_over, c, gs_failed)
+
+    energy, (H, bds, row_over, c, gs_failed), grad = energy_and_grad(
+        hf_energy, x)
     if shard is not None:
         grad = shard.sum_force(grad)
     principle = torch.argmax(c.abs())
@@ -376,9 +406,9 @@ def _eval_at_cap(x, box, topo, system, pairs, cbw, full_idx, com,
     bds = replace(bds, **{k: getattr(bds, k).detach()
                           for k in ("total", "elec", "vdw", "bond", "angle",
                                     "dihedral")})
-    res = EvbResult(energy=energy.detach(), force=-grad, eigenvector=c,
+    res = EvbResult(energy=energy, force=-grad, eigenvector=c,
                     n_states=dset.n_states, principle=principle,
-                    hamiltonian=H.detach(), breakdown=bds,
+                    hamiltonian=H, breakdown=bds,
                     overflow=dset.overflow, hydronium_of=dset.hydronium_of,
                     n_hops_of=dset.n_hops, principle_topo=ptopo,
                     row_overflow=row_over | dset.row_overflow,

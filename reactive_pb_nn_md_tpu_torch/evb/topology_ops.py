@@ -43,7 +43,7 @@ def _scatter_update(arr, idx, new_vals, mask):
     out = arr.expand(S, *arr.shape).clone()
     delta = torch.where(mask, new_vals - torch.gather(out, 1, idx),
                         torch.zeros_like(new_vals))
-    return out.scatter_add_(1, idx, delta)
+    return out.scatter_add(1, idx, delta)
 
 
 def _reorder_to_template(atoms, types, template):
@@ -71,9 +71,7 @@ def _rows(t, r):
 
 
 def _set_rows(t, r, v):
-    t = t.clone()
-    t[torch.arange(t.shape[0], device=t.device), r] = v
-    return t
+    return t.index_put((torch.arange(t.shape[0], device=t.device), r), v)
 
 
 def changed_atoms(topo, hop_log):
@@ -176,7 +174,8 @@ def build_diabat_topologies(topo, dset: DiabatSet, system) -> DiabatBatch:
     delta = torch.where(row_ok[:, :, None],
                         catoms - topo.mol_atoms[cms],
                         torch.zeros_like(catoms))
-    mol_atoms.scatter_add_(1, cms[:, :, None].expand(S, R, A), delta)
+    mol_atoms = mol_atoms.scatter_add(1, cms[:, :, None].expand(S, R, A),
+                                      delta)
     batch_topo = Topology(
         mol_mtype=_scatter_update(topo.mol_mtype, cms, cmt, row_ok),
         mol_natom=_scatter_update(topo.mol_natom, cms, cnat, row_ok),

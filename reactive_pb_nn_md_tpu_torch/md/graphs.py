@@ -111,8 +111,9 @@ def signature(obj):
 
 class StepGraph:
     """One captured step (see the module docstring).  `generator`, when
-    the step draws from one, is registered with the graph, so replays
-    advance it as eager draws would.  `bias`, the restraint of the
+    the step draws from one (or a sequence of them, one a replica of a
+    batched step), is registered with the graph, so replays advance it
+    as eager draws would.  `bias`, the restraint of the
     capture (None: unbiased), gives the structure of the restraint
     buffers; run() copies each chunk's values in.  A chunk is at most
     MAX_CHUNK steps."""
@@ -124,9 +125,11 @@ class StepGraph:
         self.bias = with_leaves(bias, (t.clone() for t in leaves(bias)))
         self.k = torch.zeros(1, dtype=torch.int64, device=dev)
         self.graph = torch.cuda.CUDAGraph()
-        if generator is not None:
-            self.graph.register_generator_state(generator)
-            start = generator.get_state()
+        gens = (() if generator is None else tuple(generator)
+                if isinstance(generator, (tuple, list)) else (generator,))
+        for g in gens:
+            self.graph.register_generator_state(g)
+        start = [g.get_state() for g in gens]
         # warm-up on a side stream: the kernels are built, the cuFFT plans
         # made and autograd has run once before the capture
         side = torch.cuda.Stream(dev)
@@ -134,10 +137,10 @@ class StepGraph:
         with torch.cuda.stream(side):
             _, row = body(self.ms, self.cbw, self.bias)
         torch.cuda.current_stream(dev).wait_stream(side)
-        if generator is not None:
-            generator.set_state(start)
-        self.rows = torch.zeros((MAX_CHUNK, row.shape[0]), dtype=row.dtype,
-                                device=dev)
+        for g, st in zip(gens, start):
+            g.set_state(st)
+        self.rows = torch.zeros((MAX_CHUNK,) + tuple(row.shape),
+                                dtype=row.dtype, device=dev)
         before = Counter(_build.launches)
         before_coll = Counter(_build.collectives)
         torch.cuda.synchronize(dev)
@@ -175,7 +178,7 @@ class StepGraph:
     def run(self, ms, cbw, n, bias=None):
         """n steps from `ms` under the restraint `bias` (the capture's
         structure): (the MDState after them, its tensors fresh copies;
-        the (n, D) rows on the card)."""
+        the (n, D) rows on the card, (n, W, D) for a batched step)."""
         if n > self.rows.shape[0]:
             raise ValueError(f"{n} steps: a chunk holds at most "
                              f"{self.rows.shape[0]}")

@@ -46,6 +46,7 @@ import torch
 from ..utils.constants import CONV_KJMOL_A2PS2GMOL, KB
 from ..models import total as total_mod
 from ..ops import neighbors
+from ..ops.kernels import realspace_pair
 from ..evb import hamiltonian as ham
 from ..evb.enumerate import molecule_com
 from ..topology import State, Topology
@@ -196,11 +197,12 @@ def evaluate_forces(x, box, topo, system, nlist, cbw, com=None,
                          row_overflow=res.row_overflow,
                          small_overflow=res.small_overflow,
                          gs_failed=res.gs_failed)
-    xg = x.detach().requires_grad_(True)
-    with torch.enable_grad():
+    def energy(xg):
         bd = total_mod.total_energy(xg, box, topo, system, pairs, cbw,
                                     shard=shard)
-        grad, = torch.autograd.grad(bd.total, xg)
+        return bd.total, bd
+
+    _, bd, grad = ham.energy_and_grad(energy, x)
     if shard is not None:
         grad = shard.sum_force(grad)
     bd = dataclasses.replace(bd, **{k: getattr(bd, k).detach() for k in (
@@ -506,12 +508,13 @@ def _diag_row(ms, cv):
 
 
 def _diagnostics(rows, dtype):
-    """ChunkDiagnostics of the (n, len(_ROW)) rows (one host read)."""
-    rows = rows.cpu()
+    """ChunkDiagnostics of the (n, len(_ROW)) rows (one host read); of a
+    replica batch's (n, W, len(_ROW)) rows, (W, n) fields."""
+    rows = rows.cpu().movedim(0, -2)
     kinds = {"potential": dtype, "kinetic": dtype, "max_ci2": dtype,
              "cv": dtype, "n_states": torch.int64, "hydronium": torch.int64}
     return ChunkDiagnostics(**{
-        name: rows[:, i].to(kinds.get(name, torch.bool))
+        name: rows[..., i].to(kinds.get(name, torch.bool))
         for i, name in enumerate(_ROW)})
 
 
@@ -522,6 +525,14 @@ def scan_step(ms, system, cbw, dt, ensemble, friction, temperature,
     captures and the CPU runs."""
     noise = (draw_noise(ms.state.x, generator) if ensemble == "NVT"
              else None)
+    return scan_step_with(ms, system, cbw, dt, ensemble, friction,
+                          temperature, noise, tier, bias, shard)
+
+
+def scan_step_with(ms, system, cbw, dt, ensemble, friction, temperature,
+                   noise, tier="full", bias=None, shard=None):
+    """scan_step with the NVT draws `noise` given: md_step and the
+    diagnostics row."""
     ms = md_step(ms, system, cbw, dt, ensemble, friction, temperature,
                  noise=noise, tier=tier, bias=bias, shard=shard)
     x = ms.state.x
@@ -594,7 +605,15 @@ def md_scan(ms: MDState, system, cbw, dt: float, ensemble="NVE",
     every step shared over the ranks of a process group (parallel/
     shard.py), its collectives inside the captured step; every rank of
     the group calls md_scan with the same arguments, and the replay of
-    the small tier's chunk is decided from flags OR-ed over the ranks."""
+    the small tier's chunk is decided from flags OR-ed over the ranks.
+
+    A stacked replica batch `ms` (stack_states: every tensor (W, ...))
+    runs batched_md_scan, `generator` then one generator a replica and
+    `bias` the stacked restraint of a ladder."""
+    if ms.state.x.ndim == 3:
+        return batched_md_scan(ms, system, cbw, dt, ensemble, n_steps,
+                               friction, temperature, generator,
+                               step_graphs, eager, bias, shard)
     if ensemble not in ENSEMBLES:
         raise ValueError(f"ensemble {ensemble!r}: expected one of "
                          f"{', '.join(ENSEMBLES)}")
@@ -616,3 +635,131 @@ def md_scan(ms: MDState, system, cbw, dt: float, ensemble="NVE",
         out, diag = _scan(ms, *args, "full", step_graphs, eager, bias, shard)
         diag = dataclasses.replace(diag, small_overflow=first)
     return out, diag
+
+
+# ---- a replica batch: the counterpart of the JAX package's
+# jax.vmap(md_step / md_scan) (parallel/ensemble.py make_replica_scan,
+# parallel/umbrella.py make_ladder_scan).  W MDStates of one signature are
+# stacked on a leading axis, and ONE step, md_step under torch.func.vmap,
+# advances all of them: every torch op runs once for the batch and each
+# kernel (A, B1, B2, C1, C2, E) launches once for all W (their ops'
+# batching rules).  Flagship-class path only: the cell path (cell-list
+# neighbors, kernels A' / A'' and D1 / D2) and a step shared over ranks
+# take no batch (ROADMAP §2).
+
+def stack_states(states):
+    """One MDState whose tensors are those of `states` (one signature)
+    stacked on a leading axis; the static fields (capacities, cell grids,
+    the step count) are states[0]'s."""
+    sig = graphs.signature(states[0])
+    if any(graphs.signature(s) != sig for s in states[1:]):
+        raise ValueError("a replica batch needs MDStates of one signature "
+                         "(shapes, capacities, cell grids)")
+    cols = zip(*(graphs.leaves(s) for s in states))
+    return graphs.with_leaves(states[0], (torch.stack(c) for c in cols))
+
+
+def unstack_states(bms):
+    """The W MDStates of a stacked batch (views of its tensors)."""
+    W = bms.state.x.shape[0]
+    ts = graphs.leaves(bms)
+    return [graphs.with_leaves(bms, (t[w] for t in ts)) for w in range(W)]
+
+
+def check_batchable(system, ms, shard=None):
+    """Raise unless one replica's step (`ms`, one replica or a stacked
+    batch) takes the flagship-class path that a batch runs: dense
+    neighbors, kernel A's full stencil (or no cell grid), the per-atom
+    PME spread, one card."""
+    why = []
+    if ms.nlist.cells:
+        why.append("cell-list neighbors")
+    impl = system.rs_cells and realspace_pair._impl_for(system.rs_cells)
+    if impl and impl != "full":
+        why.append(f"kernel {realspace_pair.KERNEL_OF[impl]}")
+    if system.pme_scap:
+        why.append("the PME slab spread (kernels D1 / D2)")
+    if shard is not None:
+        why.append("a step shared over ranks")
+    if why:
+        raise ValueError(
+            f"a replica batch runs the flagship-class step only; this one "
+            f"takes {', '.join(why)} (queued: ROADMAP §2, the cell path and "
+            f"the shard under the batch)")
+
+
+def batched_scan_step(bms, system, cbw, dt, ensemble, friction, temperature,
+                      generators, bias=None):
+    """One step of every replica of the stacked batch `bms`: the NVT draws
+    of replica w from generators[w] (drawn before the vmapped step, in
+    replica order, so each stream equals the one replica's own), md_step
+    vmapped over the replicas under the stacked restraint `bias` (a tuple
+    of HarmonicBias of (W, ...) leaves, or None) at the full cap, and the
+    (W, D) diagnostics rows."""
+    noise = None
+    if ensemble == "NVT":
+        draws = [draw_noise(x, g) for x, g in zip(bms.state.x, generators)]
+        noise = tuple(torch.stack([d[k] for d in draws]) for k in range(2))
+
+    def one(tensors, noise_w, bias_leaves):
+        ms = graphs.with_leaves(bms, iter(tensors))
+        b = graphs.with_leaves(bias, iter(bias_leaves))
+        ms, row = scan_step_with(ms, system, cbw, dt, ensemble, friction,
+                                 temperature, noise_w, bias=b)
+        return graphs.leaves(ms), row
+
+    out, rows = torch.func.vmap(one, in_dims=(0, None if noise is None
+                                              else 0, 0))(
+        graphs.leaves(bms), noise, graphs.leaves(bias))
+    return graphs.with_leaves(bms, iter(out)), rows
+
+
+def batched_md_scan(bms, system, cbw, dt, ensemble="NVE", n_steps=1,
+                    friction=0.1, temperature=300.0, generators=None,
+                    step_graphs=None, eager=False, bias=None, shard=None):
+    """n_steps (<= MAX_CHUNK on the card) steps of every replica of the
+    stacked batch `bms` (stack_states): (the batch after them,
+    ChunkDiagnostics of (W, n_steps) fields).  On the card each step is a
+    replay of the batched step captured once as a CUDA graph (md/
+    graphs.py), every generator of `generators` (one a replica, NVT)
+    registered with it; on the CPU, or eager, the same step runs without
+    a graph.  No small tier (the replicas run one static cap, as the JAX
+    package's vmapped ones do).  bias: the (W, ...)-stacked restraint of
+    a ladder (parallel/umbrella.make_ladder), or None.  The result is
+    valid only if diag.capacities() is empty (else regrow every replica
+    and replay the chunk).  Raises on a step that takes the cell path,
+    and on a shard (check_batchable)."""
+    if ensemble not in ENSEMBLES:
+        raise ValueError(f"ensemble {ensemble!r}: expected one of "
+                         f"{', '.join(ENSEMBLES)}")
+    W = bms.state.x.shape[0]
+    if ensemble == "NVT" and (generators is None or len(generators) != W):
+        raise ValueError(f"an NVT batch needs a generator for each of its "
+                         f"{W} replicas")
+    check_batchable(system, bms, shard)
+    gens = tuple(generators) if ensemble == "NVT" else ()
+    bias = bias_mod.as_tuple(bias)
+
+    def body(m, w, b):
+        return batched_scan_step(m, system, w, dt, ensemble, friction,
+                                 temperature, gens, b)
+
+    if bms.state.x.is_cuda and not eager:
+        if step_graphs is None:
+            step_graphs = graphs.StepGraphs()
+        key = ("batch", W, ensemble, bms.state.x.dtype, dt, friction,
+               temperature, graphs.Held(system),
+               tuple(graphs.Held(g) for g in gens), graphs.signature(bms),
+               tuple(cbw.shape), graphs.signature(bias))
+        g = step_graphs.get(key, lambda: graphs.StepGraph(
+            body, bms, cbw, gens, bias))
+        out, rows = g.run(bms, cbw, n_steps, bias)
+    else:
+        out, rows = bms, []
+        for _ in range(n_steps):
+            out, row = body(out, cbw, bias)
+            rows.append(row)
+        rows = torch.stack(rows)
+    out = dataclasses.replace(out, state=dataclasses.replace(
+        out.state, step=bms.state.step + n_steps))
+    return out, _diagnostics(rows, bms.state.x.dtype)

@@ -19,15 +19,15 @@ def bin_slots(key, n_bins, cap):
     order = torch.argsort(key, stable=True)
     sorted_key = key[order]
     ar = torch.arange(N, device=key.device)
-    first = torch.ones(N, dtype=torch.bool, device=key.device)
-    first[1:] = sorted_key[1:] != sorted_key[:-1]
+    # (out of place: a replica batch vmaps this function)
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=key.device),
+                       sorted_key[1:] != sorted_key[:-1]])
     run_start = torch.cummax(torch.where(first, ar, torch.zeros_like(ar)),
                              0).values
     rank = ar - run_start
     slot_sorted = torch.where(rank < cap, sorted_key * cap + rank,
                               torch.full_like(rank, n_bins * cap))
-    slot = torch.empty_like(slot_sorted)
-    slot[order] = slot_sorted
+    slot = torch.empty_like(slot_sorted).index_put((order,), slot_sorted)
     return slot, (rank >= cap).any()
 
 
@@ -36,8 +36,8 @@ def slot_atoms(slot, n_rows):
     inverse of bin_slots' slot, dump row dropped)."""
     rows = torch.full((n_rows + 1,), -1, dtype=torch.int64,
                       device=slot.device)
-    rows[slot] = torch.arange(slot.shape[0], device=slot.device)
-    return rows[:n_rows]
+    return rows.index_put((slot,), torch.arange(slot.shape[0],
+                                                device=slot.device))[:n_rows]
 
 
 @functools.lru_cache(maxsize=None)

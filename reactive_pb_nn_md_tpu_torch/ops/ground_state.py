@@ -8,7 +8,9 @@ the MD step can be captured as a CUDA graph (torch.linalg.eigh checks its
 info on the host).
 For a CPU tensor, the plain version: eigh.  Both return c_0 with its
 largest |c_i| positive; every consumer (c^T H c, c_i^2, argmax |c|) is
-sign-invariant."""
+sign-invariant.  ground_state_op is a torch.library op whose batching
+rule launches kernel E once for a whole replica batch (torch.func.vmap
+over the MD step), one block a replica."""
 
 import torch
 
@@ -44,36 +46,66 @@ def max_rounds():
     return _build.function("ground_state_max_rounds", 0)()
 
 
-def ground_state_cuda(H):
+def ground_state_cuda(H, nb=None):
     """Kernel E: (lambda_0 (), c_0 (S,), info () int32: the multisection
     rounds it took, 0..max_rounds(), or -1 when the interval did not close,
     the inverse-iteration residual ||(T - lambda_0 I) y||_inf exceeded
     16 nact eps ||T||_inf ||y||_inf (nact: the coupled states) or a value
-    was not finite)."""
-    S = H.shape[0]
+    was not finite).  With nb, a batched launch of nb replicas' H (nb, S,
+    S), one block each: (nb,), (nb, S), (nb,)."""
+    S = H.shape[-1]
     f = H.dtype
-    _build.require(H, f, (S, S), "H")
+    _build.require(H, f, (nb, S, S) if nb else (S, S), "H")
+    lead = (nb,) if nb else ()
     # A in device memory where it does not fit in shared memory
     # (csrc/ground_state.cu decides)
-    scratch = torch.empty(_build.function("ground_state_scratch", 0, 1)(S),
-                          dtype=torch.float64, device=H.device)
-    lam = torch.empty((), dtype=f, device=H.device)
-    c = torch.empty(S, dtype=f, device=H.device)
-    info = torch.empty((), dtype=torch.int32, device=H.device)
-    fn = _build.function("ground_state_" + _build.suffix(f), 6, 1)
+    scratch = torch.empty(
+        (nb or 1) * _build.function("ground_state_scratch", 0, 1)(S),
+        dtype=torch.float64, device=H.device)
+    lam = torch.empty(lead, dtype=f, device=H.device)
+    c = torch.empty(lead + (S,), dtype=f, device=H.device)
+    info = torch.empty(lead, dtype=torch.int32, device=H.device)
+    fn = _build.function("ground_state_" + _build.suffix(f), 6, 3)
     _build.check(fn(H.data_ptr(), lam.data_ptr(), c.data_ptr(),
                     info.data_ptr(), scratch.data_ptr(),
-                    _build.stream_ptr(H), S), "E")
+                    _build.stream_ptr(H), S, nb or 1, S * S if nb else 0),
+                 "E")
     _build.launches["E"] += 1
     return lam, c, info
+
+
+@torch.library.custom_op(_build.OPS + "::ground_state", mutates_args=())
+def ground_state_op(H: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """(lambda_0, c_0, info) of H: kernel E for a CUDA tensor, the plain
+    eigh for a CPU one (info 0: eigh raises instead); a replica batch
+    (vmap) launches E once for all replicas."""
+    if H.is_cuda:
+        return ground_state_cuda(H)
+    lam, c = ground_state_eigh(H)
+    return lam, c, torch.zeros((), dtype=torch.int32, device=H.device)
+
+
+@ground_state_op.register_fake
+def _(H):
+    S = H.shape[-1]
+    return H.new_empty(()), H.new_empty(S), H.new_empty((), dtype=torch.int32)
+
+
+@ground_state_op.register_vmap
+def _(info, in_dims, H):
+    nb = info.batch_size
+    H = H.movedim(in_dims[0], 0) if in_dims[0] is not None \
+        else H.expand(nb, *H.shape)
+    if H.is_cuda:
+        return ground_state_cuda(H.contiguous(), nb), (0, 0, 0)
+    out = [ground_state_op(H[i]) for i in range(nb)]
+    return tuple(torch.stack(o) for o in zip(*out)), (0, 0, 0)
 
 
 def ground_state(H):
     """(lambda_0, c_0, not_converged ()) of H, detached: kernel E for a
     CUDA tensor, the plain eigh for a CPU one (whose flag is always
     False: eigh raises instead)."""
-    if H.is_cuda:
-        lam, c, info = ground_state_cuda(H.detach().contiguous())
-        return lam, c, info < 0
-    lam, c = ground_state_eigh(H)
-    return lam, c, torch.zeros((), dtype=torch.bool, device=H.device)
+    lam, c, info = ground_state_op(H.detach().contiguous())
+    return lam, c, info < 0

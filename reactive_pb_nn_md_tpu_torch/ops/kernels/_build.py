@@ -12,7 +12,9 @@ it is given, allocates nothing, does not synchronize, and returns
 ``launches`` counts kernel launches by kernel name (A, A', A'', B1, B2,
 C1, C2, D1, D2, E); each wrapper adds one where it launches its kernel,
 and nowhere else (a CUDA graph's replay adds what its capture counted:
-md/graphs.py).
+md/graphs.py).  A batched launch (a replica batch of the vmapped step:
+the kernels' ops' batching rules, `stride` / `front` below) counts once
+for all its replicas.
 """
 
 import ctypes
@@ -31,6 +33,12 @@ BUILD_ROOT = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "--expt-relaxed-constexpr"]
+
+# namespace of the kernels' torch.library custom ops (one an entry point:
+# each has the plain version for CPU tensors, the launch for CUDA ones and
+# a batching rule, so a replica batch vmapped over the MD step launches
+# each kernel once for all replicas)
+OPS = "rpnm_torch"
 
 launches = Counter()
 # collectives a step shared over ranks issued (parallel/shard.py), by
@@ -165,3 +173,48 @@ def require(t, dtype, shape=None, name="tensor"):
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")
+
+
+def stride(t, ndim, nb):
+    """Elements between two replicas' copies of `t` in a batched launch of
+    nb replicas: 0 when t has the ndim of one replica's array (the batch
+    shares it), else t[0].numel() (t stacked on a leading axis of nb)."""
+    if t.ndim == ndim:
+        return 0
+    if t.ndim != ndim + 1 or t.shape[0] != nb:
+        raise ValueError(f"a batched launch of {nb} replicas takes an array "
+                         f"of {ndim} axes or {nb} stacked on a leading "
+                         f"axis, not shape {tuple(t.shape)}")
+    return t[0].numel()
+
+
+def unbatched(t, ndim):
+    """The shape of one replica's `t` (t of ndim axes, or ndim + 1 with the
+    replicas first)."""
+    return tuple(t.shape[t.ndim - ndim:])
+
+
+def front(args, in_dims):
+    """The tensors `args` of a batching rule, each contiguous with its
+    batch axis first; those the batch shares (in_dims None) unbatched."""
+    return [a.movedim(d, 0).contiguous() if d is not None
+            else a.contiguous() for a, d in zip(args, in_dims)]
+
+
+def alike(args, in_dims, groups, nb):
+    """A batching rule's `args` (front() order) with every group of
+    indices in `groups` batched alike (a batched launch takes one stride
+    a group): a shared member of a group whose others are batched is
+    stacked nb times."""
+    args = list(args)
+    for group in groups:
+        if len({in_dims[k] is None for k in group}) > 1:
+            for k in group:
+                if in_dims[k] is None:
+                    args[k] = args[k].expand(nb, *args[k].shape).contiguous()
+    return args
+
+
+def replica(args, in_dims, i):
+    """Replica i's arguments of a batching rule (front() order)."""
+    return [a[i] if d is not None else a for a, d in zip(args, in_dims)]

@@ -13,7 +13,10 @@ dE/dq (N,) and dE/dx (N, 3) from the grid cotangent in one pass, one
 warp an atom, with the order compiled in for 4 and 6 and a generic path
 (per-atom tables in shared memory, ``gather_smem``) for any other.  What
 bounds each on the H100 is in the source.  ``spread`` / ``gather`` run the
-kernels for CUDA tensors and the plain versions below for CPU tensors.
+kernels for CUDA tensors and the plain versions below for CPU tensors;
+they are torch.library ops whose batching rules launch B1 / B2 once for
+a whole replica batch (torch.func.vmap over the MD step), a replica
+grid axis in the kernels.
 """
 
 import torch
@@ -36,7 +39,7 @@ def spread_plain(w, nearpt, q, K):
             + idx[:, 2, None, None, :]).reshape(-1)
     vals = (q[:, None, None, None] * w[:, 0, :, None, None]
             * w[:, 1, None, :, None] * w[:, 2, None, None, :]).reshape(-1)
-    return torch.zeros(K ** 3, dtype=w.dtype, device=w.device).index_add_(
+    return torch.zeros(K ** 3, dtype=w.dtype, device=w.device).index_add(
         0, flat, vals)
 
 
@@ -57,6 +60,24 @@ def contract_plain(gQ, w, dw, nearpt, K):
                      torch.einsum("aijl,ai,aj,al->a", c, w0, d1, w2),
                      torch.einsum("aijl,ai,aj,al->a", c, w0, w1, d2)], -1)
     return gq, s
+
+
+def spread_vjp_plain(gQ, w, nearpt, q, K):
+    """(cotangent of w (n, 3, order), of q (n,)) of spread_plain's grid for
+    the grid cotangent gQ (K^3,): its gradient in the spline weights and
+    the charges (the plain path's delta grids, pme.delta_charge_grid,
+    differentiate through it)."""
+    order = w.shape[-1]
+    k = torch.arange(order, device=w.device)
+    idx = torch.remainder(nearpt[:, :, None] - k, K)
+    c = gQ[((idx[:, 0, :, None, None] * K + idx[:, 1, None, :, None]) * K
+            + idx[:, 2, None, None, :])]                         # (n, o, o, o)
+    w0, w1, w2 = w[:, 0], w[:, 1], w[:, 2]
+    qc = q[:, None]
+    gw = torch.stack([qc * torch.einsum("aijl,aj,al->ai", c, w1, w2),
+                      qc * torch.einsum("aijl,ai,al->aj", c, w0, w2),
+                      qc * torch.einsum("aijl,ai,aj->al", c, w0, w1)], 1)
+    return gw, torch.einsum("aijl,ai,aj,al->a", c, w0, w1, w2)
 
 
 def gather_plain(gQ, w, dw, nearpt, q, recip, K):
@@ -87,23 +108,33 @@ def spread_smem(order, K, itemsize):
     return smem
 
 
-def spread_cuda(w, nearpt, q, K):
-    n, _, order = w.shape
+def spread_cuda(w, nearpt, q, K, nb=None):
+    """Launch kernel B1: the (K^3,) grid; with nb, a batched launch of nb
+    replicas, each argument stacked on a leading axis of nb or shared by
+    the batch, giving (nb, K^3) grids."""
+    n, _, order = _build.unbatched(w, 3)
     f = w.dtype
-    _build.require(w, f, (n, 3, order), "w")
-    _build.require(nearpt, torch.int64, (n, 3), "nearpt")
-    _build.require(q, f, (n,), "q")
+    strides = []
+    for t, shape, dt, name in ((w, (n, 3, order), f, "w"),
+                               (nearpt, (n, 3), torch.int64, "nearpt"),
+                               (q, (n,), f, "q")):
+        _build.require(t, dt, None, name)
+        if _build.unbatched(t, len(shape)) != shape or (
+                not nb and t.ndim != len(shape)):
+            raise ValueError(f"{name} must have shape {shape}, got "
+                             f"{tuple(t.shape)}")
+        strides.append(_build.stride(t, len(shape), nb) if nb else 0)
     if order > K:
         raise ValueError("spline order exceeds the PME grid")
     spread_smem(order, K, w.element_size())
     # the kernel writes every element (zeros for n = 0): no fill
-    grid = torch.empty(K ** 3, dtype=f, device=w.device)
-    fn = _build.function("pme_spread_" + _build.suffix(f), 5, 3)
+    grid = torch.empty((nb or 1, K ** 3), dtype=f, device=w.device)
+    fn = _build.function("pme_spread_" + _build.suffix(f), 5, 7)
     _build.check(fn(w.data_ptr(), nearpt.data_ptr(), q.data_ptr(),
-                    grid.data_ptr(), _build.stream_ptr(w), n, K, order),
-                 "B1")
+                    grid.data_ptr(), _build.stream_ptr(w), n, K, order,
+                    nb or 1, *strides), "B1")
     _build.launches["B1"] += 1
-    return grid
+    return grid if nb else grid[0]
 
 
 def gather_smem(order, K, itemsize):
@@ -122,35 +153,112 @@ def gather_smem(order, K, itemsize):
     return smem
 
 
-def gather_cuda(gQ, w, dw, nearpt, q, recip, K):
-    n, _, order = w.shape
+def gather_cuda(gQ, w, dw, nearpt, q, recip, K, nb=None):
+    """Launch kernel B2: (dE/dq (n,), dE/dx (n, 3)); with nb, a batched
+    launch of nb replicas (see spread_cuda), giving (nb, n) and (nb, n,
+    3)."""
+    n, _, order = _build.unbatched(w, 3)
     f = w.dtype
-    _build.require(gQ, f, (K ** 3,), "gQ")
-    _build.require(w, f, (n, 3, order), "w")
-    _build.require(dw, f, (n, 3, order), "dw")
-    _build.require(nearpt, torch.int64, (n, 3), "nearpt")
-    _build.require(q, f, (n,), "q")
-    _build.require(recip, f, (3, 3), "recip")
+    strides = []
+    for t, shape, dt, name in ((gQ, (K ** 3,), f, "gQ"),
+                               (w, (n, 3, order), f, "w"),
+                               (dw, (n, 3, order), f, "dw"),
+                               (nearpt, (n, 3), torch.int64, "nearpt"),
+                               (q, (n,), f, "q"), (recip, (3, 3), f,
+                                                   "recip")):
+        _build.require(t, dt, None, name)
+        if _build.unbatched(t, len(shape)) != shape or (
+                not nb and t.ndim != len(shape)):
+            raise ValueError(f"{name} must have shape {shape}, got "
+                             f"{tuple(t.shape)}")
+        strides.append(_build.stride(t, len(shape), nb) if nb else 0)
+    if strides[1] != strides[2]:
+        raise ValueError("w and dw must be batched alike")
     gather_smem(order, K, w.element_size())
-    gq = torch.empty(n, dtype=f, device=w.device)
-    gx = torch.empty((n, 3), dtype=f, device=w.device)
-    fn = _build.function("pme_gather_" + _build.suffix(f), 9, 3)
+    gq = torch.empty((nb or 1, n), dtype=f, device=w.device)
+    gx = torch.empty((nb or 1, n, 3), dtype=f, device=w.device)
+    fn = _build.function("pme_gather_" + _build.suffix(f), 9, 9)
     _build.check(fn(gQ.data_ptr(), w.data_ptr(), dw.data_ptr(),
                     nearpt.data_ptr(), q.data_ptr(), recip.data_ptr(),
                     gq.data_ptr(), gx.data_ptr(), _build.stream_ptr(w), n,
-                    K, order), "B2")
+                    K, order, nb or 1, strides[0], strides[1], strides[3],
+                    strides[4], strides[5]), "B2")
     _build.launches["B2"] += 1
-    return gq, gx
+    return (gq, gx) if nb else (gq[0], gx[0])
 
 
-def spread(w, nearpt, q, K):
+@torch.library.custom_op(_build.OPS + "::pme_spread", mutates_args=())
+def spread(w: torch.Tensor, nearpt: torch.Tensor, q: torch.Tensor,
+           K: int) -> torch.Tensor:
+    """(K^3,) grid: kernel B1 for CUDA tensors, spread_plain for CPU ones;
+    a replica batch (vmap) launches B1 once for all replicas."""
     return spread_cuda(w, nearpt, q, K) if w.is_cuda \
         else spread_plain(w, nearpt, q, K)
 
 
-def gather(gQ, w, dw, nearpt, q, recip, K):
+@spread.register_fake
+def _(w, nearpt, q, K):
+    return w.new_empty(K ** 3)
+
+
+def _spread_setup(ctx, inputs, output):
+    w, nearpt, q, K = inputs
+    ctx.save_for_backward(w, nearpt, q)
+    ctx.K = K
+
+
+def _spread_backward(ctx, gQ):
+    """The plain spread's gradient in w and q, for CPU tensors; kernel B1
+    gives none (ChargeGrid differentiates the spread in x through B2)."""
+    w, nearpt, q = ctx.saved_tensors
+    if gQ.is_cuda:
+        raise NotImplementedError(
+            "kernel B1 gives no gradient in the spline weights: "
+            "differentiate the spread in x through pme_spread.charge_grid")
+    gw, gq = spread_vjp_plain(gQ, w, nearpt, q, ctx.K)
+    return gw, None, gq, None
+
+
+spread.register_autograd(_spread_backward, setup_context=_spread_setup)
+
+
+@spread.register_vmap
+def _(info, in_dims, w, nearpt, q, K):
+    args = _build.front((w, nearpt, q), in_dims[:3])
+    if w.is_cuda:
+        return spread_cuda(*args, K, nb=info.batch_size), 0
+    return torch.stack([spread(*_build.replica(args, in_dims, i), K)
+                        for i in range(info.batch_size)]), 0
+
+
+@torch.library.custom_op(_build.OPS + "::pme_gather", mutates_args=())
+def gather(gQ: torch.Tensor, w: torch.Tensor, dw: torch.Tensor,
+           nearpt: torch.Tensor, q: torch.Tensor, recip: torch.Tensor,
+           K: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dE/dq (n,), dE/dx (n, 3)) from the grid cotangent: kernel B2 for
+    CUDA tensors, gather_plain for CPU ones; a replica batch (vmap)
+    launches B2 once for all replicas."""
     return gather_cuda(gQ, w, dw, nearpt, q, recip, K) if w.is_cuda \
         else gather_plain(gQ, w, dw, nearpt, q, recip, K)
+
+
+@gather.register_fake
+def _(gQ, w, dw, nearpt, q, recip, K):
+    n = w.shape[0]
+    return w.new_empty(n), w.new_empty((n, 3))
+
+
+@gather.register_vmap
+def _(info, in_dims, gQ, w, dw, nearpt, q, recip, K):
+    args = _build.front((gQ, w, dw, nearpt, q, recip), in_dims[:6])
+    if w.is_cuda:
+        nb = info.batch_size
+        return gather_cuda(*_build.alike(args, in_dims, ((1, 2),), nb), K,
+                           nb=nb), (0, 0)
+    out = [gather(*_build.replica(args, in_dims, i), K)
+           for i in range(info.batch_size)]
+    return (torch.stack([o[0] for o in out]),
+            torch.stack([o[1] for o in out])), (0, 0)
 
 
 def spline_setup(x, box, K, order):
@@ -164,25 +272,33 @@ def spline_setup(x, box, K, order):
 
 
 class ChargeGrid(torch.autograd.Function):
-    """Q grid (K, K, K) from all atoms (grid_Q); differentiable in x and q
-    (the box gets no cotangent, as in the reference kernel)."""
+    """(Q grid (K, K, K) from all atoms (grid_Q), the spline tables);
+    differentiable in x and q (the box gets no cotangent, as in the
+    reference kernel).  Its forward and backward are the ops B1 and B2, so
+    under a replica batch (vmap) each launches once for all replicas.
+    B2's cotangent is detached: under create_graph its result is a
+    constant, the kernel's gradient."""
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, x, q, box, K, order):
+    def forward(x, q, box, K, order):
         w, dw, nearpt = spline_setup(x, box, K, order)
-        q = q.contiguous()
-        recip = pbc.recip_vectors(box).contiguous()
-        ctx.save_for_backward(w, dw, nearpt, q, recip)
-        ctx.K = K
-        return spread(w, nearpt, q, K).reshape(K, K, K)
+        grid = spread(w, nearpt, q.contiguous(), K).reshape(K, K, K)
+        return grid, w, dw, nearpt, pbc.recip_vectors(box).contiguous()
 
     @staticmethod
-    def backward(ctx, gQ):
-        w, dw, nearpt, q, recip = ctx.saved_tensors
-        gq, gx = gather(gQ.reshape(-1).contiguous(), w, dw, nearpt, q,
-                        recip, ctx.K)
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[1], *output[1:])
+        ctx.mark_non_differentiable(*output[1:])
+        ctx.K = inputs[3]
+
+    @staticmethod
+    def backward(ctx, gQ, *_):
+        q, w, dw, nearpt, recip = ctx.saved_tensors
+        gq, gx = gather(gQ.detach().reshape(-1).contiguous(), w, dw, nearpt,
+                        q.detach().contiguous(), recip, ctx.K)
         return gx, gq, None, None, None
 
 
 def charge_grid(x, q, box, K, order):
-    return ChargeGrid.apply(x, q, box, K, order)
+    return ChargeGrid.apply(x, q, box, K, order)[0]

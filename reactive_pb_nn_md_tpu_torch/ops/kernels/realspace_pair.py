@@ -22,7 +22,9 @@ gradients (as the TPU kernel's custom VJP does).
 What bounds them on the H100 and what the designs do about it: see the
 source.  ``pair_rows`` runs a CUDA kernel for a CUDA tensor and the plain
 torch sweep below, the plain version of all three, for a CPU tensor;
-nothing else selects between them.
+nothing else selects between them.  It is a torch.library op whose
+batching rule launches kernel A once for a whole replica batch
+(torch.func.vmap over the MD step; A' and A'' take no batch).
 
 A cell range (c0, c1) takes the rows of the home cells c0 .. c1 - 1 only,
 the others zero: kernel A and the plain sweep compute those cells alone
@@ -34,6 +36,8 @@ full sweep (parallel/shard.py splits one step's sweep so over ranks).
 The kernel assumes an orthorhombic box (L = diag(box)), as the reference
 kernel does; ``suggest_rs_cells`` returns () for any other box.
 """
+
+from typing import Optional
 
 import torch
 
@@ -124,8 +128,8 @@ def pack_cells(x, charge, atype, mol, slot, cells):
                       mol[:, None].to(f),
                       torch.zeros((x.shape[0], 2), dtype=f, device=x.device)],
                      dim=1)
-    base[slot] = vals
-    return base[:C8].contiguous()
+    # out of place: a replica batch vmaps this function
+    return base.index_put((slot,), vals)[:C8].contiguous()
 
 
 def _stencil(cells, device):
@@ -283,11 +287,25 @@ def _cell_range(cells, cell_range):
 
 
 def pair_rows_cuda(cm, tabs, cells, box, rcut, alpha, has_sapt,
-                   cell_range=None):
+                   cell_range=None, nb=None):
     """Launch kernel A (box: (3, 3), orthorhombic), over the home cells
-    of `cell_range` only when given (the other rows zero)."""
-    n_tab, T = _check(cm, tabs, cells, box, "A")
+    of `cell_range` only when given (the other rows zero).  With nb, a
+    batched launch of nb replicas: cm (nb, n_cells ccap, 8), tabs and box
+    each stacked on a leading axis of nb or shared by the batch; the rows
+    come back (nb, n_cells ccap, 8)."""
     nc1, nc2, nc3, ccap = cells
+    C8 = nc1 * nc2 * nc3 * ccap
+    if nb:
+        _build.require(cm, cm.dtype, (nb, C8, 8), "cm")
+        strides = (C8 * 8, _build.stride(tabs, 3, nb),
+                   _build.stride(box, 2, nb))
+        n_tab, T = _check(cm[0], tabs if tabs.ndim == 3 else tabs[0], cells,
+                          box if box.ndim == 2 else box[0], "A")
+        _build.require(tabs, cm.dtype, None, "tabs")
+        _build.require(box, cm.dtype, None, "box")
+    else:
+        strides = (0, 0, 0)
+        n_tab, T = _check(cm, tabs, cells, box, "A")
     c0, c1 = _cell_range(cells, cell_range)
     check_full_smem(n_tab * T * T, cells, cm.element_size())
     if cm.data_ptr() % 16:
@@ -298,12 +316,12 @@ def pair_rows_cuda(cm, tabs, cells, box, rcut, alpha, has_sapt,
     out = torch.empty_like(cm) if full else torch.zeros_like(cm)
     if c1 == c0:
         return out
-    fn = _build.function("rs_pair_" + _build.suffix(f), 5, 10, 3)
+    fn = _build.function("rs_pair_" + _build.suffix(f), 5, 14, 3)
     _build.check(fn(cm.data_ptr(), tabs.data_ptr(), box.data_ptr(),
                     out.data_ptr(), _build.stream_ptr(cm), nc1, nc2, nc3,
                     ccap, full_parts(cells), c0, c1 - c0, T, n_tab,
-                    int(bool(has_sapt)), float(rcut) ** 2, float(alpha),
-                    CONV_E2A_KJMOL), "A")
+                    int(bool(has_sapt)), nb or 1, *strides,
+                    float(rcut) ** 2, float(alpha), CONV_E2A_KJMOL), "A")
     _build.launches["A"] += 1
     return out
 
@@ -355,14 +373,19 @@ def pair_rows_half_cuda(cm, tabs, cells, box, rcut, alpha, has_sapt,
     return out
 
 
-def pair_rows(cm, tabs, cells, box, rcut, alpha, has_sapt, impl="full",
-              cell_range=None):
+@torch.library.custom_op(_build.OPS + "::pair_rows", mutates_args=())
+def pair_rows(cm: torch.Tensor, tabs: torch.Tensor, cells: list[int],
+              box: torch.Tensor, rcut: float, alpha: float, has_sapt: bool,
+              impl: str = "full",
+              cell_range: Optional[list[int]] = None) -> torch.Tensor:
     """Per-slot [dE_el/dx (3), dE_vdw/dx (3), e_el, e_vdw]: for a CUDA
     tensor the kernel of `impl` (A "full", A' "half", A'' "column"), for
     a CPU tensor the plain sweep (whose rows split each pair energy in
     two, as A's do; the sums agree).  cell_range: the home cells (c0,
-    c1) whose rows to give, the others zero (see the module
-    docstring)."""
+    c1) whose rows to give, the others zero (see the module docstring).
+    Under a replica batch (vmap) kernel A launches once for all replicas;
+    A' and A'' take no batch (ROADMAP §2: the cell path under a batch)."""
+    cells = tuple(cells)
     if not cm.is_cuda:
         if cell_range is not None:
             cell_range = _cell_range(cells, cell_range)
@@ -383,32 +406,67 @@ def pair_rows(cm, tabs, cells, box, rcut, alpha, has_sapt, impl="full",
     return torch.where(keep, rows, torch.zeros_like(rows))
 
 
+@pair_rows.register_fake
+def _(cm, tabs, cells, box, rcut, alpha, has_sapt, impl="full",
+      cell_range=None):
+    return torch.empty_like(cm)
+
+
+@pair_rows.register_vmap
+def _(info, in_dims, cm, tabs, cells, box, rcut, alpha, has_sapt,
+      impl="full", cell_range=None):
+    nb = info.batch_size
+    cm, tabs, box = _build.front((cm, tabs, box), (in_dims[0], in_dims[1],
+                                                   in_dims[3]))
+    if in_dims[0] is None:
+        cm = cm.expand(nb, *cm.shape).contiguous()
+    if cm.is_cuda:
+        if impl != "full":
+            raise ValueError(
+                f"kernel {KERNEL_OF[impl]} takes no replica batch: a batch "
+                f"runs kernel A's full stencil only (ROADMAP §2, the cell "
+                f"path under the batch)")
+        return pair_rows_cuda(cm, tabs, tuple(cells), box.contiguous(),
+                              rcut, alpha, has_sapt, cell_range, nb=nb), 0
+    dims = (0, in_dims[1], in_dims[3])
+    return torch.stack([
+        pair_rows(c, t, cells, b, rcut, alpha, has_sapt, impl, cell_range)
+        for c, t, b in (_build.replica((cm, tabs, box), dims, i)
+                        for i in range(nb))]), 0
+
+
 class RealspaceInterCells(torch.autograd.Function):
-    """(e_elec, e_vdw, overflow) over all inter-molecular pairs within the
-    cutoff; differentiable in x only (the stored analytic gradients).
-    With a cell range, the home cells' share: their atoms' gradients and
-    their rows' energies (pair_rows)."""
+    """(e_elec, e_vdw, overflow, the rows' gradients) over all
+    inter-molecular pairs within the cutoff; differentiable in x only
+    (the stored analytic gradients).  With a cell range, the home cells'
+    share: their atoms' gradients and their rows' energies (pair_rows).
+    The sweep is the op pair_rows, so under a replica batch (vmap)
+    kernel A launches once for all replicas."""
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, x, charge, atype, mol, box, tabs, cells, rcut, alpha,
+    def forward(x, charge, atype, mol, box, tabs, cells, rcut, alpha,
                 has_sapt, cell_range=None):
         slot, overflow = bin_atoms(x, box, cells, rcut)
         cm = pack_cells(x, charge, atype, mol, slot, cells)
         f = pair_rows(cm, tabs, cells, box, rcut, alpha, has_sapt,
                       _impl_for(cells), cell_range)
         g = torch.cat([f, torch.zeros_like(f[:1])])[slot]
-        ctx.save_for_backward(g[:, 0:3], g[:, 3:6])
-        ctx.mark_non_differentiable(overflow)
-        return f[:, 6].sum(), f[:, 7].sum(), overflow
+        return f[:, 6].sum(), f[:, 7].sum(), overflow, g[:, 0:6]
 
     @staticmethod
-    def backward(ctx, ge, gv, _):
-        g_el, g_vdw = ctx.saved_tensors
-        return (ge * g_el + gv * g_vdw,) + (None,) * 10
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output[3])
+        ctx.mark_non_differentiable(output[2], output[3])
+
+    @staticmethod
+    def backward(ctx, ge, gv, *_):
+        g, = ctx.saved_tensors
+        return (ge * g[:, 0:3] + gv * g[:, 3:6],) + (None,) * 10
 
 
 def realspace_inter_cells(x, charge, atype, mol, box, tabs, cells, rcut,
                           alpha, has_sapt, cell_range=None):
     return RealspaceInterCells.apply(x, charge, atype, mol, box, tabs,
                                      cells, float(rcut), float(alpha),
-                                     bool(has_sapt), cell_range)
+                                     bool(has_sapt), cell_range)[:3]

@@ -4,19 +4,24 @@ replica_sharding, _no_tier, make_replica_step, make_replica_scan,
 atom_sharding, make_atom_sharded_step, make_atom_sharded_scan,
 collective_summary).
 
-The JAX package vmaps the step over a leading replica axis.  Here a batch
-of W replicas is a list of W MDStates of one signature (the same shapes,
-capacities and cell grids; the windows share their start state's
-tensors, which no step writes into) and W noise-generator states, and a
-chunk runs the replicas in turn: each replica's chunk is md_scan, on the
-card the replays of the ONE step captured for the whole batch (md/
-graphs.py), with ONE generator registered to that graph.  A replica's
-generator state goes into it with set_state before its chunk and comes
-back out with get_state after it, as Simulation._chunk restores the
-generator before a replayed chunk.  Replica w's generator is seeded from
+The JAX package vmaps the step over a leading replica axis, and so does
+the port: a batch of W replicas is a list of W MDStates of one signature
+(the same shapes, capacities and cell grids; the windows share their
+start state's tensors, which no step writes into) and W noise-generator
+states, and a chunk (BatchedReplicaScan, what make_replica_scan and
+parallel/umbrella.make_ladder_scan return) stacks the MDStates on a
+leading axis and runs md_scan on the stack: ONE step, md_step under
+torch.func.vmap, advances all W (md/integrators.py batched_md_scan), on
+the card the replays of that step captured once as a CUDA graph with
+the W generators registered to it, each kernel launched once a step for
+all W (their ops' batching rules).  Replica w's generator is seeded from
 SeedSequence([seed, 2, w]) (Simulation's own stream is [seed, 1]), so
-the streams are distinct.  Diagnostics come back as (W, n) fields, as the
-JAX vmap returns them.
+the streams are distinct, and its draws are those of its own generator
+alone.  Diagnostics come back as (W, n) fields, as the JAX vmap returns
+them.  ReplicaScan runs the same chunk with the replicas in turn (each
+replica's md_scan, one capture for all, its generator state swapped in
+and out): the reference the batch is held against, and the path of a
+replica whose step is shared over ranks.
 
 Replicas run one static cap with no small tier (_no_tier), as the JAX
 package's do, so the trajectories are those of the JAX package at that
@@ -26,7 +31,10 @@ is then set up again from its chunk-start state (forces evaluated again
 under its restraint), its generator state restored, and the chunk is
 replayed, so no sample comes from truncated data (the JAX ladder only
 reports the overflow).  A regrow is a new System and so one capture more;
-otherwise a W-replica batch needs one capture.
+otherwise a W-replica batch needs one capture.  A batch runs the
+flagship-class step only (dense neighbors, kernel A's full stencil, the
+per-atom PME spread): the cell path and a step shared over ranks under
+the batch are queued (ROADMAP §2), and such a batch raises.
 
 Over several ranks (parallel/mesh.py, a dp x sp mesh):
 
@@ -140,7 +148,10 @@ def _cat(diags, op):
 
 class ReplicaScan:
     """n_steps steps of every replica of a batch: scan(batch[, ladder]) ->
-    (batch after them, ChunkDiagnostics of (W, n_steps) fields).
+    (batch after them, ChunkDiagnostics of (W, n_steps) fields), the
+    replicas in turn (the reference BatchedReplicaScan is held against;
+    with a shard, the path of replicas whose steps are shared over
+    ranks).
 
     system: its two-tier evaluation is turned off (_no_tier); `system`
     holds the current caps, and `caps` the neighbor capacities
@@ -245,6 +256,24 @@ class ReplicaScan:
             react_cap=react_cap, react_cells=react_cells, comp=ms.comp,
             bias=bias, shard=self.shard)
 
+    def _chunk(self, states, gens, biases, ladder, first):
+        """The chunk of every replica, in turn: (MDStates, generator
+        states, (W, n) diagnostics, the (len(CAPACITIES) + 1,) flags of
+        the first replica whose capacities did not hold or whose kernel E
+        failed, the rest not run then)."""
+        out, out_gens, diags = [], [], []
+        flags = torch.zeros(len(integrators.CAPACITIES) + 1,
+                            dtype=torch.bool)
+        for w in range(len(states)):
+            ms, gen, d = self._replica(states[w], gens[w], biases[w])
+            flags = _flags(d)
+            if flags.any():
+                break
+            out.append(ms)
+            out_gens.append(gen)
+            diags.append(d)
+        return out, out_gens, diags and _cat(diags, torch.stack), flags
+
     def __call__(self, batch, ladder=None, first=0):
         """The chunk of every replica of `batch`; `first` the index in the
         whole ensemble of its replica 0 (its window of `ladder`)."""
@@ -255,7 +284,6 @@ class ReplicaScan:
             nl = states[0].nlist
             self.caps = (nl.capacity, nl.cells, nl.react_cap or None,
                          nl.react_cells or None)
-        n_cap = len(integrators.CAPACITIES)
 
         def start_flags():
             # a replica set up under a capacity that did not hold has
@@ -268,45 +296,115 @@ class ReplicaScan:
             states = self._grow(names, states, biases)
             names = self._decide(start_flags())
         while True:
-            out, out_gens, diags = [], [], []
-            flags = torch.zeros(n_cap + 1, dtype=torch.bool)
-            for w in range(W):
-                ms, gen, d = self._replica(states[w], gens[w], biases[w])
-                flags = torch.tensor(
-                    [bool(getattr(d, f).any())
-                     for f in integrators.CAPACITY_FIELDS]
-                    + [bool(d.gs_failed.any())])
-                if flags.any():
-                    break
-                out.append(ms)
-                out_gens.append(gen)
-                diags.append(d)
+            out, out_gens, diag, flags = self._chunk(states, gens, biases,
+                                                     ladder, first)
             names = self._decide(flags)
             if not names:
                 break
             states = self._grow(names, states, biases)
         self.steps_done += self.n_steps
-        return (ReplicaBatch(out, out_gens),
-                self._gather(_cat(diags, torch.stack)))
+        return ReplicaBatch(out, out_gens), self._gather(diag)
 
 
-class MeshReplicaScan(ReplicaScan):
-    """A ReplicaScan over the "replica" axis of a mesh (parallel/mesh.py):
+def _flags(d):
+    """The (len(CAPACITIES) + 1,) bool flags of diagnostics `d` (any step,
+    any replica): the capacities that did not hold, then kernel E's
+    failure."""
+    return torch.tensor([bool(getattr(d, f).any())
+                         for f in integrators.CAPACITY_FIELDS]
+                        + [bool(d.gs_failed.any())])
+
+
+def window_slice(ladder, first, n):
+    """Windows first .. first + n - 1 of a ladder (None for None)."""
+    if ladder is None:
+        return None
+    if isinstance(ladder, tuple):
+        return tuple(window_slice(b, first, n) for b in ladder)
+    return bias_mod.HarmonicBias(atoms=ladder.atoms[first:first + n],
+                                 k=ladder.k[first:first + n],
+                                 center=ladder.center[first:first + n],
+                                 cv_type=ladder.cv_type)
+
+
+class BatchedReplicaScan(ReplicaScan):
+    """A ReplicaScan whose chunk advances all W replicas together: the
+    replicas stacked on a leading axis (integrators.stack_states) through
+    ONE step vmapped over them (integrators.batched_md_scan; on the card
+    one capture for the batch, each kernel one launch a step for all W,
+    W generators registered with the graph).  The counterpart of the JAX
+    package's jax.vmap(md_scan).  Same results as the in-turn ReplicaScan
+    (the reference it is held against), same capacity handling: flags
+    OR-ed over the replicas, a regrow for all, the chunk replayed.  It
+    takes no shard, and raises on a step that takes the cell path
+    (integrators.check_batchable)."""
+
+    def __init__(self, system, cbw, dt, ensemble, n_steps, friction=0.1,
+                 temperature=300.0, hard_max_states=None, eager=False,
+                 shard=None):
+        if shard is not None:
+            raise ValueError("the batched replica scan takes no shard: a "
+                             "replica's step shared over ranks runs the "
+                             "replicas in turn (ReplicaScan(shard=...)); "
+                             "a batch under a shard is queued (ROADMAP §2)")
+        super().__init__(system, cbw, dt, ensemble, n_steps, friction,
+                         temperature, hard_max_states, eager)
+        # one noise generator a replica, kept so that the captured step
+        # (whose key holds them) is replayed, not captured again
+        self.generators = []
+
+    def _chunk(self, states, gens, biases, ladder, first):
+        W = len(states)
+        dev = self.cbw.device
+        if len(self.generators) != W:
+            self.generators = [torch.Generator(device=dev) for _ in range(W)]
+        for g, st in zip(self.generators, gens):
+            g.set_state(st)
+        bias = window_slice(ladder, first, W)
+        bms = integrators.stack_states(states)
+        diags, done = [], 0
+        flags = torch.zeros(len(integrators.CAPACITIES) + 1,
+                            dtype=torch.bool)
+        while done < self.n_steps and not flags.any():
+            n = min(integrators.MAX_CHUNK, self.n_steps - done)
+            bms, d = integrators.md_scan(
+                bms, self.system, self.cbw, self.dt, self.ensemble, n,
+                self.friction, self.temperature, generator=self.generators,
+                step_graphs=self.step_graphs, eager=self.eager, bias=bias)
+            diags.append(d)
+            done += n
+            flags = _flags(d)
+        return (integrators.unstack_states(bms),
+                [g.get_state() for g in self.generators],
+                _cat(diags, lambda fs: torch.cat(fs, dim=1)), flags)
+
+
+class MeshReplicaScan(BatchedReplicaScan):
+    """A replica scan over the "replica" axis of a mesh (parallel/mesh.py):
     scan(block[, ladder]) -> (this rank's block after the chunk,
     ChunkDiagnostics of (W, n_steps) fields of all replicas in replica
     order).  `block` is this rank's replicas (stack_replicas(..., mesh));
     every rank of the world calls it together.  The regrow decision is
     taken from flags OR-ed over the replica group, so every rank grows
-    to the same caps and replays.  With sp > 1 every replica's step is
-    shared over the rank's atoms group."""
+    to the same caps and replays.  With sp = 1 a rank's block runs
+    batched (BatchedReplicaScan); with sp > 1 every replica's step is
+    shared over the rank's atoms group and the block runs in turn
+    (ReplicaScan's chunk)."""
 
     def __init__(self, mesh, system, cbw, dt, ensemble, n_steps,
                  friction=0.1, temperature=300.0, hard_max_states=None,
                  eager=False):
         super().__init__(system, cbw, dt, ensemble, n_steps, friction,
-                         temperature, hard_max_states, eager,
-                         shard=atom_sharding(mesh) if mesh.sp > 1 else None)
+                         temperature, hard_max_states, eager)
         self.mesh = mesh
+        if mesh.sp > 1:
+            self.shard = atom_sharding(mesh)
+
+    def _chunk(self, states, gens, biases, ladder, first):
+        if self.shard is not None:
+            return ReplicaScan._chunk(self, states, gens, biases, ladder,
+                                      first)
+        return super()._chunk(states, gens, biases, ladder, first)
 
     def _reduce(self, flags):
         v = flags.to(torch.int32).to(self.mesh.device)
@@ -336,7 +434,8 @@ class MeshReplicaScan(ReplicaScan):
 def make_replica_step(system, cbw, dt, ensemble, friction=0.1,
                       temperature=300.0, hard_max_states=None, mesh=None):
     """One step of every replica: scan(batch) -> (batch, diagnostics of
-    (W, 1) fields); with a mesh, over its ranks (MeshReplicaScan)."""
+    (W, 1) fields), batched; with a mesh, over its ranks
+    (MeshReplicaScan)."""
     return make_replica_scan(system, cbw, dt, ensemble, 1, friction,
                              temperature, hard_max_states, mesh)
 
@@ -344,13 +443,13 @@ def make_replica_step(system, cbw, dt, ensemble, friction=0.1,
 def make_replica_scan(system, cbw, dt, ensemble, n_steps, friction=0.1,
                       temperature=300.0, hard_max_states=None, mesh=None):
     """n_steps steps of every replica: scan(batch) -> (batch, diagnostics
-    of (W, n_steps) fields); with a mesh, over its ranks
-    (MeshReplicaScan)."""
+    of (W, n_steps) fields), batched (BatchedReplicaScan); with a mesh,
+    over its ranks (MeshReplicaScan)."""
     if mesh is not None:
         return MeshReplicaScan(mesh, system, cbw, dt, ensemble, n_steps,
                                friction, temperature, hard_max_states)
-    return ReplicaScan(system, cbw, dt, ensemble, n_steps, friction,
-                       temperature, hard_max_states)
+    return BatchedReplicaScan(system, cbw, dt, ensemble, n_steps, friction,
+                              temperature, hard_max_states)
 
 
 def atom_sharding(mesh):

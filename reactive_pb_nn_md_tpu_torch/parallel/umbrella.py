@@ -2,9 +2,10 @@
 reactive_pb_nn_md_tpu/parallel/umbrella.py).
 
 A ladder is W harmonically restrained replicas of one box (md/bias.py),
-run as a replica batch on one card (parallel/ensemble.py: the windows in
-turn, each chunk the replays of one captured step whose restraint is
-copied in at the chunk's start), and estimated with WHAM
+run as a replica batch on one card (parallel/ensemble.py: the windows
+stacked through one step vmapped over them, each chunk the replays of
+that step captured once, the stacked restraint copied in at the chunk's
+start), and estimated with WHAM
 (analysis/wham.py).  The workflow (run/umbrella_pmf.py drives it):
 
     atoms  = transfer_triple(ms, system)           # donor O, acceptor O, H
@@ -146,10 +147,11 @@ def make_ladder(atoms, centers, k_spring, cv_type=0, dtype=torch.float32,
 def make_ladder_scan(system, cbw, dt, ensemble_name, n_steps, friction=1.0,
                      temperature=300.0, hard_max_states=None):
     """The ladder's scan: scan(batch, ladder) advances every window
-    n_steps steps under its restraint (ensemble.ReplicaScan, no small
-    tier)."""
-    return ensemble.ReplicaScan(system, cbw, dt, ensemble_name, n_steps,
-                                friction, temperature, hard_max_states)
+    n_steps steps under its restraint, all windows through one batched
+    step (ensemble.BatchedReplicaScan, no small tier)."""
+    return ensemble.BatchedReplicaScan(system, cbw, dt, ensemble_name,
+                                       n_steps, friction, temperature,
+                                       hard_max_states)
 
 
 def sample_ladder(scan, batch, ladder, n_equil, n_sample, chunk,

@@ -18,8 +18,8 @@ capacities.  ``--device`` defaults to ``cuda``; the CPU runs only when
 asked for.  Writes the JAX artifact's JSON keys to --out.
 
 The JAX script's TPU workarounds (vmap groups of max_vmap windows, and
-the XLA per-state reciprocal above cap 80) have no counterpart: windows
-run in turn through one captured step.
+the XLA per-state reciprocal above cap 80) have no counterpart: all
+windows run batched through one captured step (parallel/ensemble.py).
 """
 
 import argparse

@@ -1000,3 +1000,54 @@ def test_dryrun_on_the_cards():
                               device="cuda", timeout=600, threads=0)[0]
     assert bad == []
     assert p2["match"] <= dryrun.POT_ATOL and p2["x_err"] <= dryrun.X_ATOL
+
+
+@functools.lru_cache(maxsize=None)
+def _batch_cases(f, W):
+    import chip_smoke
+    return chip_smoke.batch_cases(f, W)
+
+
+@pytest.mark.parametrize("name", ["A", "B1", "B2", "C1", "C2", "E"])
+@pytest.mark.parametrize("f", [torch.float64, torch.float32])
+def test_batched_launch_equals_single_launches(name, f):
+    """Kernel `name`'s batched launch (its op's batching rule under
+    torch.func.vmap; 3 replicas at the flagship's shapes, chip_smoke.py's
+    batch_cases) is one launch and equals 3 single launches (fp64 within
+    chip_smoke's BATCH_TOL of max |ref|; the same arithmetic in the same
+    order gave equal bits on the H100)."""
+    _need_card()
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import _build
+    bat, _, one, *_ = _batch_cases(f, 3)[name]
+    _build.launches.clear()
+    got = bat()
+    assert dict(_build.launches) == {name: 1}
+    ref = torch.stack([one(w) for w in range(3)])
+    _close(got, ref, 1e-13 if f == torch.float64 else 1e-5)
+
+
+@pytest.mark.parametrize("ens", ["NVE", "NVT"])
+def test_batched_graphed_scan_matches_in_turn(ens):
+    """3 windows x 8 graphed fp64 flagship steps through one captured
+    batched step against the windows in turn (ReplicaScan): positions
+    within 1e-9 A, one capture, each kernel 8 + 1 launches (the replays
+    and the capture's warm-up) against 3 x 8 + 1."""
+    _need_card()
+    import chip_smoke
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import _build
+    from reactive_pb_nn_md_tpu_torch.parallel import ensemble
+    system, cbw, ladder, batch = chip_smoke.batch_windows(torch.float64, 3,
+                                                          ens)
+    runs = []
+    for cls in (ensemble.ReplicaScan, ensemble.BatchedReplicaScan):
+        scan = cls(system, cbw, 0.0005, ens, 8, friction=5.0)
+        _build.launches.clear()
+        runs.append(scan(batch, ladder) + (scan, dict(_build.launches)))
+    (t, td, _, tl), (b, bd, bscan, bl) = runs
+    assert not td.capacities() and not bd.capacities()
+    assert len(bscan.step_graphs.captures) == 1
+    for k in ("A", "B1", "B2", "C1", "C2", "E"):
+        assert bl[k] == 9 and tl[k] == 25
+    for w in range(3):
+        _close(b.states[w].state.x, t.states[w].state.x, 1e-12)
+        assert torch.equal(b.generators[w], t.generators[w])

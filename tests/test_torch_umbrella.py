@@ -10,10 +10,12 @@ run/umbrella_pmf.py) against the JAX package, fp64 on the CPU, on the
   * transfer_triple (equal indices) and seeded_window_states (positions to
     1e-12), the JAX ladder carried across by convert.bias_from_numpy;
   * a 2-window NVE ladder (window restraint + R_OO keeper), the port's
-    make_ladder_scan against the JAX package's vmapped one, from the same
-    positions and the JAX velocities: x to 1e-9 A, the (W, n) cv to
-    1e-9, the potential (bias included) to 1e-10; window 0 through the
-    port's md_scan against it too, and against a loop of md_step;
+    make_ladder_scan (the windows batched through one vmapped step)
+    against the JAX package's vmapped one, from the same positions and
+    the JAX velocities: x to 1e-9 A, the (W, n) cv to 1e-9, the potential
+    (bias included) to 1e-10, and against the windows in turn
+    (ReplicaScan) to 1e-12 A; window 0 through the port's md_scan
+    against it too, and against a loop of md_step;
   * wham, wham_bootstrap and barrier_height against the JAX functions to
     1e-10, and a smaller copy of the double-well recovery test;
   * on the port alone: NVT replicas (diverge with distinct generator
@@ -165,13 +167,17 @@ def deck(tmp_path_factory):
         tms, tscan.system, tcbw, tatoms, CENTERS, r_oo=R_OO, ladder=tlad,
         velocities_w=np.asarray(jbatch.state.v))
     tout, tdiag = tscan(tbatch, tlad)
+    # the reference the batched ladder is held against: windows in turn
+    turn_out, turn_diag = ensemble.ReplicaScan(tsys, tcbw, DT, "NVE",
+                                               N_STEPS)(tbatch, tlad)
     with jax_compiled():
         jscan = jax_umb.make_ladder_scan(jsys, cbw, DT, "NVE", N_STEPS)
         jout, jdiag = jscan(jbatch, jlad)
     return dict(tsys=tsys, tcfg=port_sim_params(sim_p), tcbw=tcbw,
                 tms=tms, atoms=atoms, tatoms=tatoms, tlad=tlad,
                 jbatch=jbatch, tbatch=tbatch, tscan=tscan, tout=tout,
-                tdiag=tdiag, jout=jout, jdiag=jdiag)
+                tdiag=tdiag, jout=jout, jdiag=jdiag, turn_out=turn_out,
+                turn_diag=turn_diag)
 
 
 # ---- the restraint
@@ -303,6 +309,30 @@ def test_ladder_scan_matches_jax(deck):
     np.testing.assert_array_equal(td.n_states.numpy(),
                                   np.asarray(jd.n_states))
     assert float(td.cv[0].mean()) < 0.0 < float(td.cv[1].mean())
+
+
+def test_batched_ladder_matches_jax_and_in_turn(deck):
+    """The batched ladder (make_ladder_scan: both windows through one
+    vmapped step) against the JAX package's vmapped make_ladder_scan (x to
+    1e-9 A, the (W, n) cv to 1e-9, the potential to 1e-10) and against
+    the same windows in turn (ReplicaScan) to 1e-12 A."""
+    tscan, tout, td = deck["tscan"], deck["tout"], deck["tdiag"]
+    jout, jd = deck["jout"], deck["jdiag"]
+    assert isinstance(tscan, ensemble.BatchedReplicaScan)
+    assert td.cv.shape == (2, N_STEPS) and not td.capacities()
+    for w in range(2):
+        np.testing.assert_allclose(tout.states[w].state.x.numpy(),
+                                   np.asarray(jout.state.x[w]), rtol=0,
+                                   atol=1e-9)
+        np.testing.assert_allclose(
+            tout.states[w].state.x.numpy(),
+            deck["turn_out"].states[w].state.x.numpy(), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(td.cv.numpy(), np.asarray(jd.cv), rtol=0,
+                               atol=1e-9)
+    np.testing.assert_allclose(td.potential.numpy(),
+                               np.asarray(jd.potential), rtol=1e-10)
+    np.testing.assert_allclose(td.cv.numpy(), deck["turn_diag"].cv.numpy(),
+                               rtol=0, atol=1e-12)
 
 
 def test_biased_md_scan_matches_jax_and_md_step(deck):
@@ -455,11 +485,12 @@ def test_ladder_regrows_a_small_capacity(deck):
 
 
 def test_ladder_replays_a_chunk_that_overflowed(deck, monkeypatch):
-    """A capacity flag raised in window 1's chunk (set by hand in its
-    diagnostics: the fixture's rows cannot outgrow their cap) regrows
-    every window, sets each up again from its chunk-start state, restores
-    its generator state and replays the chunk: the NVT result equals a
-    run that never overflowed."""
+    """A capacity flag raised in window 1's row of the batch's chunk (set
+    by hand in its diagnostics: the fixture's rows cannot outgrow their
+    cap) regrows every window, sets each up again from its chunk-start
+    state, restores its generator state and replays the chunk, the
+    windows together (one md_scan of the stacked batch each time): the
+    NVT result equals a run that never overflowed."""
     tsys, tcbw, tlad = deck["tsys"], deck["tcbw"], deck["tlad"]
     batch = ensemble.ReplicaBatch(list(deck["tbatch"].states),
                                   [ensemble.generator_state(
@@ -473,14 +504,14 @@ def test_ladder_replays_a_chunk_that_overflowed(deck, monkeypatch):
     def flagged(*args, **kw):
         ms, diag = md_scan(*args, **kw)
         calls.append(len(calls))
-        if len(calls) == 2:
+        if len(calls) == 1:
             diag.neighbor_overflow[1] = True
         return ms, diag
 
     monkeypatch.setattr(integrators, "md_scan", flagged)
     scan = umbrella.make_ladder_scan(tsys, tcbw, DT, "NVT", 2, friction=5.0)
     out, diag = scan(batch, tlad)
-    assert len(calls) == 4 and len(scan.regrows) == 1
+    assert len(calls) == 2 and len(scan.regrows) == 1
     assert "regrow (neighbor-list capacity exceeded)" in scan.regrows[0]
     assert scan.regrows[0].endswith("chunk replayed\n")
     assert not diag.capacities()
@@ -495,8 +526,9 @@ def test_ladder_replays_a_chunk_that_overflowed(deck, monkeypatch):
 
 def test_chunk_longer_than_max_chunk_runs_in_pieces(deck, monkeypatch):
     """A replica chunk longer than MAX_CHUNK (run_pmf's 250 steps on the
-    card) runs as md_scan pieces of at most MAX_CHUNK: with MAX_CHUNK 2, 5
-    NVT steps a window are pieces 2 + 2 + 1 and equal one piece of 5."""
+    card) runs as md_scan pieces of at most MAX_CHUNK, each of the whole
+    batch: with MAX_CHUNK 2, 5 NVT steps are pieces 2 + 2 + 1 and equal
+    one piece of 5."""
     tsys, tcbw, tlad = deck["tsys"], deck["tcbw"], deck["tlad"]
     batch = deck["tbatch"]
     runs, pieces = [], []
@@ -512,7 +544,7 @@ def test_chunk_longer_than_max_chunk_runs_in_pieces(deck, monkeypatch):
         scan = umbrella.make_ladder_scan(tsys, tcbw, DT, "NVT", 5,
                                          friction=5.0)
         runs.append(scan(batch, tlad))
-    assert pieces == [5, 5, 2, 2, 1, 2, 2, 1]
+    assert pieces == [5, 2, 2, 1]
     (a, da), (b, db) = runs
     assert db.cv.shape == (2, 5)
     for f in dataclasses.fields(integrators.ChunkDiagnostics):

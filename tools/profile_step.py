@@ -35,7 +35,8 @@ captured step):
 
 Prints one line per precision and mode and nvidia-smi's name and power
 limit; writes profile_<deck>_<ensemble>.json and the profiler tables to
---out.  chip_smoke.py's phase 8f calls measure() on its four cells.
+--out.  chip_smoke.py's phase 8f calls measure() on its four cells, and
+its phase 12c profiled_chunk() on a batched replica scan.
 """
 
 import argparse
@@ -194,6 +195,23 @@ def measure(deck, ensemble, tag, out_dir, steps, eager, mutate=None,
         res["captures"] = [dict(key_tier=k[2], seconds=s, pool_mib=b / 2**20)
                            for k, s, b in sim.step_graphs.captures]
     return res
+
+
+def profiled_chunk(run, steps):
+    """(device ms, device ops) per step of run(), a callable that runs
+    `steps` steps (a chunk of a graphed replica batch: chip_smoke.py's
+    phase 12c), under torch.profiler with measure()'s reading: every
+    device op's self time and count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        run()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+           and not e.key.startswith("P:")]
+    return (sum(e.self_device_time_total for e in dev) / 1e3 / steps,
+            sum(e.count for e in dev) / steps)
 
 
 def line(r):
