@@ -179,6 +179,26 @@ Phases, in order, one line each (any failure raises, exit code != 0):
         capture), the device ms and device ops of a batched step and of
         a window's step in turn (at W = 1; tools/profile_step.py
         profiled_chunk), graph pool MiB and peak memory: printed, not
+        gated;
+     d. the kernels of the 10k path's cell sweep and slab spread (A', A'',
+        D1, D2), their ops' batching rules at W = 4 replicas of the 10k
+        lattice's shapes (moved by 0.02 A; cells (10, 10, 10, 24), K = 64,
+        scap 280) against 4 single launches, fp64 and fp32, as 12a; at W
+        = 16 the batch's launch against 16 single launches, beside 16
+        times a single launch's bound (w16_* keys);
+     e. 4 replicas x 32 graphed fp64 NVT steps of the 10k lattice (slab
+        cap SCAP_10K), batched against in turn (ReplicaScan): per replica
+        max |dx| and |dEtot| within 8c's fp64 bounds; A'', D1, D2, C1, C2
+        and E launch 32 + 1 times batched against 4 x 32 + 1 in turn,
+        each regrow adding its replays and its set-ups (batch_counts);
+        then a 4-window fp32 10k ladder (phase 10's restraints) x 32
+        steps through make_ladder_scan: every CV finite, the same counts;
+     f. fp32 10k lattice NVT replica-steps/s, batched and in turn, at W =
+        1, 4 and 16 (32 steps timed after a 4-step chunk holding the
+        capture; a W that does not fit the card's memory says so), the
+        device ms and ops of a batched step, graph pool MiB, peak memory
+        and the captures inside the timed window (the lattice melts: a
+        window holding a capture is labelled not steady): printed, not
         gated.
 The line before the last is nvidia-smi's name and power limit, the one
 before it the per-kernel JSON (times, errors and bounds in fp64; fp32 in
@@ -277,6 +297,8 @@ SCAP_10K = 520
 # torch's sums over C1's partials), 12c's batch sizes and steps a chunk
 BATCH_W, BATCH_STEPS, BATCH_TOL = 4, 64, 1e-13
 BATCH_RATE_W, BATCH_RATE_STEPS = (1, 4, 16), 64
+# 12e / 12f: the 10k box's graphed steps a batch (and timed at 12f's W)
+TENK_BATCH_STEPS = 32
 
 # Tolerances (|got - ref| <= atol + rtol |ref|, atol relative to max|ref|):
 #  fp64: 1e-10 relative for every kernel.
@@ -1386,8 +1408,8 @@ def phase_replays(tmp, npt_graphed):
 
 def phase_rates(tmp):
     """Phase 8f: tools/profile_step.py's measure, eager against graphed,
-    in four cells; the eager cells profile 4 steps (the graphed ones
-    profile.PROFILED), which halves their profiler's cost."""
+    in four cells; the eager cells profile 2 steps (the graphed ones
+    profile.PROFILED), a quarter of their profiler's cost at 8."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "profile_step", ROOT / "tools" / "profile_step.py")
@@ -1402,7 +1424,7 @@ def phase_rates(tmp):
         for eager in (True, False):
             t0 = time.perf_counter()
             r = prof.measure(deck, ens, tag, tmp, 128, eager,
-                             profiled=4 if eager else prof.PROFILED)
+                             profiled=2 if eager else prof.PROFILED)
             log(f"  8f {prof.line(r)} [{time.perf_counter() - t0:.1f} s]")
             out.append(r)
     return out
@@ -2083,19 +2105,86 @@ def batch_cases(dtype, W, seed=12):
     return cases
 
 
-def phase_batch_kernels(W, timed=None):
-    """Phase 12a: each kernel's batched launch (the op's batching rule
-    under torch.func.vmap) against W single launches, fp64 and fp32: one
-    launch a batched call, max |batched - singles| over max |singles|
-    (fp64 <= BATCH_TOL), whether the bits are equal.  With `timed` (a
-    dict), the W = 16 times go there: the batch's direct launch against
-    16 single launches by cuda_ms and graphed_device_ms, and W times a
-    single launch's bound."""
+def batch_cases_10k(dtype, W, seed=16):
+    """batch_cases for the kernels of the 10k path's cell sweep and slab
+    spread (A', A'', D1, D2): W copies of the examples/water_10k/ lattice
+    moved by 0.02 A, its cells (10, 10, 10, 24), K = 64, the deck's slab
+    cap; the tables, box and charges shared by the batch."""
+    import numpy as np
+    import torch
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import pme_slab as sl
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import pme_spread as sp
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import realspace_pair as rsp
+    vmap = torch.func.vmap
+    dev = torch.device("cuda")
+    system, x, box, topo, _ = lattice_10k(dev, dtype)
+    rng = np.random.default_rng(seed)
+    xs = [x + torch.tensor(rng.normal(scale=0.02, size=x.shape),
+                           dtype=dtype, device=dev) for _ in range(W)]
+    f, n = dtype, x.shape[0]
+    cells, K, order = system.rs_cells, system.pme_grid, system.spline_order
+    scap = system.pme_scap
+    rc, alpha, sapt = (system.real_space_cutoff, system.alpha_sqrt,
+                       system.has_sapt)
+    tabs = rsp.build_tabs(system, f)
+    packed = [rsp.bin_atoms(xx, box, cells, rc) for xx in xs]
+    check(not any(bool(o) for _, o in packed),
+          "12d: a moved lattice overflows kernel A's cells")
+    cms = torch.stack([rsp.pack_cells(
+        xx, topo.charge.to(f), topo.atom_type.to(f), topo.atom_mol.to(f),
+        slot, cells) for xx, (slot, _) in zip(xs, packed)])
+    n_pairs = pairs_within(xs[0], box, topo.atom_mol, rc)
+    cases = {}
+    for impl in ("half", "column"):
+        cases[rsp.KERNEL_OF[impl]] = (
+            lambda impl=impl: vmap(lambda c: rsp.pair_rows(
+                c, tabs, list(cells), box, rc, alpha, sapt, impl))(cms),
+            lambda impl=impl: rsp.pair_rows_half_cuda(
+                cms, tabs, cells, box, rc, alpha, sapt,
+                column=impl == "column", nb=W),
+            lambda w, impl=impl: rsp.pair_rows(cms[w], tabs, cells, box, rc,
+                                               alpha, sapt, impl),
+            2 * nbytes(cms[0]) + nbytes(tabs, box), FLOP_PAIR * n_pairs,
+            False)
+    spl = [sp.spline_setup(xx, box, K, order) for xx in xs]
+    ws, dws, nps = (torch.stack([s[i] for s in spl]) for i in range(3))
+    bins = [sl.slab_bins(nps[w], K, order, scap) for w in range(W)]
+    check(not any(bool(b[2]) for b in bins),
+          "12d: a moved lattice overflows the slab cap")
+    rows = torch.stack([b[1] for b in bins])
+    q = topo.charge.contiguous()
+    cases["D1"] = (
+        lambda: vmap(lambda a, b, r: sl.spread_slab(a, b, q, r, K, scap))(
+            ws, nps, rows),
+        lambda: sl.spread_slab_cuda(ws, nps, q, rows, K, scap, nb=W),
+        lambda w: sl.spread_slab(ws[w], nps[w], q, rows[w], K, scap),
+        nbytes(ws[0], nps[0], q, rows[0]) + K ** 3 * ws.element_size(),
+        4 * n * order ** 3, False)
+    gQ = torch.tensor(rng.standard_normal((W, K ** 3)), dtype=f, device=dev)
+    cases["D2"] = (
+        lambda: vmap(lambda g, a, b, c, r: sl.interp_slab(
+            g, a, b, c, r, K, scap))(gQ, ws, dws, nps, rows),
+        lambda: sl.interp_slab_cuda(gQ, ws, dws, nps, rows, K, scap, nb=W),
+        lambda w: sl.interp_slab(gQ[w], ws[w], dws[w], nps[w], rows[w], K,
+                                 scap),
+        nbytes(gQ[0], ws[0], dws[0], nps[0], rows[0])
+        + K * scap * 4 * ws.element_size(), 16 * n * order ** 3, False)
+    return cases
+
+
+def phase_batch_kernels(W, timed=None, cases=batch_cases, label="12a"):
+    """Phase 12a (12d with cases=batch_cases_10k): each kernel's batched
+    launch (the op's batching rule under torch.func.vmap) against W
+    single launches, fp64 and fp32: one launch a batched call, max
+    |batched - singles| over max |singles| (fp64 <= BATCH_TOL), whether
+    the bits are equal.  With `timed` (a dict), the W = 16 times go
+    there: the batch's direct launch against 16 single launches by
+    cuda_ms and graphed_device_ms, and W times a single launch's bound."""
     import torch
     from reactive_pb_nn_md_tpu_torch.ops.kernels import _build
     for dtype in (torch.float64, torch.float32):
         tag = "fp64" if dtype == torch.float64 else "fp32"
-        for name, (bat, direct, one, n_b, n_op, gemm) in batch_cases(
+        for name, (bat, direct, one, n_b, n_op, gemm) in cases(
                 dtype, W).items():
             _build.launches.clear()
             got = bat()
@@ -2106,7 +2195,7 @@ def phase_batch_kernels(W, timed=None):
             scale = float(ref.abs().max())
             err = float((got - ref).abs().max()) / max(scale, 1e-300)
             bits = bool(torch.equal(got, ref))
-            line = (f"  12a {name} {tag} W={W}: {n_launch} launch batched "
+            line = (f"  {label} {name} {tag} W={W}: {n_launch} launch batched "
                     f"({singles} single), max|batched - singles| / "
                     f"max|singles| {err:.3e}, bits equal {bits}")
             if timed is not None:
@@ -2126,9 +2215,10 @@ def phase_batch_kernels(W, timed=None):
                          f"{fmt(t['bound_ms'])}")
             log(line)
             check(n_launch == 1 and singles == W,
-                  f"12a: {name} launched {n_launch} times for a batch")
+                  f"{label}: {name} launched {n_launch} times for a batch")
             check(err <= (BATCH_TOL if tag == "fp64" else 1e-5),
-                  f"12a: {name} ({tag}) batched differs from {W} singles")
+                  f"{label}: {name} ({tag}) batched differs from {W} "
+                  f"singles")
 
 
 def batch_windows(dtype, W, ensemble_name):
@@ -2264,6 +2354,189 @@ def phase_batch_rates():
     return res
 
 
+def batch_lattice(tmp, dtype):
+    """(system, cbw, cfg, ms) of the examples/water_10k/ lattice with the
+    CLI's seeded velocities, at the slab cap SCAP_10K and with no small
+    tier (a replica batch's system)."""
+    from reactive_pb_nn_md_tpu_torch.md import integrators
+    from reactive_pb_nn_md_tpu_torch.parallel import ensemble
+    sim = lattice_sim(tmp, dtype)
+    system = ensemble._no_tier(sim.system).replace(pme_scap=SCAP_10K)
+    nl = sim.ms.nlist
+    ms = integrators.initial_md_state(
+        sim.ms.state, sim.ms.topo, system, sim.cbw, nl.capacity, nl.cells,
+        react_cap=nl.react_cap or None, react_cells=nl.react_cells or None)
+    check(not integrators.overflowed(ms), "12e: the 10k lattice's set-up "
+                                          "overflows")
+    return system, sim.cbw, sim.cfg, ms
+
+
+def batch_counts(counts, W, n, regrows, batched):
+    """Whether each kernel of the 10k path launched as a chunk of n steps
+    of W replicas should: batched, n + 1 (the replays and the capture's
+    warm-up) a run of the chunk, and each regrow W more (every replica
+    set up again) and a run more; in turn W n + 1 with no regrow (a
+    regrow stops the run at the first replica flagged: not gated)."""
+    want = ((n + 1) * (1 + regrows) + W * regrows if batched
+            else W * n + 1 if not regrows else None)
+    return all(want is None or counts.get(k, 0) == want
+               for k in TENK_KERNELS)
+
+
+def phase_batch_10k(tmp):
+    """Phase 12e: BATCH_W replicas x TENK_BATCH_STEPS graphed fp64 NVT
+    steps of the 10k lattice (from SCAP_10K), batched against in turn
+    (ReplicaScan): per replica max |dx| and |dEtot| within GRAPH_TOL fp64;
+    the launch counts of batch_counts.  Then a BATCH_W-window fp32 10k
+    ladder (phase 10's restraints, centers in [-0.4, 0.4]) through
+    make_ladder_scan, TENK_BATCH_STEPS steps: every CV finite, the same
+    launch counts."""
+    import numpy as np
+    import torch
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import _build
+    from reactive_pb_nn_md_tpu_torch.parallel import ensemble, umbrella
+    W, n = BATCH_W, TENK_BATCH_STEPS
+    tol_x, tol_e = GRAPH_TOL["fp64"]
+    system, cbw, cfg, ms = batch_lattice(tmp / "12e", torch.float64)
+    batch = ensemble.stack_replicas(ms, W, seed=16)
+    runs = {}
+    for cls in (ensemble.ReplicaScan, ensemble.BatchedReplicaScan):
+        scan = cls(system, cbw, cfg.delta_t, "NVT", n, friction=1.0,
+                   temperature=300.0)
+        _build.launches.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, diag = scan(batch)
+        torch.cuda.synchronize()
+        runs[cls.__name__] = (out, diag, scan, dict(_build.launches),
+                              time.perf_counter() - t0)
+    (t, td, tscan, tl, tt), (b, bd, bscan, bl, bt) = (
+        runs["ReplicaScan"], runs["BatchedReplicaScan"])
+    dx = max(float((t.states[w].state.x - b.states[w].state.x).abs().max())
+             for w in range(W))
+    de = max(abs(float(t.states[w].kinetic + t.states[w].potential)
+                 - float(b.states[w].kinetic + b.states[w].potential))
+             for w in range(W))
+    caps = len(bscan.step_graphs.captures)
+    log(f"  12e {W} replicas x {n} NVT fp64 steps of the 10k lattice, "
+        f"batched vs in turn: max|dx| {dx:.3e} A, max|dEtot| {de:.3e} "
+        f"kJ/mol; launches batched {bl} / in turn {tl}; {caps} / "
+        f"{len(tscan.step_graphs.captures)} captures, regrows batched "
+        f"{bscan.regrows} / in turn {tscan.regrows}; {bt:.2f} s batched, "
+        f"{tt:.2f} s in turn (the captures included)")
+    check(not td.capacities() and not bd.capacities(),
+          "12e: a capacity flag stands")
+    check(dx <= tol_x and de <= tol_e,
+          "12e: the batched 10k replicas differ from in turn")
+    check(batch_counts(bl, W, n, bscan.n_regrows, True)
+          and batch_counts(tl, W, n, tscan.n_regrows, False),
+          f"12e: not one launch a batched step: {bl} / {tl}")
+    check(caps == 1 + bscan.n_regrows, f"12e: {caps} captures")
+
+    f = torch.float32
+    system, cbw, cfg, ms = batch_lattice(tmp / "12e_ladder", f)
+    atoms = umbrella.transfer_triple(ms, system)
+    centers = np.linspace(-0.4, 0.4, W)
+    ladder = (umbrella.make_ladder(atoms, centers, LADDER["k_spring"], 0, f),
+              umbrella.make_ladder(atoms, np.full(W, LADDER["r_oo"]),
+                                   LADDER["k_roo"], 1, f))
+    scan = umbrella.make_ladder_scan(system, cbw, cfg.delta_t, "NVT", n,
+                                     friction=LADDER["friction"],
+                                     temperature=LADDER["temperature"])
+    windows = umbrella.seeded_window_states(ms, scan.system, cbw, atoms,
+                                            centers, r_oo=LADDER["r_oo"],
+                                            ladder=ladder)
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    _, diag = scan(windows, ladder)
+    wall = time.perf_counter() - t0
+    lc = dict(_build.launches)
+    cv = diag.cv.double()
+    log(f"  12e {W}-window fp32 10k ladder x {n} steps (make_ladder_scan): "
+        f"cv means {[round(float(c), 3) for c in cv.mean(1)]}, launches "
+        f"{lc}, {len(scan.step_graphs.captures)} captures, regrows "
+        f"{scan.regrows}, {wall:.2f} s (the capture included)")
+    check(not diag.capacities(), "12e: a ladder capacity flag stands")
+    check(bool(torch.isfinite(cv).all()), "12e: a window's CV is not "
+                                          "finite")
+    check(batch_counts(lc, W, n, scan.n_regrows, True),
+          f"12e: the ladder's launches {lc}")
+
+
+def phase_batch_rates_10k(tmp):
+    """Phase 12f: fp32 10k lattice NVT replica-steps/s, batched against in
+    turn, at W = 1, 4 and 16 (TENK_BATCH_STEPS steps timed after a first
+    4-step chunk that holds the capture); the device ms and device ops of
+    a batched step (tools/profile_step.py profiled_chunk), the graph pool
+    MiB, the peak memory and the captures inside the timed window (a
+    window that holds one is not a steady rate: it says so).  Printed,
+    not gated; a W whose batch does not fit the card's memory says so."""
+    import torch
+    import importlib.util
+    from reactive_pb_nn_md_tpu_torch.parallel import ensemble
+    spec = importlib.util.spec_from_file_location(
+        "profile_step", ROOT / "tools" / "profile_step.py")
+    prof = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prof)
+    n = TENK_BATCH_STEPS
+    system, cbw, cfg, ms = batch_lattice(tmp / "12f", torch.float32)
+    res = {}
+    for W in BATCH_RATE_W:
+        batch = ensemble.stack_replicas(ms, W, seed=17)
+        for cls in (ensemble.ReplicaScan, ensemble.BatchedReplicaScan):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            scan = cls(system, cbw, cfg.delta_t, "NVT", 4, friction=1.0,
+                       temperature=300.0)
+            try:
+                out, _ = scan(batch)
+                scan.n_steps = n
+                before = len(scan.step_graphs.captures)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, diag = scan(out)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            except torch.cuda.OutOfMemoryError as e:
+                log(f"  12f W={W} {cls.__name__}: does not fit the card's "
+                    f"memory ({str(e).splitlines()[0]})")
+                res[(W, cls.__name__)] = None
+                del scan
+                torch.cuda.empty_cache()
+                continue
+            r = dict(rate=W * n / wall,
+                     pool_mib=sum(b for _, _, b in
+                                  scan.step_graphs.captures) / 2 ** 20,
+                     peak_mib=(torch.cuda.max_memory_allocated() - held)
+                     / 2 ** 20,
+                     captures=len(scan.step_graphs.captures),
+                     in_window=len(scan.step_graphs.captures) - before,
+                     flags=diag.capacities(), regrows=scan.n_regrows)
+            if cls is ensemble.BatchedReplicaScan or W == 1:
+                scan.n_steps = 8
+                r["device_ms"], r["ops"] = prof.profiled_chunk(
+                    lambda: scan(out), 8)
+            res[(W, cls.__name__)] = r
+            del scan, out
+        b, t = res[(W, "BatchedReplicaScan")], res[(W, "ReplicaScan")]
+        if b is None or t is None:
+            continue
+        steady = ("steady" if not b["in_window"] and not t["in_window"]
+                  else f"NOT steady: {b['in_window']} / {t['in_window']} "
+                       f"captures inside the timed window")
+        log(f"  12f W={W}: {b['rate']:.2f} replica-steps/s batched against "
+            f"{t['rate']:.2f} in turn ({b['rate'] / t['rate']:.2f}x, "
+            f"{steady}); batched step: {b['device_ms']:.3f} device ms, "
+            f"{b['ops']:.0f} device ops; graph pool {b['pool_mib']:.1f} MiB "
+            f"batched / {t['pool_mib']:.1f} in turn, peak memory "
+            f"{b['peak_mib']:.1f} / {t['peak_mib']:.1f} MiB over what was "
+            f"held, {b['captures']} / {t['captures']} captures, regrows "
+            f"{b['regrows']} / {t['regrows']}, flags standing "
+            f"{b['flags']} / {t['flags']}")
+    return res
+
+
 def phase_batch(measured):
     """Phase 12 (see the module docstring); the W = 16 kernel times go to
     measured["batch16"]."""
@@ -2271,11 +2544,17 @@ def phase_batch(measured):
     phase_batch_kernels(BATCH_W)
     timed = {}
     phase_batch_kernels(16, timed)
-    measured["batch16"] = timed
     phase_batch_graphed()
     rates = phase_batch_rates()
+    phase_batch_kernels(BATCH_W, cases=batch_cases_10k, label="12d")
+    phase_batch_kernels(16, timed, cases=batch_cases_10k, label="12d")
+    measured["batch16"] = timed
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        phase_batch_10k(tmp)
+        rates_10k = phase_batch_rates_10k(tmp)
     log(f"  phase 12: {time.perf_counter() - t12:.1f} s")
-    return rates
+    return rates, rates_10k
 
 
 def main():
@@ -2407,7 +2686,9 @@ def main():
         sharded = phase_sharded(tmp)
 
     log("[12 replica batch] batched launches vs single ones, the batched "
-        "graphed step vs in turn, window-steps/s at W = 1, 4, 16")
+        "graphed step vs in turn, window-steps/s at W = 1, 4, 16; the 10k "
+        "cell path: A', A'', D1, D2 batched, 10k replicas and a ladder, "
+        "replica-steps/s")
     phase_batch(measured)
 
     k64, k32 = measured["fp64"], measured["fp32"]

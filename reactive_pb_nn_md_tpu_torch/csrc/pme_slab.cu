@@ -155,7 +155,14 @@ template <typename T, int ORDER>
 __global__ void __launch_bounds__(SLAB_WARPS * 32)
 slab_spread_kernel(const T* __restrict__ w, const long long* __restrict__ nearpt,
                    const T* __restrict__ q, const long long* __restrict__ rows,
-                   T* __restrict__ grid, int K, int scap) {
+                   T* __restrict__ grid, int K, int scap, int w_bs, int np_bs,
+                   int q_bs, int rows_bs) {
+    const size_t rep = blockIdx.z;
+    w += rep * w_bs;
+    nearpt += rep * np_bs;
+    q += rep * q_bs;
+    rows += rep * rows_bs;
+    grid += rep * K * K * K;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int RS = K + TILE_PAD;
     T* tile = reinterpret_cast<T*>(smem_raw);   // (SLAB_WARPS, SLAB_BAND, RS)
@@ -293,7 +300,15 @@ slab_interp_kernel(const T* __restrict__ gQ, const T* __restrict__ w,
                    const T* __restrict__ dw,
                    const long long* __restrict__ nearpt,
                    const long long* __restrict__ rows, T* __restrict__ out,
-                   int K, int scap) {
+                   int K, int scap, int gq_bs, int w_bs, int np_bs,
+                   int rows_bs) {
+    const size_t rep = blockIdx.z;
+    gQ += rep * gq_bs;
+    w += rep * w_bs;
+    dw += rep * w_bs;
+    nearpt += rep * np_bs;
+    rows += rep * rows_bs;
+    out += rep * K * scap * 4;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     auto& st = *reinterpret_cast<InterpStage<T, ORDER>*>(smem_raw);
     T* win = reinterpret_cast<T*>(smem_raw + sizeof(InterpStage<T, ORDER>));
@@ -408,81 +423,88 @@ slab_interp_kernel(const T* __restrict__ gQ, const T* __restrict__ w,
 template <typename T, int ORDER>
 static int spread_launch(const void* w, const void* nearpt, const void* q,
                          const void* rows, void* grid, cudaStream_t s, int K,
-                         int scap) {
+                         int scap, const int* bs) {
     const size_t shm = spread_smem<T, ORDER>(K);
     int err = allow_smem((const void*)slab_spread_kernel<T, ORDER>, shm);
     if (err) return err;
-    const dim3 blocks((K + SLAB_BAND - 1) / SLAB_BAND, K);
+    const dim3 blocks((K + SLAB_BAND - 1) / SLAB_BAND, K, bs[0]);
     slab_spread_kernel<T, ORDER><<<blocks, SLAB_WARPS * 32, shm, s>>>(
         (const T*)w, (const long long*)nearpt, (const T*)q,
-        (const long long*)rows, (T*)grid, K, scap);
+        (const long long*)rows, (T*)grid, K, scap, bs[1], bs[2], bs[3],
+        bs[4]);
     return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int slab_spread_launch(const void* w, const void* nearpt,
                               const void* q, const void* rows, void* grid,
-                              void* stream, int K, int order, int scap) {
+                              void* stream, int K, int order, int scap,
+                              const int* bs) {
     cudaStream_t s = (cudaStream_t)stream;
-    if (order == 4) return spread_launch<T, 4>(w, nearpt, q, rows, grid, s, K, scap);
-    if (order == 6) return spread_launch<T, 6>(w, nearpt, q, rows, grid, s, K, scap);
+    if (bs[0] < 1 || bs[0] > 65535) return (int)cudaErrorInvalidValue;
+    if (order == 4)
+        return spread_launch<T, 4>(w, nearpt, q, rows, grid, s, K, scap, bs);
+    if (order == 6)
+        return spread_launch<T, 6>(w, nearpt, q, rows, grid, s, K, scap, bs);
     return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, int ORDER>
 static int interp_launch(const void* gQ, const void* w, const void* dw,
                          const void* nearpt, const void* rows, void* out,
-                         cudaStream_t s, int K, int scap) {
+                         cudaStream_t s, int K, int scap, const int* bs) {
     const size_t shm = interp_smem<T, ORDER>(K);
     int err = allow_smem((const void*)slab_interp_kernel<T, ORDER>, shm);
     if (err) return err;
-    const dim3 blocks((K + INTERP_BAND - 1) / INTERP_BAND, K);
+    const dim3 blocks((K + INTERP_BAND - 1) / INTERP_BAND, K, bs[0]);
     slab_interp_kernel<T, ORDER><<<blocks, INTERP_WARPS * 32, shm, s>>>(
         (const T*)gQ, (const T*)w, (const T*)dw, (const long long*)nearpt,
-        (const long long*)rows, (T*)out, K, scap);
+        (const long long*)rows, (T*)out, K, scap, bs[1], bs[2], bs[3],
+        bs[4]);
     return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int slab_interp_launch(const void* gQ, const void* w, const void* dw,
                               const void* nearpt, const void* rows, void* out,
-                              void* stream, int K, int order, int scap) {
+                              void* stream, int K, int order, int scap,
+                              const int* bs) {
     cudaStream_t s = (cudaStream_t)stream;
+    if (bs[0] < 1 || bs[0] > 65535) return (int)cudaErrorInvalidValue;
     if (order == 4)
-        return interp_launch<T, 4>(gQ, w, dw, nearpt, rows, out, s, K, scap);
+        return interp_launch<T, 4>(gQ, w, dw, nearpt, rows, out, s, K, scap,
+                                   bs);
     if (order == 6)
-        return interp_launch<T, 6>(gQ, w, dw, nearpt, rows, out, s, K, scap);
+        return interp_launch<T, 6>(gQ, w, dw, nearpt, rows, out, s, K, scap,
+                                   bs);
     return (int)cudaErrorInvalidValue;
 }
 
-KERNELS_API int pme_slab_spread_f32(const void* w, const void* nearpt,
-                                    const void* q, const void* rows,
-                                    void* grid, void* stream, int K,
-                                    int order, int scap) {
-    return slab_spread_launch<float>(w, nearpt, q, rows, grid, stream, K,
-                                     order, scap);
-}
+// A batched launch (a replica batch of the vmapped step) runs replica
+// blockIdx.z on its own inputs and output, each input `*_bs` elements past
+// the previous replica's (0: one array shared by the batch), the grid K^3
+// and the rows K scap 4 apart: the same arithmetic in the same order as
+// its own launch.
+#define SLAB_SPREAD_ENTRY(NAME, T)                                           \
+    KERNELS_API int NAME(const void* w, const void* nearpt, const void* q,   \
+                         const void* rows, void* grid, void* stream, int K,  \
+                         int order, int scap, int nb, int w_bs, int np_bs,   \
+                         int q_bs, int rows_bs) {                            \
+        const int bs[5] = {nb, w_bs, np_bs, q_bs, rows_bs};                  \
+        return slab_spread_launch<T>(w, nearpt, q, rows, grid, stream, K,    \
+                                     order, scap, bs);                       \
+    }
+SLAB_SPREAD_ENTRY(pme_slab_spread_f32, float)
+SLAB_SPREAD_ENTRY(pme_slab_spread_f64, double)
 
-KERNELS_API int pme_slab_spread_f64(const void* w, const void* nearpt,
-                                    const void* q, const void* rows,
-                                    void* grid, void* stream, int K,
-                                    int order, int scap) {
-    return slab_spread_launch<double>(w, nearpt, q, rows, grid, stream, K,
-                                      order, scap);
-}
-
-KERNELS_API int pme_slab_interp_f32(const void* gQ, const void* w,
-                                    const void* dw, const void* nearpt,
-                                    const void* rows, void* out, void* stream,
-                                    int K, int order, int scap) {
-    return slab_interp_launch<float>(gQ, w, dw, nearpt, rows, out, stream, K,
-                                     order, scap);
-}
-
-KERNELS_API int pme_slab_interp_f64(const void* gQ, const void* w,
-                                    const void* dw, const void* nearpt,
-                                    const void* rows, void* out, void* stream,
-                                    int K, int order, int scap) {
-    return slab_interp_launch<double>(gQ, w, dw, nearpt, rows, out, stream,
-                                      K, order, scap);
-}
+#define SLAB_INTERP_ENTRY(NAME, T)                                           \
+    KERNELS_API int NAME(const void* gQ, const void* w, const void* dw,      \
+                         const void* nearpt, const void* rows, void* out,    \
+                         void* stream, int K, int order, int scap, int nb,   \
+                         int gq_bs, int w_bs, int np_bs, int rows_bs) {      \
+        const int bs[5] = {nb, gq_bs, w_bs, np_bs, rows_bs};                 \
+        return slab_interp_launch<T>(gQ, w, dw, nearpt, rows, out, stream,   \
+                                     K, order, scap, bs);                    \
+    }
+SLAB_INTERP_ENTRY(pme_slab_interp_f32, float)
+SLAB_INTERP_ENTRY(pme_slab_interp_f64, double)

@@ -564,13 +564,20 @@ __device__ void half_flush(const HalfSmem<T>& S, int L, int Nj,
 //    `own`, and the j sides of offset k (1..13) to part[k - 1] at the
 //    neighbor's slots, 0 at an empty slot (each slot of part[k - 1] has
 //    this one writer); rs_fold_kernel adds the 13 in order.
+// A batched launch runs replica blockIdx.y (of the fold too) on its own
+// cm, tables, box, own rows and 13 part arrays, as rs_full_kernel's
+// blockIdx.z: the same arithmetic in the same order as its own launch.
 template <typename T>
 __global__ void __launch_bounds__(HALF_THREADS)
 rs_half_cell_kernel(const T* __restrict__ cm, const T* __restrict__ tabs,
                     const T* __restrict__ box, T* __restrict__ own,
                     T* __restrict__ part, int nc1, int nc2, int nc3,
-                    int ccap, int T_, int n_tab, int has_sapt, T rcut2,
-                    T alpha, T conv) {
+                    int ccap, int T_, int n_tab, int has_sapt, int cm_bs,
+                    int tab_bs, int box_bs, T rcut2, T alpha, T conv) {
+    const size_t rep = blockIdx.y;
+    cm += rep * cm_bs;
+    tabs += rep * tab_bs;
+    box += rep * box_bs;
     extern __shared__ unsigned char smem_raw[];
     const int n_tabv = n_tab * T_ * T_, N = 14 * ccap;
     T* stab = reinterpret_cast<T*>(smem_raw);
@@ -597,6 +604,8 @@ rs_half_cell_kernel(const T* __restrict__ cm, const T* __restrict__ tabs,
     const int c = blockIdx.x;
     const int c1 = c / (nc2 * nc3), c2 = (c / nc3) % nc2, c3 = c % nc3;
     const size_t C8 = (size_t)nc1 * nc2 * nc3 * ccap;
+    own += rep * C8 * 8;
+    part += rep * 13 * C8 * 6;
 
     // stage: the 14 cells' ids; each slot's occupancy (one load a slot,
     // all independent); its rank among its cell's occupied slots and the
@@ -709,6 +718,10 @@ template <typename T>
 __global__ void rs_fold_kernel(const T* __restrict__ own,
                                const T* __restrict__ part,
                                T* __restrict__ out, int C8, int n_part) {
+    const size_t rep = blockIdx.y;                  // replica of a batch
+    own += rep * C8 * 8;
+    part += rep * n_part * C8 * 6;
+    out += rep * C8 * 8;
     const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (t >= (long long)C8 * 8) return;
     const long long s = t / 8;
@@ -746,20 +759,23 @@ template <typename T>
 static int rs_half_launch(const void* cm, const void* tabs, const void* box,
                           void* own, void* part, void* out, void* stream,
                           int nc1, int nc2, int nc3, int ccap, int T_,
-                          int n_tab, int has_sapt, double rcut2,
+                          int n_tab, int has_sapt, int nb, int cm_bs,
+                          int tab_bs, int box_bs, double rcut2,
                           double alpha, double conv) {
     const size_t shm = half_smem_t<T>(n_tab * T_ * T_, ccap);
     cudaStream_t s = (cudaStream_t)stream;
     int err = allow_smem((const void*)rs_half_cell_kernel<T>, shm);
     if (err) return err;
-    rs_half_cell_kernel<T><<<nc1 * nc2 * nc3, HALF_THREADS, shm, s>>>(
+    if (nb < 1 || nb > 65535) return (int)cudaErrorInvalidValue;
+    rs_half_cell_kernel<T><<<dim3(nc1 * nc2 * nc3, nb), HALF_THREADS, shm,
+                             s>>>(
         (const T*)cm, (const T*)tabs, (const T*)box, (T*)own, (T*)part,
-        nc1, nc2, nc3, ccap, T_, n_tab, has_sapt, (T)rcut2, (T)alpha,
-        (T)conv);
+        nc1, nc2, nc3, ccap, T_, n_tab, has_sapt, cm_bs, tab_bs, box_bs,
+        (T)rcut2, (T)alpha, (T)conv);
     err = (int)cudaGetLastError();
     if (err) return err;
     const int C8 = nc1 * nc2 * nc3 * ccap;
-    rs_fold_kernel<T><<<(C8 * 8 + 255) / 256, 256, 0, s>>>(
+    rs_fold_kernel<T><<<dim3((C8 * 8 + 255) / 256, nb), 256, 0, s>>>(
         (const T*)own, (const T*)part, (T*)out, C8, 13);
     return (int)cudaGetLastError();
 }
@@ -768,11 +784,13 @@ static int rs_half_launch(const void* cm, const void* tabs, const void* box,
     KERNELS_API int NAME(const void* cm, const void* tabs, const void* box, \
                          void* own, void* part, void* out, void* stream,     \
                          int nc1, int nc2, int nc3, int ccap, int T_,        \
-                         int n_tab, int has_sapt, double rcut2,              \
+                         int n_tab, int has_sapt, int nb, int cm_bs,         \
+                         int tab_bs, int box_bs, double rcut2,               \
                          double alpha, double conv) {                        \
         return rs_half_launch<T>(cm, tabs, box, own, part, out, stream,      \
                                  nc1, nc2, nc3, ccap, T_, n_tab, has_sapt,   \
-                                 rcut2, alpha, conv);                        \
+                                 nb, cm_bs, tab_bs, box_bs, rcut2, alpha,    \
+                                 conv);                                      \
     }
 RS_ENTRY(rs_half_f32, float)
 RS_ENTRY(rs_half_f64, double)

@@ -46,7 +46,6 @@ import torch
 from ..utils.constants import CONV_KJMOL_A2PS2GMOL, KB
 from ..models import total as total_mod
 from ..ops import neighbors
-from ..ops.kernels import realspace_pair
 from ..evb import hamiltonian as ham
 from ..evb.enumerate import molecule_com
 from ..topology import State, Topology
@@ -642,10 +641,13 @@ def md_scan(ms: MDState, system, cbw, dt: float, ensemble="NVE",
 # parallel/umbrella.py make_ladder_scan).  W MDStates of one signature are
 # stacked on a leading axis, and ONE step, md_step under torch.func.vmap,
 # advances all of them: every torch op runs once for the batch and each
-# kernel (A, B1, B2, C1, C2, E) launches once for all W (their ops'
-# batching rules).  Flagship-class path only: the cell path (cell-list
-# neighbors, kernels A' / A'' and D1 / D2) and a step shared over ranks
-# take no batch (ROADMAP §2).
+# kernel (A, A', A'', B1, B2, C1, C2, D1, D2, E) launches once for all W
+# (their ops' batching rules).  Any path of one replica's step runs so:
+# the dense or cell-list neighbors (each replica's own rebuild decision
+# selected on the device, its own cell tables and on-demand rows), the
+# domain repulsion, kernel A's full stencil or A' / A'', the per-atom or
+# the slab PME spread.  A step shared over ranks takes no batch (queued:
+# ROADMAP §1 item 2, a batched step under a shard).
 
 def stack_states(states):
     """One MDState whose tensors are those of `states` (one signature)
@@ -666,26 +668,13 @@ def unstack_states(bms):
     return [graphs.with_leaves(bms, (t[w] for t in ts)) for w in range(W)]
 
 
-def check_batchable(system, ms, shard=None):
-    """Raise unless one replica's step (`ms`, one replica or a stacked
-    batch) takes the flagship-class path that a batch runs: dense
-    neighbors, kernel A's full stencil (or no cell grid), the per-atom
-    PME spread, one card."""
-    why = []
-    if ms.nlist.cells:
-        why.append("cell-list neighbors")
-    impl = system.rs_cells and realspace_pair._impl_for(system.rs_cells)
-    if impl and impl != "full":
-        why.append(f"kernel {realspace_pair.KERNEL_OF[impl]}")
-    if system.pme_scap:
-        why.append("the PME slab spread (kernels D1 / D2)")
+def check_batchable(shard=None):
+    """Raise unless a replica batch can run the step: on one card, not
+    shared over ranks (`shard`)."""
     if shard is not None:
-        why.append("a step shared over ranks")
-    if why:
         raise ValueError(
-            f"a replica batch runs the flagship-class step only; this one "
-            f"takes {', '.join(why)} (queued: ROADMAP §2, the cell path and "
-            f"the shard under the batch)")
+            "a replica batch takes no step shared over ranks (queued: "
+            "ROADMAP §1 item 2, a batched step under a shard)")
 
 
 def batched_scan_step(bms, system, cbw, dt, ensemble, friction, temperature,
@@ -714,6 +703,19 @@ def batched_scan_step(bms, system, cbw, dt, ensemble, friction, temperature,
     return graphs.with_leaves(bms, iter(out)), rows
 
 
+def batch_key(bms, system, cbw, dt, ensemble, friction, temperature,
+              generators, bias=None):
+    """The StepGraphs key of a captured batched step (graph_key's, with
+    the batch size and every replica's generator held).  The neighbor
+    cell grids enter through the batch's signature, kernel A's cells, the
+    slab cap and the state cap through the System held (a regrow makes a
+    new one): a regrown grid or cap is a new capture."""
+    return ("batch", bms.state.x.shape[0], ensemble, bms.state.x.dtype, dt,
+            friction, temperature, graphs.Held(system),
+            tuple(graphs.Held(g) for g in generators),
+            graphs.signature(bms), tuple(cbw.shape), graphs.signature(bias))
+
+
 def batched_md_scan(bms, system, cbw, dt, ensemble="NVE", n_steps=1,
                     friction=0.1, temperature=300.0, generators=None,
                     step_graphs=None, eager=False, bias=None, shard=None):
@@ -727,8 +729,7 @@ def batched_md_scan(bms, system, cbw, dt, ensemble="NVE", n_steps=1,
     package's vmapped ones do).  bias: the (W, ...)-stacked restraint of
     a ladder (parallel/umbrella.make_ladder), or None.  The result is
     valid only if diag.capacities() is empty (else regrow every replica
-    and replay the chunk).  Raises on a step that takes the cell path,
-    and on a shard (check_batchable)."""
+    and replay the chunk).  Raises on a shard (check_batchable)."""
     if ensemble not in ENSEMBLES:
         raise ValueError(f"ensemble {ensemble!r}: expected one of "
                          f"{', '.join(ENSEMBLES)}")
@@ -736,7 +737,7 @@ def batched_md_scan(bms, system, cbw, dt, ensemble="NVE", n_steps=1,
     if ensemble == "NVT" and (generators is None or len(generators) != W):
         raise ValueError(f"an NVT batch needs a generator for each of its "
                          f"{W} replicas")
-    check_batchable(system, bms, shard)
+    check_batchable(shard)
     gens = tuple(generators) if ensemble == "NVT" else ()
     bias = bias_mod.as_tuple(bias)
 
@@ -747,10 +748,8 @@ def batched_md_scan(bms, system, cbw, dt, ensemble="NVE", n_steps=1,
     if bms.state.x.is_cuda and not eager:
         if step_graphs is None:
             step_graphs = graphs.StepGraphs()
-        key = ("batch", W, ensemble, bms.state.x.dtype, dt, friction,
-               temperature, graphs.Held(system),
-               tuple(graphs.Held(g) for g in gens), graphs.signature(bms),
-               tuple(cbw.shape), graphs.signature(bias))
+        key = batch_key(bms, system, cbw, dt, ensemble, friction,
+                        temperature, gens, bias)
         g = step_graphs.get(key, lambda: graphs.StepGraph(
             body, bms, cbw, gens, bias))
         out, rows = g.run(bms, cbw, n_steps, bias)

@@ -149,12 +149,14 @@ def ms_evb_repulsion_batched_domain(x, box, topo, system, xu, pos_in_U, j,
     jU = pos_in_U[jA]
     inU_j = jU >= 0
     jU_s = jU.clamp(min=0).reshape(S, -1)
-    acidU = torch.zeros((S, U + 1), dtype=torch.bool, device=x.device)
     # a device value: a Python scalar in an indexed assignment is copied
-    # from the host (a synchronization)
-    acidU.index_put_((s_idx[:, None], torch.where(row_ok, slotU,
-                                                   torch.full_like(slotU, U))),
-                     torch.ones((), dtype=torch.bool, device=x.device))
+    # from the host (a synchronization); out of place: a replica batch
+    # vmaps this function
+    acidU = torch.zeros((S, U + 1), dtype=torch.bool,
+                        device=x.device).index_put(
+        (s_idx[:, None], torch.where(row_ok, slotU,
+                                     torch.full_like(slotU, U))),
+        torch.ones((), dtype=torch.bool, device=x.device))
     in_acid = torch.gather(acidU[:, :U], 1, jU_s).reshape(jU.shape) & inU_j
     # a candidate in U has row pos_in_U[j] of U, so its state type is the
     # state topology's type of j itself

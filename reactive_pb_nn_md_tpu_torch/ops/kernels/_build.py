@@ -188,6 +188,23 @@ def stride(t, ndim, nb):
     return t[0].numel()
 
 
+def batch_strides(args, specs, nb):
+    """Checks of a launch's per-replica arguments `args` against `specs`,
+    one (shape of one replica's array, dtype, name) each; with nb, a
+    batched launch of nb replicas, each argument stacked on a leading
+    axis of nb or shared by the batch.  Returns their strides between
+    replicas (stride(); 0 without nb)."""
+    strides = []
+    for t, (shape, dtype, name) in zip(args, specs, strict=True):
+        require(t, dtype, None, name)
+        if unbatched(t, len(shape)) != tuple(shape) or (
+                not nb and t.ndim != len(shape)):
+            raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                             f"{tuple(t.shape)}")
+        strides.append(stride(t, len(shape), nb) if nb else 0)
+    return strides
+
+
 def unbatched(t, ndim):
     """The shape of one replica's `t` (t of ndim axes, or ndim + 1 with the
     replicas first)."""

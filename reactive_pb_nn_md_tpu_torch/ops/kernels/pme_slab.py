@@ -25,7 +25,9 @@ The backward gathers D2's rows back to atoms and applies the charge and
 box factors.
 ``spread_slab`` / ``interp_slab`` run the kernels for CUDA tensors and the
 plain versions below (kernel B's index_add spread and contraction over the
-slab rows, in any row order) for CPU tensors.
+slab rows, in any row order) for CPU tensors; they are torch.library ops
+whose batching rules launch D1 / D2 once for a whole replica batch
+(torch.func.vmap over the MD step), a replica grid axis in the kernels.
 """
 
 import math
@@ -69,8 +71,8 @@ def slab_bins(nearpt, K, order, scap):
     c = torch.remainder(nearpt[:, :2] - (order - 1), K)
     by_y = torch.argsort(c[:, 1], stable=True)
     slot_y, over = bin_slots(c[by_y, 0], K, scap)
-    slot = torch.empty_like(slot_y)
-    slot[by_y] = slot_y
+    # out of place: a replica batch vmaps this function
+    slot = torch.empty_like(slot_y).index_put((by_y,), slot_y)
     return slot, slot_atoms(slot, K * scap), over
 
 
@@ -114,92 +116,150 @@ def interp_smem(K, order, itemsize):
             + INTERP_STAGE * (6 * order * itemsize + 16))
 
 
-def _check(w, nearpt, rows, K, scap):
-    n, _, order = w.shape
-    f = w.dtype
-    _build.require(w, f, (n, 3, order), "w")
-    _build.require(nearpt, torch.int64, (n, 3), "nearpt")
-    _build.require(rows, torch.int64, (K * scap,), "rows")
+def _check(order, K, itemsize):
     if order not in (4, 6):
         raise ValueError(f"kernel D takes spline order 4 or 6, not {order}")
     if order > K or K + order - 1 > 128:
         raise ValueError(f"kernel D takes order <= K and K + order - 1 <= "
                          f"128, not K = {K}, order = {order}")
-    for name, smem in (("D1", spread_smem(K, order, w.element_size())),
-                       ("D2", interp_smem(K, order, w.element_size()))):
+    for name, smem in (("D1", spread_smem(K, order, itemsize)),
+                       ("D2", interp_smem(K, order, itemsize))):
         if smem > SMEM_LIMIT:
             raise ValueError(f"kernel {name} needs {smem} B of shared memory "
                              f"at K = {K}: over the 227 KB of an SM")
-    return order
 
 
-def spread_slab_cuda(w, nearpt, q, rows, K, scap):
+def spread_slab_cuda(w, nearpt, q, rows, K, scap, nb=None):
     """Kernel D1: (K^3,) grid of the atoms in the slab rows (slab_bins'
-    order); one launch."""
-    order = _check(w, nearpt, rows, K, scap)
+    order); one launch.  With nb, a batched launch of nb replicas, each
+    argument stacked on a leading axis of nb or shared by the batch,
+    giving (nb, K^3) grids."""
+    n, _, order = _build.unbatched(w, 3)
     f = w.dtype
-    _build.require(q, f, (w.shape[0],), "q")
-    grid = torch.empty(K ** 3, dtype=f, device=w.device)
-    fn = _build.function("pme_slab_spread_" + _build.suffix(f), 6, 3)
+    strides = _build.batch_strides((w, nearpt, q, rows), (
+        ((n, 3, order), f, "w"), ((n, 3), torch.int64, "nearpt"),
+        ((n,), f, "q"), ((K * scap,), torch.int64, "rows")), nb)
+    _check(order, K, w.element_size())
+    grid = torch.empty((nb, K ** 3) if nb else (K ** 3,), dtype=f,
+                       device=w.device)
+    fn = _build.function("pme_slab_spread_" + _build.suffix(f), 6, 8)
     _build.check(fn(w.data_ptr(), nearpt.data_ptr(), q.data_ptr(),
                     rows.data_ptr(), grid.data_ptr(), _build.stream_ptr(w),
-                    K, order, scap), "D1")
+                    K, order, scap, nb or 1, *strides), "D1")
     _build.launches["D1"] += 1
     return grid
 
 
-def interp_slab_cuda(gQ, w, dw, nearpt, rows, K, scap):
+def interp_slab_cuda(gQ, w, dw, nearpt, rows, K, scap, nb=None):
     """Kernel D2: (K*scap, 4) per slab row [dE/dq, dE/du1..3] (slab_bins'
-    order), zero on empty rows; one launch."""
-    order = _check(w, nearpt, rows, K, scap)
+    order), zero on empty rows; one launch.  With nb, a batched launch of
+    nb replicas (see spread_slab_cuda; w and dw batched alike), giving
+    (nb, K*scap, 4)."""
+    n, _, order = _build.unbatched(w, 3)
     f = w.dtype
-    _build.require(dw, f, w.shape, "dw")
-    _build.require(gQ, f, (K ** 3,), "gQ")
-    out = torch.empty((K * scap, 4), dtype=f, device=w.device)
-    fn = _build.function("pme_slab_interp_" + _build.suffix(f), 7, 3)
+    strides = _build.batch_strides((gQ, w, dw, nearpt, rows), (
+        ((K ** 3,), f, "gQ"), ((n, 3, order), f, "w"),
+        ((n, 3, order), f, "dw"), ((n, 3), torch.int64, "nearpt"),
+        ((K * scap,), torch.int64, "rows")), nb)
+    if strides[1] != strides[2]:
+        raise ValueError("w and dw must be batched alike")
+    _check(order, K, w.element_size())
+    out = torch.empty(((nb,) if nb else ()) + (K * scap, 4), dtype=f,
+                      device=w.device)
+    fn = _build.function("pme_slab_interp_" + _build.suffix(f), 7, 8)
     _build.check(fn(gQ.data_ptr(), w.data_ptr(), dw.data_ptr(),
                     nearpt.data_ptr(), rows.data_ptr(), out.data_ptr(),
-                    _build.stream_ptr(w), K, order, scap), "D2")
+                    _build.stream_ptr(w), K, order, scap, nb or 1,
+                    strides[0], strides[1], strides[3], strides[4]), "D2")
     _build.launches["D2"] += 1
     return out
 
 
-def spread_slab(w, nearpt, q, rows, K, scap):
+@torch.library.custom_op(_build.OPS + "::pme_slab_spread", mutates_args=())
+def spread_slab(w: torch.Tensor, nearpt: torch.Tensor, q: torch.Tensor,
+                rows: torch.Tensor, K: int, scap: int) -> torch.Tensor:
+    """(K^3,) grid of the atoms in the slab rows: kernel D1 for CUDA
+    tensors, spread_slab_plain for CPU ones; a replica batch (vmap)
+    launches D1 once for all replicas."""
     return spread_slab_cuda(w, nearpt, q, rows, K, scap) if w.is_cuda \
         else spread_slab_plain(w, nearpt, q, rows, K)
 
 
-def interp_slab(gQ, w, dw, nearpt, rows, K, scap):
+@spread_slab.register_fake
+def _(w, nearpt, q, rows, K, scap):
+    return w.new_empty(K ** 3)
+
+
+@spread_slab.register_vmap
+def _(info, in_dims, w, nearpt, q, rows, K, scap):
+    args = _build.front((w, nearpt, q, rows), in_dims[:4])
+    if w.is_cuda:
+        return spread_slab_cuda(*args, K, scap, nb=info.batch_size), 0
+    return torch.stack([spread_slab(*_build.replica(args, in_dims, i), K,
+                                    scap)
+                        for i in range(info.batch_size)]), 0
+
+
+@torch.library.custom_op(_build.OPS + "::pme_slab_interp", mutates_args=())
+def interp_slab(gQ: torch.Tensor, w: torch.Tensor, dw: torch.Tensor,
+                nearpt: torch.Tensor, rows: torch.Tensor, K: int,
+                scap: int) -> torch.Tensor:
+    """(K*scap, 4) [dE/dq, dE/du1..3] of every slab row: kernel D2 for
+    CUDA tensors, interp_slab_plain for CPU ones; a replica batch (vmap)
+    launches D2 once for all replicas."""
     return interp_slab_cuda(gQ, w, dw, nearpt, rows, K, scap) if w.is_cuda \
         else interp_slab_plain(gQ, w, dw, nearpt, rows, K)
 
 
+@interp_slab.register_fake
+def _(gQ, w, dw, nearpt, rows, K, scap):
+    return w.new_empty((K * scap, 4))
+
+
+@interp_slab.register_vmap
+def _(info, in_dims, gQ, w, dw, nearpt, rows, K, scap):
+    args = _build.front((gQ, w, dw, nearpt, rows), in_dims[:5])
+    nb = info.batch_size
+    if w.is_cuda:
+        return interp_slab_cuda(*_build.alike(args, in_dims, ((1, 2),), nb),
+                                K, scap, nb=nb), 0
+    return torch.stack([interp_slab(*_build.replica(args, in_dims, i), K,
+                                    scap) for i in range(nb)]), 0
+
+
 class ChargeGridSlab(torch.autograd.Function):
-    """(Q (K, K, K), overflow ()) from the slab-binned atoms;
-    differentiable in x and q (the box gets no cotangent, as in the
-    reference kernel)."""
+    """(Q (K, K, K), overflow (), the spline tables and the slab binning)
+    from the slab-binned atoms; differentiable in x and q (the box gets no
+    cotangent, as in the reference kernel).  Its forward and backward are
+    the ops D1 and D2, so under a replica batch (vmap) each launches once
+    for all replicas.  D2's cotangent is detached: under create_graph its
+    result is a constant, the kernel's gradient."""
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, x, q, box, K, order, scap):
+    def forward(x, q, box, K, order, scap):
         w, dw, nearpt = spline_setup(x, box, K, order)
         slot, rows, over = slab_bins(nearpt, K, order, scap)
-        q = q.contiguous()
-        ctx.save_for_backward(w, dw, nearpt, q, pbc.recip_vectors(box),
-                              slot, rows)
-        ctx.K, ctx.scap = K, scap
-        ctx.mark_non_differentiable(over)
-        return spread_slab(w, nearpt, q, rows, K, scap).reshape(K, K, K), over
+        grid = spread_slab(w, nearpt, q.contiguous(), rows, K, scap)
+        return (grid.reshape(K, K, K), over, w, dw, nearpt,
+                pbc.recip_vectors(box).contiguous(), slot, rows)
 
     @staticmethod
-    def backward(ctx, gQ, _):
-        w, dw, nearpt, q, recip, slot, rows = ctx.saved_tensors
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[1], *output[2:])
+        ctx.mark_non_differentiable(*output[1:])
+        ctx.K, ctx.scap = inputs[3], inputs[5]
+
+    @staticmethod
+    def backward(ctx, gQ, *_):
+        q, w, dw, nearpt, recip, slot, rows = ctx.saved_tensors
         K = ctx.K
-        out = interp_slab(gQ.reshape(-1).contiguous(), w, dw, nearpt, rows,
-                          K, ctx.scap)
+        out = interp_slab(gQ.detach().reshape(-1).contiguous(), w, dw,
+                          nearpt, rows, K, ctx.scap)
         g = torch.cat([out, torch.zeros_like(out[:1])])[slot]   # row gather
-        gx = K * ((q[:, None] * g[:, 1:4]) @ recip)
+        gx = K * ((q.detach()[:, None] * g[:, 1:4]) @ recip)
         return gx, g[:, 0], None, None, None, None
 
 
 def charge_grid_slab(x, q, box, K, order, scap):
-    return ChargeGridSlab.apply(x, q, box, K, order, int(scap))
+    return ChargeGridSlab.apply(x, q, box, K, order, int(scap))[:2]

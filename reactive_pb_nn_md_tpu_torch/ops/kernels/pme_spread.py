@@ -114,16 +114,9 @@ def spread_cuda(w, nearpt, q, K, nb=None):
     the batch, giving (nb, K^3) grids."""
     n, _, order = _build.unbatched(w, 3)
     f = w.dtype
-    strides = []
-    for t, shape, dt, name in ((w, (n, 3, order), f, "w"),
-                               (nearpt, (n, 3), torch.int64, "nearpt"),
-                               (q, (n,), f, "q")):
-        _build.require(t, dt, None, name)
-        if _build.unbatched(t, len(shape)) != shape or (
-                not nb and t.ndim != len(shape)):
-            raise ValueError(f"{name} must have shape {shape}, got "
-                             f"{tuple(t.shape)}")
-        strides.append(_build.stride(t, len(shape), nb) if nb else 0)
+    strides = _build.batch_strides((w, nearpt, q), (
+        ((n, 3, order), f, "w"), ((n, 3), torch.int64, "nearpt"),
+        ((n,), f, "q")), nb)
     if order > K:
         raise ValueError("spline order exceeds the PME grid")
     spread_smem(order, K, w.element_size())
@@ -159,19 +152,10 @@ def gather_cuda(gQ, w, dw, nearpt, q, recip, K, nb=None):
     3)."""
     n, _, order = _build.unbatched(w, 3)
     f = w.dtype
-    strides = []
-    for t, shape, dt, name in ((gQ, (K ** 3,), f, "gQ"),
-                               (w, (n, 3, order), f, "w"),
-                               (dw, (n, 3, order), f, "dw"),
-                               (nearpt, (n, 3), torch.int64, "nearpt"),
-                               (q, (n,), f, "q"), (recip, (3, 3), f,
-                                                   "recip")):
-        _build.require(t, dt, None, name)
-        if _build.unbatched(t, len(shape)) != shape or (
-                not nb and t.ndim != len(shape)):
-            raise ValueError(f"{name} must have shape {shape}, got "
-                             f"{tuple(t.shape)}")
-        strides.append(_build.stride(t, len(shape), nb) if nb else 0)
+    strides = _build.batch_strides((gQ, w, dw, nearpt, q, recip), (
+        ((K ** 3,), f, "gQ"), ((n, 3, order), f, "w"),
+        ((n, 3, order), f, "dw"), ((n, 3), torch.int64, "nearpt"),
+        ((n,), f, "q"), ((3, 3), f, "recip")), nb)
     if strides[1] != strides[2]:
         raise ValueError("w and dw must be batched alike")
     gather_smem(order, K, w.element_size())

@@ -23,8 +23,8 @@ What bounds them on the H100 and what the designs do about it: see the
 source.  ``pair_rows`` runs a CUDA kernel for a CUDA tensor and the plain
 torch sweep below, the plain version of all three, for a CPU tensor;
 nothing else selects between them.  It is a torch.library op whose
-batching rule launches kernel A once for a whole replica batch
-(torch.func.vmap over the MD step; A' and A'' take no batch).
+batching rule launches the kernel once for a whole replica batch
+(torch.func.vmap over the MD step), a replica grid axis in each.
 
 A cell range (c0, c1) takes the rows of the home cells c0 .. c1 - 1 only,
 the others zero: kernel A and the plain sweep compute those cells alone
@@ -246,6 +246,24 @@ def _check(cm, tabs, cells, box, name):
     return n_tab, T
 
 
+def _check_batch(cm, tabs, cells, box, name, nb):
+    """_check of a launch, with nb of a batched launch of nb replicas (cm
+    (nb, n_cells ccap, 8), tabs and box each stacked on a leading axis of
+    nb or shared by the batch): (n_tab, T, the strides of cm, tabs and box
+    between replicas)."""
+    if not nb:
+        return _check(cm, tabs, cells, box, name) + ((0, 0, 0),)
+    nc1, nc2, nc3, ccap = cells
+    C8 = nc1 * nc2 * nc3 * ccap
+    _build.require(cm, cm.dtype, (nb, C8, 8), "cm")
+    strides = (C8 * 8, _build.stride(tabs, 3, nb), _build.stride(box, 2, nb))
+    n_tab, T = _check(cm[0], tabs if tabs.ndim == 3 else tabs[0], cells,
+                      box if box.ndim == 2 else box[0], name)
+    _build.require(tabs, cm.dtype, None, "tabs")
+    _build.require(box, cm.dtype, None, "box")
+    return n_tab, T, strides
+
+
 def full_parts(cells):
     """Blocks per cell of kernel A (the launch is (n_cells, parts)): enough
     for _FULL_MIN_BLOCKS blocks, at most ccap.  Block (c, p) takes cell
@@ -294,18 +312,7 @@ def pair_rows_cuda(cm, tabs, cells, box, rcut, alpha, has_sapt,
     each stacked on a leading axis of nb or shared by the batch; the rows
     come back (nb, n_cells ccap, 8)."""
     nc1, nc2, nc3, ccap = cells
-    C8 = nc1 * nc2 * nc3 * ccap
-    if nb:
-        _build.require(cm, cm.dtype, (nb, C8, 8), "cm")
-        strides = (C8 * 8, _build.stride(tabs, 3, nb),
-                   _build.stride(box, 2, nb))
-        n_tab, T = _check(cm[0], tabs if tabs.ndim == 3 else tabs[0], cells,
-                          box if box.ndim == 2 else box[0], "A")
-        _build.require(tabs, cm.dtype, None, "tabs")
-        _build.require(box, cm.dtype, None, "box")
-    else:
-        strides = (0, 0, 0)
-        n_tab, T = _check(cm, tabs, cells, box, "A")
+    n_tab, T, strides = _check_batch(cm, tabs, cells, box, "A", nb)
     c0, c1 = _cell_range(cells, cell_range)
     check_full_smem(n_tab * T * T, cells, cm.element_size())
     if cm.data_ptr() % 16:
@@ -347,28 +354,31 @@ def check_half_smem(n_tabv, cells, itemsize, name):
 
 
 def pair_rows_half_cuda(cm, tabs, cells, box, rcut, alpha, has_sapt,
-                        column):
+                        column, nb=None):
     """Launch kernel A'' (column) or A' (half stencil) and their fold:
     per-slot rows with each pair's energy on one row.  On the card both
-    are one routine (one block per cell); `column` names the launch."""
+    are one routine (one block per cell); `column` names the launch.
+    With nb, a batched launch of nb replicas, as pair_rows_cuda's."""
     name = KERNEL_OF["column" if column else "half"]
-    n_tab, T = _check(cm, tabs, cells, box, name)
+    n_tab, T, strides = _check_batch(cm, tabs, cells, box, name, nb)
     nc1, nc2, nc3, ccap = cells
     check_half_smem(n_tab * T * T, cells, cm.element_size(), name)
-    C8 = cm.shape[0]
-    # one scratch: the cells' own rows (C8, 8), then the 13 per-offset
-    # j-side arrays (13, C8, 6), every slot of which has one writer
-    scratch = torch.empty(C8 * 8 + 13 * C8 * 6, dtype=cm.dtype,
+    C8 = nc1 * nc2 * nc3 * ccap
+    R = nb or 1
+    # one scratch: each replica's cells' own rows (C8, 8), then each
+    # replica's 13 per-offset j-side arrays (13, C8, 6), every slot of
+    # which has one writer
+    scratch = torch.empty(R * (C8 * 8 + 13 * C8 * 6), dtype=cm.dtype,
                           device=cm.device)
     out = torch.empty_like(cm)
-    fn = _build.function("rs_half_" + _build.suffix(cm.dtype), 7, 7, 3)
+    fn = _build.function("rs_half_" + _build.suffix(cm.dtype), 7, 11, 3)
     _build.check(fn(cm.data_ptr(), tabs.data_ptr(), box.data_ptr(),
                     scratch.data_ptr(),
-                    scratch.data_ptr() + C8 * 8 * cm.element_size(),
+                    scratch.data_ptr() + R * C8 * 8 * cm.element_size(),
                     out.data_ptr(),
                     _build.stream_ptr(cm), nc1, nc2, nc3, ccap, T, n_tab,
-                    int(bool(has_sapt)), float(rcut) ** 2, float(alpha),
-                    CONV_E2A_KJMOL), name)
+                    int(bool(has_sapt)), R, *strides, float(rcut) ** 2,
+                    float(alpha), CONV_E2A_KJMOL), name)
     _build.launches[name] += 1
     return out
 
@@ -383,8 +393,8 @@ def pair_rows(cm: torch.Tensor, tabs: torch.Tensor, cells: list[int],
     a CPU tensor the plain sweep (whose rows split each pair energy in
     two, as A's do; the sums agree).  cell_range: the home cells (c0,
     c1) whose rows to give, the others zero (see the module docstring).
-    Under a replica batch (vmap) kernel A launches once for all replicas;
-    A' and A'' take no batch (ROADMAP §2: the cell path under a batch)."""
+    Under a replica batch (vmap) the kernel launches once for all
+    replicas."""
     cells = tuple(cells)
     if not cm.is_cuda:
         if cell_range is not None:
@@ -395,13 +405,19 @@ def pair_rows(cm: torch.Tensor, tabs: torch.Tensor, cells: list[int],
     if impl == "full":
         return pair_rows_cuda(cm, tabs, cells, box, rcut, alpha, has_sapt,
                               cell_range)
-    rows = pair_rows_half_cuda(cm, tabs, cells, box, rcut, alpha, has_sapt,
-                               column=impl == "column")
+    return _in_range(pair_rows_half_cuda(cm, tabs, cells, box, rcut, alpha,
+                                         has_sapt, column=impl == "column"),
+                     cells, cell_range)
+
+
+def _in_range(rows, cells, cell_range):
+    """A' / A'' `rows` ((..., n_cells ccap, 8)) with those outside the
+    home cells of `cell_range` zeroed (None: all kept)."""
     if cell_range is None:
         return rows
     c0, c1 = _cell_range(cells, cell_range)
     ccap = cells[3]
-    slot = torch.arange(rows.shape[0], device=rows.device)[:, None]
+    slot = torch.arange(rows.shape[-2], device=rows.device)[:, None]
     keep = (slot >= c0 * ccap) & (slot < c1 * ccap)
     return torch.where(keep, rows, torch.zeros_like(rows))
 
@@ -421,13 +437,13 @@ def _(info, in_dims, cm, tabs, cells, box, rcut, alpha, has_sapt,
     if in_dims[0] is None:
         cm = cm.expand(nb, *cm.shape).contiguous()
     if cm.is_cuda:
-        if impl != "full":
-            raise ValueError(
-                f"kernel {KERNEL_OF[impl]} takes no replica batch: a batch "
-                f"runs kernel A's full stencil only (ROADMAP §2, the cell "
-                f"path under the batch)")
-        return pair_rows_cuda(cm, tabs, tuple(cells), box.contiguous(),
-                              rcut, alpha, has_sapt, cell_range, nb=nb), 0
+        cells = tuple(cells)
+        if impl == "full":
+            return pair_rows_cuda(cm, tabs, cells, box, rcut, alpha,
+                                  has_sapt, cell_range, nb=nb), 0
+        return _in_range(pair_rows_half_cuda(
+            cm, tabs, cells, box, rcut, alpha, has_sapt,
+            column=impl == "column", nb=nb), cells, cell_range), 0
     dims = (0, in_dims[1], in_dims[3])
     return torch.stack([
         pair_rows(c, t, cells, b, rcut, alpha, has_sapt, impl, cell_range)
@@ -441,7 +457,7 @@ class RealspaceInterCells(torch.autograd.Function):
     (the stored analytic gradients).  With a cell range, the home cells'
     share: their atoms' gradients and their rows' energies (pair_rows).
     The sweep is the op pair_rows, so under a replica batch (vmap)
-    kernel A launches once for all replicas."""
+    kernel A, A' or A'' launches once for all replicas."""
     generate_vmap_rule = True
 
     @staticmethod

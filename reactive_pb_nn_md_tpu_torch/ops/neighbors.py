@@ -181,12 +181,12 @@ def _pack_cell_table(frac, ci, cells):
     n_cells = nc1 * nc2 * nc3
     N = frac.shape[0]
     slot, cell_over = bin_slots(_cell_id(ci, cells), n_cells, ccap)
+    # out of place: a replica batch vmaps this function
     pos = torch.zeros((n_cells * ccap + 1, 3), dtype=frac.dtype,
-                      device=frac.device)
-    pos[slot] = frac
+                      device=frac.device).index_put((slot,), frac)
     ids = torch.full((n_cells * ccap + 1,), N, dtype=torch.int64,
-                     device=frac.device)
-    ids[slot] = torch.arange(N, device=frac.device)
+                     device=frac.device).index_put(
+        (slot,), torch.arange(N, device=frac.device))
     return (pos[:-1].reshape(n_cells, ccap, 3),
             ids[:-1].reshape(n_cells, ccap), cell_over)
 

@@ -31,10 +31,14 @@ is then set up again from its chunk-start state (forces evaluated again
 under its restraint), its generator state restored, and the chunk is
 replayed, so no sample comes from truncated data (the JAX ladder only
 reports the overflow).  A regrow is a new System and so one capture more;
-otherwise a W-replica batch needs one capture.  A batch runs the
-flagship-class step only (dense neighbors, kernel A's full stencil, the
-per-atom PME spread): the cell path and a step shared over ranks under
-the batch are queued (ROADMAP §2), and such a batch raises.
+otherwise a W-replica batch needs one capture.  A batch runs any path
+of one replica's step: the flagship's (dense neighbors, kernel A, the
+per-atom PME spread) and the cell path of the 10,000-atom box (cell-list
+neighbors with each replica's own rebuild and on-demand rows, the domain
+repulsion, kernels A' / A'', the slab spread D1 / D2); a regrow of the
+cell capacities, kernel A's cells or the slab cap is made for all and
+the chunk replayed, as any other.  A step shared over ranks takes no
+batch (queued: ROADMAP §1 item 2), and such a batch raises.
 
 Over several ranks (parallel/mesh.py, a dp x sp mesh):
 
@@ -336,8 +340,7 @@ class BatchedReplicaScan(ReplicaScan):
     package's jax.vmap(md_scan).  Same results as the in-turn ReplicaScan
     (the reference it is held against), same capacity handling: flags
     OR-ed over the replicas, a regrow for all, the chunk replayed.  It
-    takes no shard, and raises on a step that takes the cell path
-    (integrators.check_batchable)."""
+    takes no shard (integrators.check_batchable)."""
 
     def __init__(self, system, cbw, dt, ensemble, n_steps, friction=0.1,
                  temperature=300.0, hard_max_states=None, eager=False,
@@ -346,7 +349,8 @@ class BatchedReplicaScan(ReplicaScan):
             raise ValueError("the batched replica scan takes no shard: a "
                              "replica's step shared over ranks runs the "
                              "replicas in turn (ReplicaScan(shard=...)); "
-                             "a batch under a shard is queued (ROADMAP §2)")
+                             "a batch under a shard is queued (ROADMAP §1 "
+                             "item 2)")
         super().__init__(system, cbw, dt, ensemble, n_steps, friction,
                          temperature, hard_max_states, eager)
         # one noise generator a replica, kept so that the captured step

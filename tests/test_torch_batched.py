@@ -9,17 +9,20 @@ PME 12^3 and state cap 12):
   * the batched NVE and NVT replica scans (one generator a replica)
     against the in-turn ReplicaScan, 3 steps, positions to 1e-12 A and
     the generators' states equal;
-  * each kernel op's batching rule on CPU tensors (kernel A's sweep, B1,
-    B2, C1, C2, E) against a loop of its plain version, and C2's plain
-    version against autograd of C1's;
+  * each kernel op's batching rule on CPU tensors (the pair sweep at
+    impl full, half and column (A, A', A''), B1, B2, C1, C2, D1, D2, E)
+    against a loop of its plain version, and C2's plain version against
+    autograd of C1's;
   * a batch started under too small a capacity: regrown for all and
     replayed, equal to a batch started at the grown capacity;
   * a batched step makes no host synchronization (the dispatch audit of
     tests/test_torch_scan.py);
-  * a batch on the cell path, and the batched scan given a shard, raise.
+  * the batched scan given a shard raises; a batch on the cell path runs
+    (and its graph key names the cell grids and the slab cap).
 
 The JAX package is held against the batched ladder in
-tests/test_torch_umbrella.py (its vmapped make_ladder_scan).
+tests/test_torch_umbrella.py (its vmapped make_ladder_scan), and the
+cell path under the batch in tests/test_torch_batched_cells.py.
 """
 
 import dataclasses
@@ -36,6 +39,7 @@ from reactive_pb_nn_md_tpu_torch.md import graphs, integrators, velocities
 from reactive_pb_nn_md_tpu_torch.models import pme
 from reactive_pb_nn_md_tpu_torch.ops import ground_state as gs
 from reactive_pb_nn_md_tpu_torch.ops import neighbors
+from reactive_pb_nn_md_tpu_torch.ops.kernels import pme_slab as sl
 from reactive_pb_nn_md_tpu_torch.ops.kernels import pme_spread as sp
 from reactive_pb_nn_md_tpu_torch.ops.kernels import realspace_pair as rsp
 from reactive_pb_nn_md_tpu_torch.ops.kernels import recip_perstate as rp
@@ -163,9 +167,10 @@ def test_ops_batching_rules_equal_a_loop_of_the_plain_versions():
         slot, over = rsp.bin_atoms(x, box, cells, rc)
         assert not over
         cms.append(rsp.pack_cells(x, charge, atype, mol, slot, cells))
-    _vmapped_vs_loop(lambda c, b: rsp.pair_rows(c, tabs, list(cells), b, rc,
-                                                0.7, False),
-                     (torch.stack(cms), box), (0, None), 3)
+    for impl in ("full", "half", "column"):
+        _vmapped_vs_loop(lambda c, b: rsp.pair_rows(c, tabs, list(cells), b,
+                                                    rc, 0.7, False, impl),
+                         (torch.stack(cms), box), (0, None), 3)
     # B1 / B2: 3 replicas of 30 atoms, K = 10, order 6, shared charges
     K, order = 10, 6
     xs = torch.tensor(rng.uniform(0.0, 8.0, (3, 30, 3)))
@@ -179,6 +184,15 @@ def test_ops_batching_rules_equal_a_loop_of_the_plain_versions():
     recip = pbc.recip_vectors(box2)
     _vmapped_vs_loop(lambda g, a, b, c: sp.gather(g, a, b, c, q, recip, K),
                      (gQ, w, dw, nearpt), (0, 0, 0, 0), 3)
+    # D1 / D2 on the same atoms, slab-binned at a cap of 8 (shared charges)
+    scap = 8
+    rows = torch.stack([sl.slab_bins(nearpt[i], K, order, scap)[1]
+                        for i in range(3)])
+    _vmapped_vs_loop(lambda a, b, r: sl.spread_slab(a, b, q, r, K, scap),
+                     (w, nearpt, rows), (0, 0, 0), 3)
+    _vmapped_vs_loop(lambda g, a, b, c, r: sl.interp_slab(g, a, b, c, r, K,
+                                                          scap),
+                     (gQ, w, dw, nearpt, rows), (0, 0, 0, 0, 0), 3)
     # C1 / C2: 3 replicas at S = 5, U = 7, K = 6 (Mh = 24), cbw shared
     S, U, Kc = 5, 7, 6
     Mh = Kc * (Kc // 2 + 1)
@@ -255,28 +269,40 @@ def test_batched_step_makes_no_host_sync(deck):
 
 
 def test_cell_path_and_shard_refuse_a_batch(deck):
+    """(Named when the cell path refused a batch too.)  A shard refuses a
+    batch; the cell path runs one (here the slab spread), and the batch's
+    graph key names the cell grids, kernel A's cells and the slab cap, so
+    a regrown grid or cap is a new capture."""
     system, cbw, states = deck
     bms = integrators.stack_states(states)
-    cells_nl = dataclasses.replace(bms, nlist=dataclasses.replace(
-        bms.nlist, cells=(3, 3, 3, 8)))
-    with pytest.raises(ValueError, match="cell-list neighbors"):
-        integrators.md_scan(cells_nl, system, cbw, DT, "NVE")
-    with pytest.raises(ValueError, match="D1 / D2"):
-        integrators.md_scan(bms, system.replace(pme_scap=280), cbw, DT,
-                            "NVE")
-    rsp.set_stencil_impl("column")
-    try:
-        with pytest.raises(ValueError, match="kernel A''"):
-            integrators.check_batchable(
-                system.replace(rs_cells=(3, 3, 3, 8)), bms)
-    finally:
-        rsp.set_stencil_impl("auto")
     with pytest.raises(ValueError, match="takes no shard"):
         ensemble.BatchedReplicaScan(system, cbw, DT, "NVE", 1,
                                     shard=object())
     with pytest.raises(ValueError, match="shared over ranks"):
         integrators.md_scan(bms, system, cbw, DT, "NVE", shard=object())
+    with pytest.raises(ValueError, match="shared over ranks"):
+        integrators.check_batchable(object())
     with pytest.raises(ValueError, match="one signature"):
         integrators.stack_states([states[0], dataclasses.replace(
             states[1], nlist=dataclasses.replace(states[1].nlist,
                                                  capacity=7))])
+    # the cell path runs: here the slab spread (the cell-list neighbors
+    # and kernels A' / A'': tests/test_torch_batched_cells.py)
+    integrators.check_batchable()
+    box = states[0].state.box
+    cells = neighbors.suggest_cells(system.n_atoms, box.numpy(), 2.0,
+                                    min_atoms=1)
+    assert cells
+    slab = system.replace(pme_scap=16)
+    _, diag = integrators.md_scan(bms, slab, cbw, DT, "NVE")
+    assert diag.potential.shape == (W, 1) and not diag.capacities()
+    key = integrators.batch_key(bms, system, cbw, DT, "NVE", 0.1, 300.0, ())
+    assert key == integrators.batch_key(bms, system, cbw, DT, "NVE", 0.1,
+                                        300.0, ())
+    for other, ms in ((slab, bms),
+                      (system.replace(rs_cells=(3, 3, 3, 8)), bms),
+                      (system, dataclasses.replace(bms, nlist=dataclasses
+                                                   .replace(bms.nlist,
+                                                            cells=cells)))):
+        assert integrators.batch_key(ms, other, cbw, DT, "NVE", 0.1, 300.0,
+                                     ()) != key

@@ -1051,3 +1051,52 @@ def test_batched_graphed_scan_matches_in_turn(ens):
     for w in range(3):
         _close(b.states[w].state.x, t.states[w].state.x, 1e-12)
         assert torch.equal(b.generators[w], t.generators[w])
+
+
+@functools.lru_cache(maxsize=None)
+def _batch_cases_10k(f, W):
+    import chip_smoke
+    return chip_smoke.batch_cases_10k(f, W)
+
+
+@pytest.mark.parametrize("name", ["A'", "A''", "D1", "D2"])
+@pytest.mark.parametrize("f", [torch.float64, torch.float32])
+def test_batched_cell_launch_equals_single_launches(name, f):
+    """Kernel `name` of the 10k path (A', A'', D1, D2), its op's batching
+    rule under torch.func.vmap at 3 replicas of the 10k lattice's shapes
+    (chip_smoke.py's batch_cases_10k): one launch, equal to 3 single
+    launches (fp64 within chip_smoke's BATCH_TOL of max |ref|)."""
+    _need_card()
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import _build
+    bat, _, one, *_ = _batch_cases_10k(f, 3)[name]
+    _build.launches.clear()
+    got = bat()
+    assert dict(_build.launches) == {name: 1}
+    ref = torch.stack([one(w) for w in range(3)])
+    _close(got, ref, 1e-13 if f == torch.float64 else 1e-5)
+
+
+def test_batched_10k_scan_matches_in_turn(tmp_path):
+    """2 replicas x 4 graphed fp64 NVT steps of the 10k lattice through
+    one captured batched step against the replicas in turn: positions
+    within 1e-9 A, each kernel of the 10k path 4 + 1 launches against
+    2 x 4 + 1."""
+    _need_card()
+    import chip_smoke
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import _build
+    from reactive_pb_nn_md_tpu_torch.parallel import ensemble
+    system, cbw, cfg, ms = chip_smoke.batch_lattice(tmp_path, torch.float64)
+    batch = ensemble.stack_replicas(ms, 2, seed=3)
+    runs = []
+    for cls in (ensemble.ReplicaScan, ensemble.BatchedReplicaScan):
+        scan = cls(system, cbw, cfg.delta_t, "NVT", 4, friction=1.0)
+        _build.launches.clear()
+        runs.append(scan(batch) + (scan, dict(_build.launches)))
+    (t, td, _, tl), (b, bd, bscan, bl) = runs
+    assert not td.capacities() and not bd.capacities()
+    assert len(bscan.step_graphs.captures) == 1
+    for k in chip_smoke.TENK_KERNELS:
+        assert bl[k] == 5 and tl[k] == 9
+    for w in range(2):
+        _close(b.states[w].state.x, t.states[w].state.x, 1e-12)
+        assert torch.equal(b.generators[w], t.generators[w])

@@ -84,15 +84,16 @@ def _to_port_topo(topo):
         for f in dataclasses.fields(Topology)})
 
 
-def _port_forces_as_jax(tsys, tcbw, cap):
+def _port_forces_as_jax(tsys, tcbw, cap, cells=None):
     """A stand-in for the JAX package's evaluate_forces: the port's
-    evaluation at the same positions and topology, in the JAX ForceEval
-    layout (see the module docstring)."""
+    evaluation at the same positions and topology (its neighbor lists on
+    the cell grid `cells` when given), in the JAX ForceEval layout (see
+    the module docstring)."""
     def evaluate(x, box, topo, system, nlist, cbw, com=None):
         tx, tb = torch.tensor(np.asarray(x)), torch.tensor(np.asarray(box))
         ttopo = _to_port_topo(topo)
         tnl = neighbors.build_neighbors(
-            tx, tb, **integrators.neighbor_plan(tsys, tb, cap))
+            tx, tb, **integrators.neighbor_plan(tsys, tb, cap, cells))
         fe = integrators.evaluate_forces(tx, tb, ttopo, tsys, tnl, tcbw)
 
         def j(t, dtype=None):
