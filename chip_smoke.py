@@ -200,6 +200,24 @@ Phases, in order, one line each (any failure raises, exit code != 0):
         and the captures inside the timed window (the lattice melts: a
         window holding a capture is labelled not steady): printed, not
         gated.
+  13. the replica batch under a shard (parallel/shard.py: one vmapped step
+     whose force evaluation is shared over an atoms group, each of its
+     four collectives issued once for the whole batch), at world size 1
+     over nccl (a store in a temporary file), as phase 11:
+     a. 4 flagship windows (12b's restraints) x 32 graphed fp64 NVT steps
+        through BatchedReplicaScan with an AtomShard of size 1, launch and
+        collective counts from 0, against BatchedReplicaScan unsharded
+        from the same states and generators: max |dx| <= 1e-12 A
+        (phase 11's bound) and whether the bits are equal; one capture;
+        A, B1, B2, C1, C2 and E launch 32 + 1 times, each collective
+        32 + 1 times, and the captured step holds the four once each;
+     b. the kernels a shard runs on its share, batched (one launch under
+        torch.func.vmap for W = 4 replicas moved by 0.02 A), 4 shares
+        summed against the batched launch of the whole, fp64, within
+        1e-12 of the largest value: A's range launch over the flagship's
+        64 cells, A'' over the 10k lattice's cells (each range's rows
+        kept), B1 spreading the flagship's atom slices, D1 the 10k
+        lattice's (K = 64, SCAP_10K).
 The line before the last is nvidia-smi's name and power limit, the one
 before it the per-kernel JSON (times, errors and bounds in fp64; fp32 in
 the fp32_ keys); the last line is the result JSON.
@@ -299,6 +317,11 @@ BATCH_W, BATCH_STEPS, BATCH_TOL = 4, 64, 1e-13
 BATCH_RATE_W, BATCH_RATE_STEPS = (1, 4, 16), 64
 # 12e / 12f: the 10k box's graphed steps a batch (and timed at 12f's W)
 TENK_BATCH_STEPS = 32
+# phase 13: the batch under a shard: 13a's graphed steps (its windows are
+# BATCH_W), its bound against the unsharded batch (A, phase 11's) and
+# 13b's ranges a batched launch (their sums against the batched whole
+# launch within RANGE_TOL of its largest value)
+SHARD_BATCH_STEPS, SHARD_BATCH_RANGES = 32, 4
 
 # Tolerances (|got - ref| <= atol + rtol |ref|, atol relative to max|ref|):
 #  fp64: 1e-10 relative for every kernel.
@@ -2537,6 +2560,186 @@ def phase_batch_rates_10k(tmp):
     return res
 
 
+# ---- phase 13: the replica batch under a shard (one vmapped step shared
+# over the ranks of an atoms group)
+
+def phase_batch_shard_graphed(tmp):
+    """Phase 13a: BATCH_W flagship windows (phase 12b's restraints) x
+    SHARD_BATCH_STEPS graphed fp64 NVT steps through BatchedReplicaScan
+    with an AtomShard of size 1 (nccl), launch and collective counts from
+    0, against BatchedReplicaScan unsharded from the same states and
+    generators: max |dx| <= SHARD_DX, whether the bits are equal, one
+    capture, each kernel of the flagship path SHARD_BATCH_STEPS + 1
+    launches (the replays and the capture's warm-up), each collective as
+    many, the captured step's collectives the four once each.  Returns
+    the sharded batch's launch counts."""
+    import torch
+    import torch.distributed as dist
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import _build
+    from reactive_pb_nn_md_tpu_torch.parallel import ensemble
+    from reactive_pb_nn_md_tpu_torch.parallel.shard import STEP_COLLECTIVES
+    W, n = BATCH_W, SHARD_BATCH_STEPS
+    dist.init_process_group("nccl", init_method="file://" + str(
+        tmp / "store"), rank=0, world_size=1)
+    try:
+        mesh = ensemble.make_mesh(1, sp=1, device="cuda")
+        shard = ensemble.atom_sharding(mesh)
+        system, cbw, ladder, batch = batch_windows(torch.float64, W, "NVT")
+        runs = {}
+        for sh in (shard, None):
+            scan = ensemble.BatchedReplicaScan(
+                system, cbw, 0.0005, "NVT", n, friction=LADDER["friction"],
+                temperature=LADDER["temperature"], shard=sh)
+
+            def run():
+                _build.collectives.clear()
+                runs[sh is None] = (*scan(batch, ladder), scan,
+                                    dict(_build.collectives))
+
+            counts = main_path(f"13a {W} windows x {n} fp64 NVT steps "
+                               f"batched, shard {sh}", run, FLAGSHIP_KERNELS,
+                               ("A'", "A''", "D1", "D2"))
+            if sh is not None:
+                sharded_counts = counts
+    finally:
+        dist.destroy_process_group()
+    (s, sd, sscan, scoll), (u, ud, _, ucoll) = runs[False], runs[True]
+    dx = max(float((s.states[w].state.x - u.states[w].state.x).abs().max())
+             for w in range(W))
+    bits = all(torch.equal(s.states[w].state.x, u.states[w].state.x)
+               for w in range(W))
+    caps = len(sscan.step_graphs.captures)
+    graph_colls = [dict(g.collectives)
+                   for g in sscan.step_graphs.graphs.values()]
+    log(f"  13a {W} windows x {n} graphed fp64 NVT steps, batched under a "
+        f"shard of size 1 (nccl) vs batched unsharded: max|dx| {dx:.3e} A, "
+        f"bits equal {bits}; {caps} captures, collectives of the run "
+        f"{scoll} (unsharded {ucoll}), of a captured step {graph_colls}; "
+        f"launches {sharded_counts}")
+    check(not sd.capacities() and not ud.capacities(),
+          "13a: a capacity flag stands")
+    check(dx <= SHARD_DX, f"13a: the batch under the shard and the "
+                          f"unsharded batch differ by {dx} A")
+    check(caps == 1, f"13a: {caps} captures for one batch")
+    check(graph_colls == [STEP_COLLECTIVES],
+          f"13a: the captured batched step issues {graph_colls}")
+    check(scoll == {k: n + 1 for k in STEP_COLLECTIVES} and not ucoll,
+          f"13a: collectives {scoll} / {ucoll}")
+    bad = {k: sharded_counts.get(k, 0) for k in FLAGSHIP_KERNELS
+           if sharded_counts.get(k, 0) != n + 1}
+    check(not bad, f"13a: launches {bad}, not {n + 1}")
+    return sharded_counts
+
+
+def phase_batch_shard_ranges(W=BATCH_W, n_ranges=SHARD_BATCH_RANGES,
+                             seed=13):
+    """Phase 13b: the kernels a shard runs on its share, batched: each
+    share's launch under torch.func.vmap over W replicas (one launch for
+    all W), summed over `n_ranges` shares, against the batched launch of
+    the whole, fp64: A over the flagship's 64 cells in ranges (its range
+    launch), A'' over the 10k lattice's cells (all cells swept, each
+    range's rows kept: _in_range), B1 spreading the flagship's atom
+    slices, D1 the 10k lattice's (K = 64, SCAP_10K).  The replicas are
+    the state moved by 0.02 A.  Returns {kernel: max error over max
+    |whole|}."""
+    import numpy as np
+    import torch
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import _build
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import pme_slab, pme_spread
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import realspace_pair as rsp
+    from reactive_pb_nn_md_tpu_torch.parallel.shard import AtomShard
+    vmap = torch.func.vmap
+    f, dev = torch.float64, torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    shards = [AtomShard(None, r, n_ranges) for r in range(n_ranges)]
+
+    def moved(x):
+        return torch.stack([x + torch.tensor(
+            rng.normal(scale=0.02, size=x.shape), dtype=f, device=dev)
+            for _ in range(W)])
+
+    def held(name, kernel, whole, part):
+        """Each call one launch of `kernel`; the shares' sum against the
+        whole."""
+        _build.launches.clear()
+        ref = whole()
+        got = sum(part(sh) for sh in shards)
+        launches = _build.launches[kernel]
+        err = float((got - ref).abs().max() / ref.abs().max())
+        log(f"  13b {name} W={W}: {n_ranges} shares batched, summed, vs "
+            f"the batched whole launch: {err:.3e} of max|whole|, bits "
+            f"equal {bool(torch.equal(got, ref))}; {launches} launches "
+            f"for {n_ranges + 1} batched calls")
+        check(err <= RANGE_TOL, f"13b: {name}'s shares do not sum to the "
+                                f"whole ({err})")
+        check(launches == n_ranges + 1,
+              f"13b: {name} launched {launches} times for "
+              f"{n_ranges + 1} batched calls")
+        return err
+
+    errs = {}
+    for deck in ("flagship", "10k"):
+        if deck == "flagship":
+            system, state, topo, _, _, _ = flagship(dev, f)
+            x, box = state.x, state.box
+            pair, spread = "A", "B1"
+        else:
+            system, x, box, topo, _ = lattice_10k(dev, f)
+            pair, spread = "A''", "D1"
+        xs = moved(x)
+        cells, rc = system.rs_cells, system.real_space_cutoff
+        impl = rsp._impl_for(cells)
+        check(rsp.KERNEL_OF[impl] == pair, f"13b: {deck} sweeps with "
+                                           f"{rsp.KERNEL_OF[impl]}")
+        tabs = rsp.build_tabs(system, f)
+        packed = [rsp.bin_atoms(xx, box, cells, rc) for xx in xs]
+        check(not any(bool(o) for _, o in packed),
+              f"13b: a moved {deck} box overflows kernel A's cells")
+        cms = torch.stack([rsp.pack_cells(
+            xx, topo.charge.to(f), topo.atom_type.to(f), topo.atom_mol.to(f),
+            slot, cells) for xx, (slot, _) in zip(xs, packed)])
+
+        def rows(cell_range=None):
+            return vmap(lambda c: rsp.pair_rows(
+                c, tabs, list(cells), box, rc, system.alpha_sqrt,
+                system.has_sapt, impl, cell_range))(cms)
+
+        errs[pair] = held(f"{pair} ({deck}, cells {cells})", pair, rows,
+                          lambda sh: rows(list(sh.cells(cells))))
+        K, order, N = system.pme_grid, system.spline_order, system.n_atoms
+        scap = 0 if deck == "flagship" else SCAP_10K
+        q = topo.charge.to(f)
+
+        def grid(a):
+            if scap:
+                return vmap(lambda xx: pme_slab.charge_grid_slab(
+                    xx[a], q[a], box, K, order, scap)[0])(xs)
+            return vmap(lambda xx: pme_spread.charge_grid(
+                xx[a], q[a], box, K, order))(xs)
+
+        if scap:
+            over = [bool(pme_slab.charge_grid_slab(xx[sh.atoms(N)],
+                                                   q[sh.atoms(N)], box, K,
+                                                   order, scap)[1])
+                    for xx in xs for sh in shards]
+            check(not any(over), "13b: a slab overflowed")
+        errs[spread] = held(f"{spread} ({deck}, K {K}, scap {scap})",
+                            spread, lambda: grid(slice(None)),
+                            lambda sh: grid(sh.atoms(N)))
+    return errs
+
+
+def phase_batch_shard():
+    """Phase 13 (see the module docstring): the sharded batch's launch
+    counts."""
+    t13 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        counts = phase_batch_shard_graphed(pathlib.Path(tmp))
+    phase_batch_shard_ranges()
+    log(f"  phase 13: {time.perf_counter() - t13:.1f} s")
+    return counts
+
+
 def phase_batch(measured):
     """Phase 12 (see the module docstring); the W = 16 kernel times go to
     measured["batch16"]."""
@@ -2691,6 +2894,11 @@ def main():
         "replica-steps/s")
     phase_batch(measured)
 
+    log("[13 batch under a shard] the replica batch's step shared over an "
+        "atoms group at world size 1 against the unsharded batch, the "
+        "range launches batched")
+    shard_batch = phase_batch_shard()
+
     k64, k32 = measured["fp64"], measured["fp32"]
     kernels = []
     for k, (src, rep) in KERNELS.items():
@@ -2700,6 +2908,7 @@ def main():
             launches=launches[k], nvt_launches=nvt.get(k, 0),
             ladder_launches=ladder.get(k, 0),
             sharded_launches=sharded.get(k, 0),
+            sharded_batch_launches=shard_batch.get(k, 0),
             max_abs_err=m64["max_abs_err"],
             ms=m64["ms"], device_ms=m64["device_ms"],
             plain_ms=m64["plain_ms"],

@@ -608,7 +608,8 @@ def md_scan(ms: MDState, system, cbw, dt: float, ensemble="NVE",
 
     A stacked replica batch `ms` (stack_states: every tensor (W, ...))
     runs batched_md_scan, `generator` then one generator a replica and
-    `bias` the stacked restraint of a ladder."""
+    `bias` the stacked restraint of a ladder; with `shard` the batch's
+    step is shared over the group as one replica's is."""
     if ms.state.x.ndim == 3:
         return batched_md_scan(ms, system, cbw, dt, ensemble, n_steps,
                                friction, temperature, generator,
@@ -646,8 +647,12 @@ def md_scan(ms: MDState, system, cbw, dt: float, ensemble="NVE",
 # the dense or cell-list neighbors (each replica's own rebuild decision
 # selected on the device, its own cell tables and on-demand rows), the
 # domain repulsion, kernel A's full stencil or A' / A'', the per-atom or
-# the slab PME spread.  A step shared over ranks takes no batch (queued:
-# ROADMAP §1 item 2, a batched step under a shard).
+# the slab PME spread.  With a shard the batch's step is shared over the
+# ranks of its group: each kernel runs on this rank's share for all W
+# (A's cell range, the atom slices of B1 / D1), and each of the step's
+# four collectives is issued once for the stacked (W, ...) tensor
+# (parallel/shard.py), the counterpart of the JAX replica_sharding's
+# batch sharded over both mesh axes.
 
 def stack_states(states):
     """One MDState whose tensors are those of `states` (one signature)
@@ -668,23 +673,16 @@ def unstack_states(bms):
     return [graphs.with_leaves(bms, (t[w] for t in ts)) for w in range(W)]
 
 
-def check_batchable(shard=None):
-    """Raise unless a replica batch can run the step: on one card, not
-    shared over ranks (`shard`)."""
-    if shard is not None:
-        raise ValueError(
-            "a replica batch takes no step shared over ranks (queued: "
-            "ROADMAP §1 item 2, a batched step under a shard)")
-
-
 def batched_scan_step(bms, system, cbw, dt, ensemble, friction, temperature,
-                      generators, bias=None):
+                      generators, bias=None, shard=None):
     """One step of every replica of the stacked batch `bms`: the NVT draws
     of replica w from generators[w] (drawn before the vmapped step, in
-    replica order, so each stream equals the one replica's own), md_step
-    vmapped over the replicas under the stacked restraint `bias` (a tuple
-    of HarmonicBias of (W, ...) leaves, or None) at the full cap, and the
-    (W, D) diagnostics rows."""
+    replica order, so each stream equals the one replica's own; under a
+    shard every rank of the group holds the same generator states, so
+    its ranks draw the same noise), md_step vmapped over the replicas
+    under the stacked restraint `bias` (a tuple of HarmonicBias of
+    (W, ...) leaves, or None) at the full cap, shared over the ranks of
+    `shard` when given, and the (W, D) diagnostics rows."""
     noise = None
     if ensemble == "NVT":
         draws = [draw_noise(x, g) for x, g in zip(bms.state.x, generators)]
@@ -694,7 +692,7 @@ def batched_scan_step(bms, system, cbw, dt, ensemble, friction, temperature,
         ms = graphs.with_leaves(bms, iter(tensors))
         b = graphs.with_leaves(bias, iter(bias_leaves))
         ms, row = scan_step_with(ms, system, cbw, dt, ensemble, friction,
-                                 temperature, noise_w, bias=b)
+                                 temperature, noise_w, bias=b, shard=shard)
         return graphs.leaves(ms), row
 
     out, rows = torch.func.vmap(one, in_dims=(0, None if noise is None
@@ -704,16 +702,19 @@ def batched_scan_step(bms, system, cbw, dt, ensemble, friction, temperature,
 
 
 def batch_key(bms, system, cbw, dt, ensemble, friction, temperature,
-              generators, bias=None):
+              generators, bias=None, shard=None):
     """The StepGraphs key of a captured batched step (graph_key's, with
     the batch size and every replica's generator held).  The neighbor
     cell grids enter through the batch's signature, kernel A's cells, the
     slab cap and the state cap through the System held (a regrow makes a
-    new one): a regrown grid or cap is a new capture."""
+    new one): a regrown grid or cap is a new capture.  The shard enters
+    held, so a batch under a shard never replays a capture made without
+    one, nor one on another group."""
     return ("batch", bms.state.x.shape[0], ensemble, bms.state.x.dtype, dt,
             friction, temperature, graphs.Held(system),
             tuple(graphs.Held(g) for g in generators),
-            graphs.signature(bms), tuple(cbw.shape), graphs.signature(bias))
+            graphs.signature(bms), tuple(cbw.shape), graphs.signature(bias),
+            graphs.Held(shard))
 
 
 def batched_md_scan(bms, system, cbw, dt, ensemble="NVE", n_steps=1,
@@ -729,7 +730,12 @@ def batched_md_scan(bms, system, cbw, dt, ensemble="NVE", n_steps=1,
     package's vmapped ones do).  bias: the (W, ...)-stacked restraint of
     a ladder (parallel/umbrella.make_ladder), or None.  The result is
     valid only if diag.capacities() is empty (else regrow every replica
-    and replay the chunk).  Raises on a shard (check_batchable)."""
+    and replay the chunk).  shard: every replica's step shared over the
+    ranks of a process group (parallel/shard.py), each of its four
+    collectives issued once a step for the whole batch; every rank of
+    the group calls it with the same arguments and generator states.
+    On the card a batch under a shard is the captured step or an error:
+    it has no eager or in-turn fallback."""
     if ensemble not in ENSEMBLES:
         raise ValueError(f"ensemble {ensemble!r}: expected one of "
                          f"{', '.join(ENSEMBLES)}")
@@ -737,19 +743,18 @@ def batched_md_scan(bms, system, cbw, dt, ensemble="NVE", n_steps=1,
     if ensemble == "NVT" and (generators is None or len(generators) != W):
         raise ValueError(f"an NVT batch needs a generator for each of its "
                          f"{W} replicas")
-    check_batchable(shard)
     gens = tuple(generators) if ensemble == "NVT" else ()
     bias = bias_mod.as_tuple(bias)
 
     def body(m, w, b):
         return batched_scan_step(m, system, w, dt, ensemble, friction,
-                                 temperature, gens, b)
+                                 temperature, gens, b, shard)
 
     if bms.state.x.is_cuda and not eager:
         if step_graphs is None:
             step_graphs = graphs.StepGraphs()
         key = batch_key(bms, system, cbw, dt, ensemble, friction,
-                        temperature, gens, bias)
+                        temperature, gens, bias, shard)
         g = step_graphs.get(key, lambda: graphs.StepGraph(
             body, bms, cbw, gens, bias))
         out, rows = g.run(bms, cbw, n_steps, bias)

@@ -10,11 +10,15 @@ rank torchrun made.  On one fixture (12 H2O + 1 H3O+, 40 atoms, the
 MS-EVB3 water deck of examples/water_msevb with a 12^3 PME grid, fp64):
 
   1. a (N/2 x 2) mesh ((1 x N) for odd N): one full reactive NVE step of
-     2 dp replicas, each shared over its rank pair, every potential
-     finite; then 3 NVT steps of the same batch, whose replicas (one
-     generator seed each) must differ pairwise; the positions of both
-     runs held against the one-rank ReplicaScan on the same seeds
-     within 1e-12 A;
+     2 dp replicas, each rank's block of 2 batched (one vmapped step)
+     and shared over its atoms group, every potential finite; then 3 NVT
+     steps of the same batch, whose replicas (one generator seed each)
+     must differ pairwise; the positions of both runs held within
+     1e-12 A against the one-rank batch on the same seeds and against
+     the same block run in turn under the same shard (ReplicaScan), and
+     the ranks of an atoms group against each other (bit for bit); the
+     collectives of one batched step by name (each of the four once,
+     whatever the block's size);
   2. an atoms-only (1 x N) mesh: two chained md_scan(2) chunks of the one
      replica shared over every rank, held against the unsharded loop
      with the JAX check's bounds (potential 1e-6 absolute; elec, vdw,
@@ -47,13 +51,15 @@ from ..models import pme
 from ..ops import neighbors
 from ..topology import State, build_system
 from . import ensemble, mesh as mesh_mod
+from .shard import STEP_COLLECTIVES
 
 DECK = pathlib.Path(__file__).resolve().parents[2] / "examples" / \
     "water_msevb"
 N_WATER, PME_GRID, N_SCAN = 12, 12, 2
 # the JAX check's bounds (__graft_entry__.dryrun_multichip part 2)
 POT_ATOL, TERM_RTOL, X_ATOL = 1e-6, 1e-8, 1e-9
-# part 1: the mesh's replicas against the one-rank ReplicaScan's
+# part 1: the mesh's replicas against the one-rank batch's and the
+# in-turn block's
 REPLICA_X_ATOL = 1e-12
 # NVT steps of part 1
 N_NVT = 3
@@ -130,9 +136,9 @@ def _gather(t, group, n):
     return torch.stack(parts)
 
 
-def _block_dx(block, ref, first):
+def _block_dx(block, ref, first=0):
     """max |dx| of this rank's `block` against replicas first.. of the
-    one-rank batch `ref`, the largest over every rank of the world."""
+    batch `ref`, the largest over every rank of the world."""
     dx = max(float((m.state.x - r.state.x).abs().max())
              for m, r in zip(block.states, ref.states[first:]))
     t = torch.tensor([dx], dtype=torch.float64, device=block.states[0].
@@ -142,30 +148,53 @@ def _block_dx(block, ref, first):
 
 
 def part_replicas(mesh, system, cbw, cfg, ms):
-    """Part 1 (the module docstring): its numbers."""
+    """Part 1 (the module docstring): its numbers, every replica's
+    positions after the NVE step among them (nve_x, (W, N, 3) nested
+    lists)."""
     W = 2 * mesh.dp
     first = mesh.replica_index * (W // mesh.dp)
     block = ensemble.stack_replicas(ms, W, seed=42, mesh=mesh)
     batch = ensemble.stack_replicas(ms, W, seed=42)
+    shard = ensemble.atom_sharding(mesh) if mesh.sp > 1 else None
     runs = {}
     for ens, n, fr in (("NVE", 1, 0.1), ("NVT", N_NVT, 5.0)):
         args = (system, cbw, cfg.delta_t, ens, n)
-        out, diag = ensemble.make_replica_scan(*args, friction=fr,
-                                               mesh=mesh)(block)
-        # the one-rank ReplicaScan on the same seeds, on every rank
+        scan = ensemble.make_replica_scan(*args, friction=fr, mesh=mesh)
+        out, diag = scan(block)
+        # the one-rank batch on the same seeds, on every rank
         ref, _ = ensemble.make_replica_scan(*args, friction=fr)(batch)
-        runs[ens] = out, diag, _block_dx(out, ref, first)
+        # this rank's block in turn under the same shard
+        turn, _ = ensemble.ReplicaScan(*args, friction=fr, shard=shard)(
+            block)
+        runs[ens] = (out, diag, _block_dx(out, ref, first),
+                     _block_dx(out, turn))
+    # one batched step of the block, eager: its collectives
+    bms = integrators.stack_states(block.states)
+    colls = ensemble.collective_summary(lambda: integrators.batched_scan_step(
+        bms, scan.system, cbw, cfg.delta_t, "NVE", 0.1, 300.0, (),
+        shard=shard))
     pot = runs["NVE"][1].potential[:, 0]
     x = torch.stack([m.state.x for m in runs["NVT"][0].states])
     xs = _gather(x, mesh.replica_group, mesh.dp).reshape(W, -1)
     apart = min(float((xs[i] - xs[j]).abs().max())
                 for i in range(W) for j in range(i))
+    # the ranks of an atoms group hold one block: their copies, NVE and NVT
+    copies = [_gather(torch.stack([m.state.x for m in runs[e][0].states]),
+                      mesh.atoms_group, mesh.sp) for e in ("NVE", "NVT")]
+    x = torch.stack([m.state.x for m in runs["NVE"][0].states])
+    nve_x = _gather(x, mesh.replica_group, mesh.dp)
     return dict(mesh=mesh.shape, replicas=W, n_atoms=system.n_atoms,
                 potential=pot.tolist(),
                 finite=bool(torch.isfinite(pot).all()),
                 nve_same=float((pot - pot[0]).abs().max()),
                 nve_x_err=runs["NVE"][2], nvt_x_err=runs["NVT"][2],
-                nvt_min_pairwise_dx=apart)
+                inturn_nve_x_err=runs["NVE"][3],
+                inturn_nvt_x_err=runs["NVT"][3],
+                ranks_x_spread=max(float((c - c[0]).abs().max())
+                                   for c in copies),
+                collectives=colls,
+                nvt_min_pairwise_dx=apart,
+                nve_x=nve_x.reshape(W, -1, 3).cpu().tolist())
 
 
 def part_atoms(mesh, system, cbw, cfg, ms):
@@ -218,6 +247,18 @@ def checks(p1, p2):
         if not e <= REPLICA_X_ATOL:
             bad.append(f"part 1: {ens.upper()} replicas on the mesh and "
                        f"on one rank differ by {e} A")
+        e = p1[f"inturn_{ens}_x_err"]
+        if not e <= REPLICA_X_ATOL:
+            bad.append(f"part 1: the {ens.upper()} block batched and in "
+                       f"turn differ by {e} A")
+    if p1["ranks_x_spread"] != 0.0:
+        bad.append(f"part 1: the ranks' copies of a block differ by "
+                   f"{p1['ranks_x_spread']} A")
+    # a block with no atoms group (sp = 1, an odd world) issues none
+    want = STEP_COLLECTIVES if p1["mesh"]["atoms"] > 1 else {}
+    if p1["collectives"]["by_name"] != want:
+        bad.append(f"part 1: the collectives of one batched step are "
+                   f"{p1['collectives']['by_name']}, not {want}")
     if not p2["finite"]:
         bad.append("part 2: a non-finite sharded potential")
     if p2["match"] > POT_ATOL:
@@ -227,6 +268,9 @@ def checks(p1, p2):
             bad.append(f"part 2: sharded/unsharded {k} {e}")
     if p2["x_err"] > X_ATOL:
         bad.append(f"part 2: sharded/unsharded positions {p2['x_err']}")
+    if p2["collectives"]["by_name"] != STEP_COLLECTIVES:
+        bad.append(f"part 2: the collectives of one step are "
+                   f"{p2['collectives']['by_name']}")
     if p2["ranks_x_spread"] != 0.0:
         bad.append(f"part 2: the ranks' positions differ by "
                    f"{p2['ranks_x_spread']}")
@@ -251,8 +295,11 @@ def dryrun_rank(n_devices, device):
               f"replicas x {p1['n_atoms']} atoms, potential[0]="
               f"{p1['potential'][0]:.6f}, NVT min pairwise max|dx| "
               f"{p1['nvt_min_pairwise_dx']:.3e} A, against one rank NVE "
-              f"{p1['nve_x_err']:.2e} A, NVT {p1['nvt_x_err']:.2e} A "
-              f"[{p1['s']:.1f} s]",
+              f"{p1['nve_x_err']:.2e} A, NVT {p1['nvt_x_err']:.2e} A, "
+              f"batched against in turn NVE {p1['inturn_nve_x_err']:.2e} "
+              f"A, NVT {p1['inturn_nvt_x_err']:.2e} A, ranks' copies "
+              f"{p1['ranks_x_spread']:.2e} A, collectives of a batched "
+              f"step {p1['collectives']['by_name']} [{p1['s']:.1f} s]",
               flush=True)
     p2 = part_atoms(mesh_sp, system, cbw, cfg, ms)
     p2["s"] = time.perf_counter() - t0
@@ -293,6 +340,7 @@ def main(argv=None):
                               timeout=a.timeout,
                               threads=1 if a.device == "cpu" else 0)
         p1, p2, bad = res[0]
+    p1.pop("nve_x")       # the tests' reference positions, not a result
     print(json.dumps({"devices": n, "device": a.device, "part1": p1,
                       "part2": p2, "failed": bad}))
     for b in bad:

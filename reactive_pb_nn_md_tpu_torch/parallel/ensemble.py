@@ -20,8 +20,7 @@ the streams are distinct, and its draws are those of its own generator
 alone.  Diagnostics come back as (W, n) fields, as the JAX vmap returns
 them.  ReplicaScan runs the same chunk with the replicas in turn (each
 replica's md_scan, one capture for all, its generator state swapped in
-and out): the reference the batch is held against, and the path of a
-replica whose step is shared over ranks.
+and out): the reference the batch is held against, and nothing else.
 
 Replicas run one static cap with no small tier (_no_tier), as the JAX
 package's do, so the trajectories are those of the JAX package at that
@@ -37,8 +36,10 @@ per-atom PME spread) and the cell path of the 10,000-atom box (cell-list
 neighbors with each replica's own rebuild and on-demand rows, the domain
 repulsion, kernels A' / A'', the slab spread D1 / D2); a regrow of the
 cell capacities, kernel A's cells or the slab cap is made for all and
-the chunk replayed, as any other.  A step shared over ranks takes no
-batch (queued: ROADMAP §1 item 2), and such a batch raises.
+the chunk replayed, as any other.  A batch under a shard (shard=, an
+AtomShard of parallel/shard.py) runs the same vmapped step shared over
+the ranks of the shard's group, each of the step's four collectives
+issued once for the whole batch.
 
 Over several ranks (parallel/mesh.py, a dp x sp mesh):
 
@@ -56,7 +57,12 @@ Over several ranks (parallel/mesh.py, a dp x sp mesh):
     from every rank.  States stay with their ranks;
   * one replica's step over the "atoms" axis (atom_sharding, make_atom_
     sharded_step / _scan): parallel/shard.py.  On a dp x sp mesh with
-    sp > 1 each block's replicas run so.
+    sp > 1 each block runs batched under its atoms group's shard: one
+    vmapped step advances the block's replicas, each rank computing its
+    share for all of them (the JAX replica_sharding, a batch sharded
+    over both axes).  The ranks of an atoms group hold the same
+    replicas and generator states (stack_replicas with the mesh), so
+    they draw the same noise and take the same step.
 """
 
 import dataclasses
@@ -153,9 +159,8 @@ def _cat(diags, op):
 class ReplicaScan:
     """n_steps steps of every replica of a batch: scan(batch[, ladder]) ->
     (batch after them, ChunkDiagnostics of (W, n_steps) fields), the
-    replicas in turn (the reference BatchedReplicaScan is held against;
-    with a shard, the path of replicas whose steps are shared over
-    ranks).
+    replicas in turn (the reference BatchedReplicaScan is held against,
+    with a shard too).
 
     system: its two-tier evaluation is turned off (_no_tier); `system`
     holds the current caps, and `caps` the neighbor capacities
@@ -339,20 +344,16 @@ class BatchedReplicaScan(ReplicaScan):
     W generators registered with the graph).  The counterpart of the JAX
     package's jax.vmap(md_scan).  Same results as the in-turn ReplicaScan
     (the reference it is held against), same capacity handling: flags
-    OR-ed over the replicas, a regrow for all, the chunk replayed.  It
-    takes no shard (integrators.check_batchable)."""
+    OR-ed over the replicas, a regrow for all, the chunk replayed.  With
+    a shard the batch's step is shared over the shard's group (each
+    collective once a step for the whole batch), and so is the set-up
+    after a regrow."""
 
     def __init__(self, system, cbw, dt, ensemble, n_steps, friction=0.1,
                  temperature=300.0, hard_max_states=None, eager=False,
                  shard=None):
-        if shard is not None:
-            raise ValueError("the batched replica scan takes no shard: a "
-                             "replica's step shared over ranks runs the "
-                             "replicas in turn (ReplicaScan(shard=...)); "
-                             "a batch under a shard is queued (ROADMAP §1 "
-                             "item 2)")
         super().__init__(system, cbw, dt, ensemble, n_steps, friction,
-                         temperature, hard_max_states, eager)
+                         temperature, hard_max_states, eager, shard)
         # one noise generator a replica, kept so that the captured step
         # (whose key holds them) is replayed, not captured again
         self.generators = []
@@ -374,7 +375,8 @@ class BatchedReplicaScan(ReplicaScan):
             bms, d = integrators.md_scan(
                 bms, self.system, self.cbw, self.dt, self.ensemble, n,
                 self.friction, self.temperature, generator=self.generators,
-                step_graphs=self.step_graphs, eager=self.eager, bias=bias)
+                step_graphs=self.step_graphs, eager=self.eager, bias=bias,
+                shard=self.shard)
             diags.append(d)
             done += n
             flags = _flags(d)
@@ -389,26 +391,18 @@ class MeshReplicaScan(BatchedReplicaScan):
     ChunkDiagnostics of (W, n_steps) fields of all replicas in replica
     order).  `block` is this rank's replicas (stack_replicas(..., mesh));
     every rank of the world calls it together.  The regrow decision is
-    taken from flags OR-ed over the replica group, so every rank grows
-    to the same caps and replays.  With sp = 1 a rank's block runs
-    batched (BatchedReplicaScan); with sp > 1 every replica's step is
-    shared over the rank's atoms group and the block runs in turn
-    (ReplicaScan's chunk)."""
+    taken from flags OR-ed over the replica group (and, inside the step,
+    over the atoms group), so every rank grows to the same caps and
+    replays.  A rank's block runs batched (BatchedReplicaScan) on every
+    mesh: with sp > 1 its step is shared over the rank's atoms group."""
 
     def __init__(self, mesh, system, cbw, dt, ensemble, n_steps,
                  friction=0.1, temperature=300.0, hard_max_states=None,
                  eager=False):
         super().__init__(system, cbw, dt, ensemble, n_steps, friction,
-                         temperature, hard_max_states, eager)
+                         temperature, hard_max_states, eager,
+                         shard=atom_sharding(mesh) if mesh.sp > 1 else None)
         self.mesh = mesh
-        if mesh.sp > 1:
-            self.shard = atom_sharding(mesh)
-
-    def _chunk(self, states, gens, biases, ladder, first):
-        if self.shard is not None:
-            return ReplicaScan._chunk(self, states, gens, biases, ladder,
-                                      first)
-        return super()._chunk(states, gens, biases, ladder, first)
 
     def _reduce(self, flags):
         v = flags.to(torch.int32).to(self.mesh.device)

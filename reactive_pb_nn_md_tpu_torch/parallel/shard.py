@@ -44,6 +44,12 @@ its own split share.  The shared terms read x through `shared`, whose
 backward keeps the gradient on rank 0 only.  The force sum then adds
 the split shares once each and the shared terms once.
 
+A replica batch (md/integrators.py batched_md_scan: md_step under
+torch.func.vmap) runs under a shard as one replica does: the shares are
+static, so each kernel runs on this rank's share for all W replicas in
+its one batched launch, and each collective is issued once a step for
+the stacked (W, ...) tensor (_AllReduce's vmap rule), whatever W is.
+
 A shared term recomputed on every rank takes the same bits on every rank
 from the same inputs on the CPU (gloo); on the cards an op with atomics
 may differ in its last bits between ranks, which reaches the trajectory
@@ -63,6 +69,8 @@ from ..ops.kernels._build import collectives
 # the kind of each named collective
 KIND = {"grid": "all_reduce(sum)", "energy": "all_reduce(sum)",
         "force": "all_reduce(sum)", "flags": "all_reduce(max)"}
+# the collectives of one step, by name: each once, batched or not
+STEP_COLLECTIVES = dict.fromkeys(KIND, 1)
 
 
 def split(n, size, rank):
@@ -71,28 +79,50 @@ def split(n, size, rank):
     return n * rank // size, n * (rank + 1) // size
 
 
-class _SumPassGrad(torch.autograd.Function):
-    """All-reduce sum forward, the gradient passed through unchanged."""
+def _all_reduce(t, group, op, name):
+    """t reduced by `op` over the ranks of `group` into a new contiguous
+    tensor: one collective, counted under `name`."""
+    out = t.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=op, group=group)
+    collectives[name] += 1
+    return out
+
+
+class _AllReduce(torch.autograd.Function):
+    """_all_reduce with the gradient passed through unchanged (a sum's;
+    the force and flag reductions take none).  Under a replica batch
+    (torch.func.vmap, with torch.func.grad inside it) the vmap rule
+    reduces the whole stacked (W, ...) tensor in ONE collective: every
+    rank of the group stacks its batch alike, so the elements meet."""
 
     @staticmethod
-    def forward(ctx, t, group, name):
-        out = t.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-        collectives[name] += 1
-        return out
+    def forward(t, group, op, name):
+        return _all_reduce(t, group, op, name)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
 
     @staticmethod
     def backward(ctx, g):
-        return g, None, None
+        return g, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, t, group, op, name):
+        return _all_reduce(t, group, op, name), in_dims[0]
 
 
 class _RootGrad(torch.autograd.Function):
     """Identity forward; the gradient kept on the root rank only."""
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, x, root):
-        ctx.root = root
+    def forward(x, root):
         return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.root = inputs[1]
 
     @staticmethod
     def backward(ctx, g):
@@ -135,21 +165,16 @@ class AtomShard:
 
     def sum(self, t, name):
         """t summed over the ranks, the gradient passed through."""
-        return _SumPassGrad.apply(t, self.group, name)
+        return _AllReduce.apply(t, self.group, dist.ReduceOp.SUM, name)
 
     def sum_force(self, f):
         """The (N, 3) force shares summed over the ranks (no autograd)."""
-        f = f.contiguous()
-        dist.all_reduce(f, op=dist.ReduceOp.SUM, group=self.group)
-        collectives["force"] += 1
-        return f
+        return _AllReduce.apply(f, self.group, dist.ReduceOp.SUM, "force")
 
     def any(self, flags):
         """The bool flags OR-ed over the ranks."""
-        v = flags.to(torch.int32)
-        dist.all_reduce(v, op=dist.ReduceOp.MAX, group=self.group)
-        collectives["flags"] += 1
-        return v != 0
+        return _AllReduce.apply(flags.to(torch.int32), self.group,
+                                dist.ReduceOp.MAX, "flags") != 0
 
 
 def collective_summary(fn):

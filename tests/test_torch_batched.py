@@ -17,8 +17,12 @@ PME 12^3 and state cap 12):
     replayed, equal to a batch started at the grown capacity;
   * a batched step makes no host synchronization (the dispatch audit of
     tests/test_torch_scan.py);
-  * the batched scan given a shard raises; a batch on the cell path runs
-    (and its graph key names the cell grids and the slab cap).
+  * a batch under an AtomShard of size 1 (a one-rank gloo group made in
+    this process) equals the same batch in turn under the shard bit for
+    bit and the unsharded batch within 1e-12 A, NVE and NVT, one batched
+    step issuing each of the shard's four collectives once; a batch on
+    the cell path runs (and its graph key names the cell grids, the slab
+    cap and the shard).
 
 The JAX package is held against the batched ladder in
 tests/test_torch_umbrella.py (its vmapped make_ladder_scan), and the
@@ -30,6 +34,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from test_torch_scan import _HostSyncs, _HostTensors
 from reactive_pb_nn_md_tpu_torch.io.ffpmt import read_ffpmt
@@ -44,6 +49,7 @@ from reactive_pb_nn_md_tpu_torch.ops.kernels import pme_spread as sp
 from reactive_pb_nn_md_tpu_torch.ops.kernels import realspace_pair as rsp
 from reactive_pb_nn_md_tpu_torch.ops.kernels import recip_perstate as rp
 from reactive_pb_nn_md_tpu_torch.parallel import dryrun, ensemble
+from reactive_pb_nn_md_tpu_torch.parallel import shard as shard_mod
 from reactive_pb_nn_md_tpu_torch.topology import State, build_system
 from reactive_pb_nn_md_tpu_torch.utils import pbc
 
@@ -268,27 +274,57 @@ def test_batched_step_makes_no_host_sync(deck):
     assert not bad, bad[0]
 
 
-def test_cell_path_and_shard_refuse_a_batch(deck):
-    """(Named when the cell path refused a batch too.)  A shard refuses a
-    batch; the cell path runs one (here the slab spread), and the batch's
-    graph key names the cell grids, kernel A's cells and the slab cap, so
-    a regrown grid or cap is a new capture."""
+@pytest.fixture
+def one_rank_shard(tmp_path):
+    """An AtomShard of size 1 on a one-rank gloo group made in this
+    process (a store in a temporary file), torn down after the test."""
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        yield shard_mod.AtomShard()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_cell_path_and_shard_refuse_a_batch(deck, one_rank_shard):
+    """(Named when the cell path and a shard refused a batch.)  A batch
+    under a shard of size 1 runs: it equals the same batch in turn under
+    the shard bit for bit and the unsharded batch within 1e-12 A (the
+    shard sums a step's gradient contributions in another order, in turn
+    as batched), NVE and NVT, and one batched step issues each of the
+    four collectives once.  The cell path runs a batch (here the slab
+    spread), and the batch's graph key names the cell grids, kernel A's
+    cells, the slab cap and the shard, so a regrown grid or cap, or a
+    shard, is a new capture."""
     system, cbw, states = deck
+    sh = one_rank_shard
     bms = integrators.stack_states(states)
-    with pytest.raises(ValueError, match="takes no shard"):
-        ensemble.BatchedReplicaScan(system, cbw, DT, "NVE", 1,
-                                    shard=object())
-    with pytest.raises(ValueError, match="shared over ranks"):
-        integrators.md_scan(bms, system, cbw, DT, "NVE", shard=object())
-    with pytest.raises(ValueError, match="shared over ranks"):
-        integrators.check_batchable(object())
+    for ens in ("NVE", "NVT"):
+        runs = {}
+        for cls, shard in ((ensemble.BatchedReplicaScan, sh),
+                           (ensemble.ReplicaScan, sh),
+                           (ensemble.BatchedReplicaScan, None)):
+            scan = cls(system, cbw, DT, ens, N_STEPS, friction=5.0,
+                       shard=shard)
+            runs[cls, shard] = scan(_batch(states))[0]
+        got = runs[ensemble.BatchedReplicaScan, sh]
+        for w in range(W):
+            x = got.states[w].state.x
+            assert torch.equal(x, runs[ensemble.ReplicaScan, sh]
+                               .states[w].state.x)
+            np.testing.assert_allclose(
+                x.numpy(), runs[ensemble.BatchedReplicaScan, None]
+                .states[w].state.x.numpy(), rtol=0, atol=1e-12)
+    colls = shard_mod.collective_summary(lambda: integrators.
+                                         batched_scan_step(
+        bms, system, cbw, DT, "NVE", 0.1, 300.0, (), shard=sh))
+    assert colls["by_name"] == shard_mod.STEP_COLLECTIVES
     with pytest.raises(ValueError, match="one signature"):
         integrators.stack_states([states[0], dataclasses.replace(
             states[1], nlist=dataclasses.replace(states[1].nlist,
                                                  capacity=7))])
     # the cell path runs: here the slab spread (the cell-list neighbors
     # and kernels A' / A'': tests/test_torch_batched_cells.py)
-    integrators.check_batchable()
     box = states[0].state.box
     cells = neighbors.suggest_cells(system.n_atoms, box.numpy(), 2.0,
                                     min_atoms=1)
@@ -299,6 +335,8 @@ def test_cell_path_and_shard_refuse_a_batch(deck):
     key = integrators.batch_key(bms, system, cbw, DT, "NVE", 0.1, 300.0, ())
     assert key == integrators.batch_key(bms, system, cbw, DT, "NVE", 0.1,
                                         300.0, ())
+    assert integrators.batch_key(bms, system, cbw, DT, "NVE", 0.1, 300.0,
+                                 (), shard=sh) != key
     for other, ms in ((slab, bms),
                       (system.replace(rs_cells=(3, 3, 3, 8)), bms),
                       (system, dataclasses.replace(bms, nlist=dataclasses

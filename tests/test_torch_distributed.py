@@ -14,13 +14,17 @@ fp64, on the dryrun's fixture (12 H2O + H3O+, 40 atoms, PME 12^3):
     vmapped make_replica_step;
   * a capacity flag that one rank alone raises makes both ranks regrow to
     the same caps and replay, and the chunk equals an unflagged one; a
-    batch whose steps are shared over 2 ranks sets its replicas up again
-    after a regrow shared as well;
+    batch whose steps are shared over 2 ranks (one vmapped step for the
+    batch) sets its replicas up again after a regrow shared as well;
   * the launcher: a failing rank raises with its traceback and a hung
     rank raises at the time limit, the others killed;
   * the kernel A cell ranges and the split charge spreads (per atom and
     by slabs) sum to the whole; the dryrun's box and deck are the tests' fixture; the dryrun
-    itself on 4 gloo ranks.
+    itself on 4 gloo ranks, whose part 1 runs each rank's block of 2
+    replicas batched under its atoms pair's shard: one batched step
+    issues each of the four collectives once, the block equals the same
+    block run in turn under the shard (NVE and NVT, 1e-12 A) and its NVE
+    replicas the JAX package's vmapped make_replica_step.
 
 The ranks (tests/torch_dist_ranks.py) run in spawned processes, each
 launch with its own store in a temporary file and its own time limit;
@@ -55,6 +59,7 @@ from reactive_pb_nn_md_tpu_torch.models import pme
 from reactive_pb_nn_md_tpu_torch.ops.kernels import pme_slab
 from reactive_pb_nn_md_tpu_torch.ops.kernels import realspace_pair as rsp
 from reactive_pb_nn_md_tpu_torch.parallel import dryrun, mesh
+from reactive_pb_nn_md_tpu_torch.parallel import shard
 from reactive_pb_nn_md_tpu_torch.parallel.shard import AtomShard, split
 
 # seconds a launch may take (rendezvous, collectives, join) before its
@@ -234,9 +239,10 @@ def test_sharded_replicas_regrow_shared(runs):
     unflagged one-rank chunk."""
     ranks = [r["flagged_sp"] for r in runs["worlds"][2]]
     one = runs["one"]["NVT"]
-    # replica 0's flagged first chunk, the 4 replicas set up again, the
-    # 4 replicas' replayed chunk
-    each = R.NVT_STEPS + R.N_REPLICAS + R.N_REPLICAS * R.NVT_STEPS
+    # the batch's flagged first chunk (one collective of each kind a
+    # batched step), the 4 replicas set up again one by one, the batch's
+    # replayed chunk
+    each = R.NVT_STEPS + R.N_REPLICAS + R.NVT_STEPS
     for r in ranks:
         assert r["n_regrows"] == 1 and r["caps"] == ranks[0]["caps"]
         assert r["collectives"] == {k: each for k in
@@ -263,6 +269,41 @@ def test_dryrun_four_ranks(runs):
     json.dumps(runs["dry"][0])
     # every rank reached the same verdict
     assert all(r[2] == [] for r in runs["dry"])
+
+
+def test_dryrun_batched_step_collectives(runs):
+    """One batched step of a rank's block (2 replicas shared over its
+    atoms pair) issues each of the four collectives once, on every
+    rank."""
+    for p1, _, _ in runs["dry"]:
+        assert p1["collectives"] == {
+            "by_name": shard.STEP_COLLECTIVES,
+            "by_kind": {"all_reduce(sum)": 3, "all_reduce(max)": 1}}
+
+
+@pytest.mark.parametrize("ens", ["nve", "nvt"])
+def test_dryrun_batch_under_shard_equals_in_turn(runs, ens):
+    """Each block batched under the shard against the same block in turn
+    under the same shard (ReplicaScan), the largest |dx| over every rank;
+    the ranks of an atoms pair hold the same bits."""
+    p1 = runs["dry"][0][0]
+    assert p1[f"inturn_{ens}_x_err"] <= 1e-12
+    assert p1["ranks_x_spread"] == 0.0
+
+
+def test_dryrun_nve_replicas_equal_jax(runs):
+    """The (2 x 2) mesh's NVE replicas, batched under the shard, against
+    the JAX package's vmapped make_replica_step (the step
+    test_nve_replicas_equal_jax compiles) at tests/test_parallel.py's
+    tolerances."""
+    j = runs["jout"]
+    p1 = runs["dry"][0][0]
+    assert p1["replicas"] == R.N_REPLICAS
+    for w in range(R.N_REPLICAS):
+        np.testing.assert_allclose(np.asarray(p1["nve_x"][w]), j.state.x[w],
+                                   rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(p1["potential"][w],
+                                   float(j.potential[w]), rtol=1e-10)
 
 
 def test_launch_failing_rank_raises(runs):

@@ -6,11 +6,15 @@
   1. replicas over cards: bench.py run_bench_replicas' ensemble (chip_smoke
      phase 10d's cell: 16 NVT replicas of examples/water_msevb/in.gro,
      fp32, state cap 48 with no small tier, friction 0.1 / ps, 300 K),
-     40 steps a chunk, first on one card (the one-card ReplicaScan), then
-     over --cards ranks (MeshReplicaScan, 16 / cards replicas a rank).
-     Each prints the first chunk's rate (its captures included) and a
-     second chunk's (steady), replica-steps/s: 16 x 40 / the slowest
-     rank's wall seconds;
+     40 steps a chunk, first on one card (one batch of 16), then over
+     --cards ranks as a (cards x 1) mesh (MeshReplicaScan, a batch of
+     16 / cards replicas a rank), then, for an even number of cards, as a
+     (cards / 2 x 2) mesh (a batch of 32 / cards replicas a rank pair,
+     its step shared over the pair: a batch under a shard).  Each prints
+     the first chunk's rate (its captures included) and a second chunk's
+     (steady), replica-steps/s: 16 x 40 / the slowest rank's wall
+     seconds; the (x 2) mesh also the largest |dx| between the two
+     ranks' copies of their block (0: the ranks stay together);
   2. one box over cards: the 10,000-atom lattice of examples/water_10k/
      (fp32, the CLI's seeded velocities, the PME slab cap set to
      SCAP_10K: the melting lattice outgrows the deck's 280 at step 31,
@@ -22,7 +26,8 @@
      counted), max |dx| between the two, and the collectives of a step.
 
 Exits 1, naming the failure, when a capacity flag stands after a chunk
-of either shape (the chunk then ran on truncated data) or when the 10k
+of either shape (the chunk then ran on truncated data), when the two
+ranks of a (x 2) mesh's pair part (ranks_dx not 0), or when the 10k
 positions differ by more than DX_10K_FP32.
 
 The ranks are nccl on cuda:0 .. cards - 1 (parallel/mesh.launch).  Prints
@@ -90,12 +95,12 @@ def replicas_one_card():
                 flags=list(diag.capacities()), x0=out.states[0].state.x.cpu())
 
 
-def replicas_rank(n):
-    """One rank of the replica shape over n cards."""
+def replicas_rank(n, sp=1):
+    """One rank of the replica shape over n cards, a (n / sp x sp) mesh."""
     import torch
     import torch.distributed as dist
     from reactive_pb_nn_md_tpu_torch.parallel import ensemble
-    mesh = ensemble.make_mesh(n, sp=1)
+    mesh = ensemble.make_mesh(n, sp=sp)
     with tempfile.TemporaryDirectory() as tmp:
         sim = replica_sim(tmp)
         block = ensemble.stack_replicas(sim.ms, REPLICAS, seed=7, mesh=mesh)
@@ -104,10 +109,14 @@ def replicas_rank(n):
             friction=0.1, temperature=300.0,
             hard_max_states=sim.cfg.evb_hard_max_states, mesh=mesh)
         walls, out, diag = _chunks(scan, block, dist.barrier)
+    x = torch.stack([m.state.x for m in out.states])
+    copies = [torch.empty_like(x) for _ in range(sp)]
+    dist.all_gather(copies, x, group=mesh.atoms_group)
     return dict(cards=n, walls=walls, regrows=scan.regrows,
                 captures=len(scan.step_graphs.captures),
                 flags=list(diag.capacities()),
                 x0=out.states[0].state.x.cpu(),
+                ranks_dx=max(float((c - x).abs().max()) for c in copies),
                 potential=diag.potential[:, -1])
 
 
@@ -163,20 +172,23 @@ def main():
     _build.library()
     res = {"nvidia_smi": smi}
     one = replicas_one_card()
-    multi = mesh_mod.launch(replicas_rank, a.cards, a.cards, device="cuda",
-                            timeout=900, threads=0)
     rate = [REPLICAS * REPLICA_STEPS / w for w in one["walls"]]
-    mrate = [REPLICAS * REPLICA_STEPS / max(r["walls"][i] for r in multi)
-             for i in range(2)]
-    res["replicas"] = dict(
-        replicas=REPLICAS, steps=REPLICA_STEPS,
-        one_card_rate=rate, cards=a.cards, multi_rate=mrate,
-        speedup=[m / o for m, o in zip(mrate, rate)],
-        one_card_regrows=one["regrows"],
-        multi_regrows=[r["regrows"] for r in multi],
-        captures=[one["captures"]] + [r["captures"] for r in multi],
-        flags=[one["flags"]] + [r["flags"] for r in multi],
-        replica0_dx=float((one["x0"] - multi[0]["x0"]).abs().max()))
+    res["replicas"] = dict(replicas=REPLICAS, steps=REPLICA_STEPS,
+                           one_card_rate=rate, cards=a.cards,
+                           one_card_regrows=one["regrows"],
+                           captures=[one["captures"]], flags=[one["flags"]])
+    for sp in (1, 2) if a.cards % 2 == 0 else (1,):
+        multi = mesh_mod.launch(replicas_rank, a.cards, a.cards, sp,
+                                device="cuda", timeout=900, threads=0)
+        mrate = [REPLICAS * REPLICA_STEPS / max(r["walls"][i] for r in multi)
+                 for i in range(2)]
+        res["replicas"][f"mesh_{a.cards // sp}x{sp}"] = dict(
+            rate=mrate, speedup=[m / o for m, o in zip(mrate, rate)],
+            regrows=[r["regrows"] for r in multi],
+            ranks_dx=max(r["ranks_dx"] for r in multi),
+            replica0_dx=float((one["x0"] - multi[0]["x0"]).abs().max()))
+        res["replicas"]["captures"] += [r["captures"] for r in multi]
+        res["replicas"]["flags"] += [r["flags"] for r in multi]
     print(json.dumps({"replicas": res["replicas"]}), flush=True)
     lat = mesh_mod.launch(lattice_rank, a.cards, a.cards, device="cuda",
                           timeout=900, threads=0)
@@ -205,6 +217,10 @@ def failures(res):
         flags = [f for fl in res[shape]["flags"] for f in fl]
         if flags:
             bad.append(f"{shape}: capacity flags stand {sorted(set(flags))}")
+    for mesh, r in res["replicas"].items():
+        if mesh.startswith("mesh_") and r["ranks_dx"] != 0.0:
+            bad.append(f"replicas {mesh}: the ranks' copies of a block "
+                       f"differ by {r['ranks_dx']} A")
     dx = res["lattice_10k"]["max_dx"]
     if not dx <= DX_10K_FP32:
         bad.append(f"lattice_10k: sharded and one-card positions differ by "
