@@ -65,11 +65,11 @@ Phases, in order, one line each (any failure raises, exit code != 0):
         > 1e-6, two calls bit-identical; E, plain and eigh times, and
         E's device time from a CUDA graph of back-to-back launches
         (graphed_device_ms);
-     c. 64 graphed steps against 64 eager md_steps from the equilibrated
-        flagship, NVE and NVT (one generator state), fp64 (max |dx| <=
-        1e-9 A, |dEtot| <= 1e-8 kJ/mol) and fp32 (1e-3 A, 0.05 kJ/mol;
-        two eager fp32 runs part by 0.016 kJ/mol over 100 steps): A, B1,
-        B2, C1, C2 and E launch 64 times each;
+     c. EAGER_STEPS (64) graphed steps against as many eager md_steps
+        from the equilibrated flagship, NVE and NVT (one generator state),
+        fp64 (max |dx| <= 1e-9 A, |dEtot| <= 1e-8 kJ/mol) and fp32 (1e-3
+        A, 0.05 kJ/mol; two eager fp32 runs part by 0.016 kJ/mol over 100
+        steps): A, B1, B2, C1, C2 and E launch 64 times each;
      d. the 10k box fp32, 20 steps graphed against eager, the same
         tolerances: A'', D1, D2, C1, C2, E launch 20 times each;
      e. the replays: a small tier that every step overflows
@@ -78,10 +78,11 @@ Phases, in order, one line each (any failure raises, exit code != 0):
         regrown inside a chunk ("chunk replayed"); the 30-step NPT CLI
         run of 7c against the same run eager (positions within 1e-9 A,
         the same barostat decisions);
-     f. rates, eager against graphed (tools/profile_step.py measure):
-        the flagship NVE fp64 and fp32, NVT fp64, the 10k box NVE fp32:
-        steps/s from the log's completed line, device ms, busy share and
-        device ops per step; no claim rests on them;
+     f. rates, eager against graphed (tools/profile_step.py measure,
+        RATE_STEPS graphed steps, a sixth of them eager): the flagship NVE
+        fp64 and fp32, NVT fp64, the 10k box NVE fp32: steps/s from the
+        log's completed line, device ms, busy share and device ops per
+        step; no claim rests on them;
   9. PB-NN (coupling function type 3: nn/coupling_mlp.py, nn/train.py) on
      the equilibrated flagship, bench.py run_bench_nn's configuration:
      the (OW, O_h3o, H_h3o) triple switched to a (16, 16) MLP of 5 inputs
@@ -98,8 +99,8 @@ Phases, in order, one line each (any failure raises, exit code != 0):
         C1, C2, E launch, A', A'', D1, D2 do not; then 200 fp64 steps,
         |Etot(200) - Etot(0)| <= 5 kJ/mol (phase 6's bound);
      d. an eager type-3 step under sync-debug "error" (fp64, fp32), then
-        64 graphed against 64 eager steps at GRAPH_TOL, A, B1, B2, C1, C2
-        and E launching 64 times each;
+        EAGER_STEPS graphed against as many eager steps at GRAPH_TOL, A,
+        B1, B2, C1, C2 and E launching EAGER_STEPS times each;
      e. finetune_adiabatic with force matching (weight 0.1) on 4 rattled
         copies of the flagship frame (numpy seed 0, 0.05 A), e_ref and
         f_ref from the analytic surface on the card: 3 Adam steps fp64 on
@@ -175,7 +176,7 @@ Phases, in order, one line each (any failure raises, exit code != 0):
         replays and the capture's warm-up) against 4 x 64 + 1; one
         capture;
      c. fp32 flagship NVT window-steps/s, batched and in turn, at W = 1,
-        4 and 16 (64 steps timed after a 4-step chunk holding the
+        4 and 16 (BATCH_RATE_STEPS timed after a 4-step chunk holding the
         capture), the device ms and device ops of a batched step and of
         a window's step in turn (at W = 1; tools/profile_step.py
         profiled_chunk), graph pool MiB and peak memory: printed, not
@@ -218,6 +219,31 @@ Phases, in order, one line each (any failure raises, exit code != 0):
         64 cells, A'' over the 10k lattice's cells (each range's rows
         kept), B1 spreading the flagship's atom slices, D1 the 10k
         lattice's (K = 64, SCAP_10K).
+  14. the run scripts (reactive_pb_nn_md_tpu_torch/run/):
+     a. the 100,000-atom box through run/scale_run.py's build() (33,332
+        H2O + 1 H3O+, PME 128^3, fp32, cap 32): its shapes must be 22^3
+        kernel cells, pme_scap 0 (the per-atom spread: K + order - 1 =
+        133 > 128), S = 32 and K = 128; A'', B1, B2, C1, C2 and E
+        against their plain versions at the box's shapes, fp64 and fp32,
+        at phase 3's (E: 8b's) tolerances (the at_100k keys of the
+        kernels line); then one capture chunk and 64 graphed fp32 NVE
+        steps through scale_run.run, launch counts from 0 (the path:
+        A'', B1, B2, C1, C2, E launch; A, A', D1, D2 do not): the
+        potential finite, no capacity flag in any chunk (the steps/s of
+        truncated steps would not be the box's); the flags, steps/s and
+        peak memory printed;
+     b. the committed equilibrated 10k state
+        (reactive_pb_nn_md_tpu_torch/data/eq_10k_s32.npz, made by
+        run/equilibrate.py) on its build: 64 graphed fp32 NVE steps
+        holding the capture, then 64 steady; no capacity flag, exactly
+        one capture; A'', D1, D2, C1, C2, E launch; steps/s printed;
+     c. run/equilibrate.py's protocol on the flagship at reduced counts
+        (EQ_SMOKE): it ends clean, its window starts within 30 K of 300 K
+        (the last rescale's target, unless a regrow restarted the window
+        later) and its file reads back;
+     d. run/parity_reference.py's dump of the flagship deck in fp64 on
+        the card against the CPU's: the port's diff passes; the largest
+        force difference printed.
 The line before the last is nvidia-smi's name and power limit, the one
 before it the per-kernel JSON (times, errors and bounds in fp64; fp32 in
 the fp32_ keys); the last line is the result JSON.
@@ -288,6 +314,9 @@ PEAK_GEMM_FLOPS = {"fp64": 67e12, "fp32": 67e12}
 FLOP_PAIR = 60
 NVE_STEPS = 512                 # phase 6, past the reference's fp32 pump
 NVT_STEPS = 256                 # phase 7a
+# phases 8c and 9d: graphed against eager steps; phase 8f: graphed steps
+# a rate cell (printed only; 128 before phase 14)
+EAGER_STEPS, RATE_STEPS = 64, 64
 NVT_DECK = "ensemble           NVT\nfriction_coeff     1.0\n"
 # kernels of each main path (E: the EVB ground state of every reactive one)
 FLAGSHIP_KERNELS = ("A", "B1", "B2", "C1", "C2", "E")
@@ -314,7 +343,7 @@ SCAP_10K = 520
 # max |singles|, fp64: the same arithmetic in the same order, but for
 # torch's sums over C1's partials), 12c's batch sizes and steps a chunk
 BATCH_W, BATCH_STEPS, BATCH_TOL = 4, 64, 1e-13
-BATCH_RATE_W, BATCH_RATE_STEPS = (1, 4, 16), 64
+BATCH_RATE_W, BATCH_RATE_STEPS = (1, 4, 16), 32
 # 12e / 12f: the 10k box's graphed steps a batch (and timed at 12f's W)
 TENK_BATCH_STEPS = 32
 # phase 13: the batch under a shard: 13a's graphed steps (its windows are
@@ -322,6 +351,20 @@ TENK_BATCH_STEPS = 32
 # 13b's ranges a batched launch (their sums against the batched whole
 # launch within RANGE_TOL of its largest value)
 SHARD_BATCH_STEPS, SHARD_BATCH_RANGES = 32, 4
+# phase 14: the 100k box (run/scale_run.py's defaults: 33,332 H2O + 1
+# H3O+, PME 128^3, fp32, cap 32), the kernels of its path, the samples
+# its plain versions are timed over, its graphed NVE steps (a capture
+# chunk, then timed); the committed 10k state and 14b's steps a chunk;
+# 14c's reduced equilibration (run/equilibrate.py's counts: 4 x 8 quench
+# chunks, STEPS rescaled, 10 window chunks of 40)
+SCALE_ATOMS = 100_000
+SCALE_KERNELS = ("A''", "B1", "B2", "C1", "C2", "E")
+SCALE_PLAIN_REPS = 3
+SCALE_CHUNK, SCALE_STEPS = 64, 64
+EQ_10K = ROOT / "reactive_pb_nn_md_tpu_torch" / "data" / "eq_10k_s32.npz"
+TENK_STEADY_STEPS = 64
+EQ_SMOKE = dict(equil_steps=80, quench_divs=(40, 5), quench_chunks=1,
+                validate_chunks=2)
 
 # Tolerances (|got - ref| <= atol + rtol |ref|, atol relative to max|ref|):
 #  fp64: 1e-10 relative for every kernel.
@@ -489,14 +532,17 @@ def pairs_within(x, box, mol, rc):
 
 
 def record(out, name, err, ok, fn, plain, n_bytes, flops, tag, lib=None,
-           gemm=False):
+           gemm=False, plain_reps=25, graphed=False):
     """One kernel's entry: error, kernel / plain / library ms, the
-    kernel's device ms, bound."""
+    kernel's device ms (the profiler's, or with `graphed` a CUDA graph's
+    of back-to-back launches, graphed_device_ms), bound (the plain
+    version timed over plain_reps samples)."""
     b_ms, b_by = bound(n_bytes, flops, tag, gemm)
     out[name] = dict(max_abs_err=err[0], max_rel_err=err[1], ok=ok,
-                     ms=cuda_ms(fn), device_ms=device_ms(fn),
+                     ms=cuda_ms(fn), device_ms=graphed_device_ms(
+                         fn, n=8, reps=5) if graphed else device_ms(fn),
                      plain_ms=plain if isinstance(
-                         plain, float) else cuda_ms(plain),
+                         plain, float) else cuda_ms(plain, plain_reps),
                      bound_ms=b_ms, bound_by=b_by,
                      library_ms=None if lib is None else cuda_ms(lib))
 
@@ -531,7 +577,8 @@ def lattice_10k(device, dtype):
     return system, x, box, topo, cfg
 
 
-def pair_kernels(out, tag, system, x, box, topo, names):
+def pair_kernels(out, tag, system, x, box, topo, names, plain_reps=25,
+                 graphed=False):
     """Pair kernels of the stencils in `names` ("full" A, "half" A',
     "column" A'' -> the entry's name) against the plain sweep on one
     state, at the function level: per-slot
@@ -550,7 +597,8 @@ def pair_kernels(out, tag, system, x, box, topo, names):
               has_sapt=system.has_sapt)
     ref = rsp.pair_rows_plain(cm, tabs, cells, torch.diagonal(box), **kw)
     plain = cuda_ms(lambda: rsp.pair_rows_plain(cm, tabs, cells,
-                                                torch.diagonal(box), **kw))
+                                                torch.diagonal(box), **kw),
+                    plain_reps)
     n_pairs = pairs_within(x, box, topo.atom_mol, system.real_space_cutoff)
     for impl, name in names.items():
         rsp.set_stencil_impl(impl)
@@ -573,7 +621,7 @@ def pair_kernels(out, tag, system, x, box, topo, names):
                   f"kernel {name} ({tag}) differs between two calls")
             record(out, name, (max(e1, e2), max(r1, r2)),
                    ok1 and ok2, fn, plain, nbytes(cm, tabs, box) + nbytes(cm),
-                   FLOP_PAIR * n_pairs, tag)
+                   FLOP_PAIR * n_pairs, tag, graphed=graphed)
         finally:
             rsp.set_stencil_impl("auto")
 
@@ -602,7 +650,8 @@ def perstate_inputs(x, box, topo, system, cbw, S, rng):
         F0.imag.reshape(K, Mh), cbw.reshape(K, Mh))]
 
 
-def perstate_kernels(out, tag, x, box, topo, system, cbw, S, rng, key):
+def perstate_kernels(out, tag, x, box, topo, system, cbw, S, rng, key,
+                     plain_reps=25, graphed=False):
     """C1 / C2 at S states, U = 4 S, on the real spectra of `x`."""
     import torch
     from reactive_pb_nn_md_tpu_torch.ops.kernels import recip_perstate as rp
@@ -642,11 +691,11 @@ def perstate_kernels(out, tag, x, box, topo, system, cbw, S, rng, key):
         torch.matmul(W.mH, dG)
 
     gemm = 8.0 * S * K * U * Mh
-    c1_plain = cuda_ms(lambda: rp.perstate_plain(*ins))
+    c1_plain = cuda_ms(lambda: rp.perstate_plain(*ins), plain_reps)
     record(out, "C1" + key, err[:2], err[2],
            lambda: rp.perstate_fwd_cuda(*ins), c1_plain,
            nbytes(*ins) + S * dq.element_size(), gemm, tag,
-           lib=lambda: torch.matmul(W, BC), gemm=True)
+           lib=lambda: torch.matmul(W, BC), gemm=True, graphed=graphed)
     # C2 folds every cross-block sum in a fixed order: a second call
     # must give the same bits
     same = all(torch.equal(a, b) for a, b in zip(
@@ -656,12 +705,13 @@ def perstate_kernels(out, tag, x, box, topo, system, cbw, S, rng, key):
                              max(r for _, r, _ in errs)),
            all(o for _, _, o in errs),
            lambda: rp.perstate_bwd_cuda(gbar, *ins),
-           cuda_ms(plain_fb) - c1_plain,
+           cuda_ms(plain_fb, plain_reps) - c1_plain,
            nbytes(gbar, *ins) + nbytes(*ins[:7]), 3 * gemm, tag,
-           lib=c2_library, gemm=True)
+           lib=c2_library, gemm=True, graphed=graphed)
 
 
-def spread_kernels(out, tag, x, box, topo, K, order, rng, key):
+def spread_kernels(out, tag, x, box, topo, K, order, rng, key,
+                   plain_reps=25, graphed=False):
     """B1 / B2 (the per-atom spread and gather) on the atoms of `x`."""
     import torch
     from reactive_pb_nn_md_tpu_torch.ops.kernels import pme_spread as sp
@@ -681,7 +731,7 @@ def spread_kernels(out, tag, x, box, topo, K, order, rng, key):
            lambda: sp.spread_cuda(w, nearpt, q, K),
            lambda: sp.spread_plain(w, nearpt, q, K),
            nbytes(w, nearpt, q) + K ** 3 * w.element_size(),
-           4 * n * order ** 3, tag)
+           4 * n * order ** 3, tag, plain_reps=plain_reps, graphed=graphed)
     gQ = torch.tensor(rng.standard_normal(K ** 3), dtype=x.dtype,
                       device=x.device)
     recip = pbc.recip_vectors(box).contiguous()
@@ -696,7 +746,8 @@ def spread_kernels(out, tag, x, box, topo, K, order, rng, key):
     record(out, "B2" + key, err[:2], err[2], lambda: sp.gather_cuda(*gargs),
            lambda: sp.gather_plain(*gargs),
            nbytes(*gargs[:-1]) + 4 * n * w.element_size(),
-           16 * n * order ** 3, tag)
+           16 * n * order ** 3, tag, plain_reps=plain_reps,
+           graphed=graphed)
 
 
 def phase_kernels(results):
@@ -1272,7 +1323,6 @@ def phase_ground_state(tmp, measured):
     and the 10k box's S = 32 beside them)."""
     import numpy as np
     import torch
-    from reactive_pb_nn_md_tpu_torch.ops import ground_state as gs
     flag = eq_sim(tmp / "8b", torch.float64)
     H80 = evb_hamiltonian(flag, "full")
     H48 = evb_hamiltonian(flag, "small")[:48, :48].contiguous()
@@ -1285,52 +1335,61 @@ def phase_ground_state(tmp, measured):
                          ("10k S=32", H32, "E@10k"),
                          ("near-degenerate S=80", Hdeg, None)):
         for dtype in (torch.float64, torch.float32):
-            tag = "fp64" if dtype == torch.float64 else "fp32"
-            Ht = H.to(dtype)
-            lam, c, info = gs.ground_state_cuda(Ht)
-            lam2, c2, _ = gs.ground_state_cuda(Ht)
-            check(torch.equal(lam, lam2) and torch.equal(c, c2),
-                  f"8b {name} {tag}: two calls of E differ")
-            rounds = int(info)
-            check(rounds >= 0, f"8b {name} {tag}: E failed (info -1)")
-            lp, cp = gs.ground_state_eigh(Ht)
-            w = torch.linalg.eigvalsh(Ht.double() - Ht[0, 0].double()
-                                      * torch.eye(Ht.shape[0], device="cuda",
-                                                  dtype=torch.float64))
-            ground_gap = float(w[1] - w[0])
-            dlam = abs(float(lam) - float(lp))
-            dc = min(float((c - cp).abs().max()), float((c + cp).abs().max()))
-            # fp32: H's own rounding (~1e-3 kJ/mol at |H00| ~ 1e4) is in
-            # both; the solve is fp64 in both, the outputs rounded to fp32
-            tol_l, tol_c = ((1e-10, 1e-9) if tag == "fp64" else (1e-6, 1e-5))
-            ok = dlam <= tol_l * abs(float(lp)) and (
-                ground_gap <= 1e-6 or dc <= tol_c)
-            S = Ht.shape[0]
-            isz = Ht.element_size()
-            ms = cuda_ms(lambda: gs.ground_state_cuda(Ht))
-            # not the profiler's device_ms: it kept the records of 0 or 1
-            # of 5 calls of E here
-            dev = graphed_device_ms(lambda: gs.ground_state_cuda(Ht))
-            row = dict(max_abs_err=max(dlam, dc), max_rel_err=dlam / abs(
-                float(lp)), ok=ok, ms=ms, device_ms=dev,
-                plain_ms=cuda_ms(lambda: gs.ground_state_eigh(Ht)),
-                library_ms=cuda_ms(lambda: torch.linalg.eigh(Ht)),
-                rounds=rounds)
-            # the function's work, not the method's: H in, (lambda, c)
-            # out, and the flops of a dense symmetric tridiagonalization,
-            # (4/3) S^3 in fp64 (the solve is fp64 whatever H's dtype)
-            row["bound_ms"], row["bound_by"] = bound(
-                S * S * isz + (S + 1) * isz, 4.0 / 3.0 * S ** 3, "fp64")
-            log(f"  8b {name} {tag}: E |dlambda| {dlam:.3e} (|lambda| "
-                f"{abs(float(lp)):.1f}), |dc| {dc:.3e} up to sign, ground gap"
-                f" {ground_gap:.3e}, {rounds} rounds; E {ms:.4f} ms, device "
-                f"{dev:.4f} ms, plain "
-                f"{row['plain_ms']:.4f} ms, "
-                f"eigh {row['library_ms']:.4f} ms, bound {row['bound_ms']:.2e}"
-                f" ms ({row['bound_by']})")
-            check(ok, f"8b {name} {tag}: E disagrees with eigh")
+            row = ground_state_row(f"8b {name}", H, dtype)
             if key is not None:
-                measured[tag][key] = row
+                measured["fp64" if dtype == torch.float64 else "fp32"][
+                    key] = row
+
+
+def ground_state_row(name, H, dtype):
+    """Kernel E on H in `dtype` against its plain version (eigh): checked
+    (phase 8b's bounds) and timed; its entry of `measured`."""
+    import torch
+    from reactive_pb_nn_md_tpu_torch.ops import ground_state as gs
+    tag = "fp64" if dtype == torch.float64 else "fp32"
+    Ht = H.to(dtype)
+    lam, c, info = gs.ground_state_cuda(Ht)
+    lam2, c2, _ = gs.ground_state_cuda(Ht)
+    check(torch.equal(lam, lam2) and torch.equal(c, c2),
+          f"{name} {tag}: two calls of E differ")
+    rounds = int(info)
+    check(rounds >= 0, f"{name} {tag}: E failed (info -1)")
+    lp, cp = gs.ground_state_eigh(Ht)
+    w = torch.linalg.eigvalsh(Ht.double() - Ht[0, 0].double()
+                              * torch.eye(Ht.shape[0], device="cuda",
+                                          dtype=torch.float64))
+    ground_gap = float(w[1] - w[0])
+    dlam = abs(float(lam) - float(lp))
+    dc = min(float((c - cp).abs().max()), float((c + cp).abs().max()))
+    # fp32: H's own rounding (~1e-3 kJ/mol at |H00| ~ 1e4) is in both; the
+    # solve is fp64 in both, the outputs rounded to fp32
+    tol_l, tol_c = ((1e-10, 1e-9) if tag == "fp64" else (1e-6, 1e-5))
+    ok = dlam <= tol_l * abs(float(lp)) and (
+        ground_gap <= 1e-6 or dc <= tol_c)
+    S = Ht.shape[0]
+    isz = Ht.element_size()
+    ms = cuda_ms(lambda: gs.ground_state_cuda(Ht))
+    # not the profiler's device_ms: it kept the records of 0 or 1 of 5
+    # calls of E here
+    dev = graphed_device_ms(lambda: gs.ground_state_cuda(Ht))
+    row = dict(max_abs_err=max(dlam, dc), max_rel_err=dlam / abs(
+        float(lp)), ok=ok, ms=ms, device_ms=dev,
+        plain_ms=cuda_ms(lambda: gs.ground_state_eigh(Ht)),
+        library_ms=cuda_ms(lambda: torch.linalg.eigh(Ht)),
+        rounds=rounds)
+    # the function's work, not the method's: H in, (lambda, c) out, and
+    # the flops of a dense symmetric tridiagonalization, (4/3) S^3 in
+    # fp64 (the solve is fp64 whatever H's dtype)
+    row["bound_ms"], row["bound_by"] = bound(
+        S * S * isz + (S + 1) * isz, 4.0 / 3.0 * S ** 3, "fp64")
+    log(f"  {name} {tag}: E |dlambda| {dlam:.3e} (|lambda| "
+        f"{abs(float(lp)):.1f}), |dc| {dc:.3e} up to sign, ground gap"
+        f" {ground_gap:.3e}, {rounds} rounds; E {ms:.4f} ms, device "
+        f"{dev:.4f} ms, plain {row['plain_ms']:.4f} ms, eigh "
+        f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.2e} ms "
+        f"({row['bound_by']})")
+    check(ok, f"{name} {tag}: E disagrees with eigh")
+    return row
 
 
 def graphed_vs_eager(name, sim, ensemble, n, kernels, tier=None):
@@ -1446,7 +1505,7 @@ def phase_rates(tmp):
                            ("10k", "NVE", "fp32")):
         for eager in (True, False):
             t0 = time.perf_counter()
-            r = prof.measure(deck, ens, tag, tmp, 128, eager,
+            r = prof.measure(deck, ens, tag, tmp, RATE_STEPS, eager,
                              profiled=2 if eager else prof.PROFILED)
             log(f"  8f {prof.line(r)} [{time.perf_counter() - t0:.1f} s]")
             out.append(r)
@@ -1660,7 +1719,7 @@ def phase_pbnn(tmp):
         tier = sync_free_step(sim, "NVE")
         log(f"  9d type 3 {tag}: an eager {tier}-tier step under sync-debug "
             f"'error' raised nothing")
-        graphed_vs_eager("9d flagship type 3", sim, "NVE", 64,
+        graphed_vs_eager("9d flagship type 3", sim, "NVE", EAGER_STEPS,
                          FLAGSHIP_KERNELS)
 
     phase_pbnn_finetune(nn)
@@ -2760,6 +2819,202 @@ def phase_batch(measured):
     return rates, rates_10k
 
 
+def scale_box():
+    """14a's set-up: the 100,000-atom box through run/scale_run.build
+    (fp32, state cap 32), whose shapes must be 22^3 kernel cells,
+    pme_scap 0 (the per-atom spread: K + order - 1 = 133 > 128), S = 32
+    and K = 128; the kernels its path takes are read from the launch
+    counts (phase_scripts)."""
+    from reactive_pb_nn_md_tpu_torch.md import integrators
+    from reactive_pb_nn_md_tpu_torch.run import scale_run
+    times = {}
+    t0 = time.perf_counter()
+    build = scale_run.build(device="cuda", times=times)
+    system, _, _, ms = build
+    log(f"  14a build: {system.n_atoms} atoms, {system.n_mole} molecules, "
+        f"{time.perf_counter() - t0:.1f} s (system {times['system_s']:.1f} "
+        f"s, set-up {times['setup_s']:.1f} s); rs_cells "
+        f"{system.rs_cells}, pme_scap {system.pme_scap}, neighbor cells "
+        f"{ms.nlist.cells}")
+    check(system.n_atoms == SCALE_ATOMS, f"14a: {system.n_atoms} atoms")
+    check(tuple(system.rs_cells[:3]) == (22, 22, 22),
+          f"14a: kernel cells {system.rs_cells}")
+    check(system.pme_scap == 0 and system.pme_grid == 128
+          and system.evb_max_states == 32,
+          f"14a: pme_scap {system.pme_scap}, K {system.pme_grid}, S "
+          f"{system.evb_max_states}")
+    check(not integrators.overflowed(ms), "14a: the box's set-up overflows")
+    return build
+
+
+def scale_kernels(build, measured):
+    """14a: every kernel of the 100k path (A'', B1, B2, C1, C2, E) against
+    its plain version at the box's shapes, fp64 and fp32 (phase 3's and
+    8b's tolerances; the plain versions timed over SCALE_PLAIN_REPS
+    samples, the kernels' device time from a CUDA graph of 8 launches,
+    as E's): the "@100k" entries of `measured`."""
+    import dataclasses
+    import types
+    import numpy as np
+    import torch
+    from reactive_pb_nn_md_tpu_torch.models import pme
+    system, cbw32, _, ms = build
+    rng = np.random.default_rng(2026)
+    H = evb_hamiltonian(types.SimpleNamespace(ms=ms, system=system,
+                                              cbw=cbw32), "full").double()
+    K, order = system.pme_grid, system.spline_order
+    for dtype in (torch.float64, torch.float32):
+        tag = "fp64" if dtype == torch.float64 else "fp32"
+        out = measured[tag]
+        x, box = ms.state.x.to(dtype), ms.state.box.to(dtype)
+        topo = dataclasses.replace(ms.topo, charge=ms.topo.charge.to(dtype))
+        cbw = pme.cb_half(box, K, order, system.alpha_sqrt, dtype=dtype)
+        pair_kernels(out, tag, system, x, box, topo, {"column": "A''@100k"},
+                     SCALE_PLAIN_REPS, graphed=True)
+        spread_kernels(out, tag, x, box, topo, K, order, rng, "@100k",
+                       SCALE_PLAIN_REPS, graphed=True)
+        perstate_kernels(out, tag, x, box, topo, system, cbw,
+                         system.evb_max_states, rng, "@100k",
+                         SCALE_PLAIN_REPS, graphed=True)
+        out["E@100k"] = ground_state_row("14a 100k S=32", H, dtype)
+        for name in SCALE_KERNELS:
+            r = out[name + "@100k"]
+            lib = ("" if r["library_ms"] is None
+                   else f"  library {r['library_ms']:.4f} ms")
+            log(f"  14a {tag} {name + '@100k':9s} max_abs_err "
+                f"{r['max_abs_err']:.3e} ok {r['ok']}  kernel "
+                f"{r['ms']:.4f} ms  device {fmt(r['device_ms'])} ms  plain "
+                f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}){lib}")
+            check(r["ok"], f"kernel {name} ({tag}) at the 100k shapes "
+                           f"disagrees with its plain version: max abs "
+                           f"error {r['max_abs_err']:.3e}")
+
+
+def scale_md(build):
+    """14a: one capture chunk and SCALE_STEPS graphed fp32 NVE steps of
+    the 100k box through run/scale_run.run; the potential finite and no
+    capacity flag in any chunk."""
+    import torch
+    from reactive_pb_nn_md_tpu_torch.run import scale_run
+    torch.cuda.reset_peak_memory_stats()
+    out, _ = scale_run.run(build, chunk=SCALE_CHUNK, steps=SCALE_STEPS,
+                           log=lambda m: log("  14a " + m))
+    check(math.isfinite(out["potential"])
+          and math.isfinite(out["first_potential"]),
+          f"14a: potential {out['potential']}")
+    check(not out["capacities"], f"14a: capacities did not hold: "
+                                 f"{out['capacities']}")
+    log(f"  14a {out['steps']} steps: {out['steps_per_s']:.2f} steps/s "
+        f"({out['ms_per_step']:.2f} ms/step), flags {out['flags']}, "
+        f"capacities that did not hold: none, "
+        f"captures {out['captures']}, peak "
+        f"{out['max_memory_allocated_mib']:.1f} MiB")
+    return out
+
+
+def phase_tenk_steady():
+    """14b: the committed equilibrated 10k state (run/equilibrate.py's
+    file) on its build: a chunk of TENK_STEADY_STEPS graphed fp32 NVE
+    steps holding the one capture, then as many timed steady; no
+    capacity flag, exactly one capture in the run."""
+    import torch
+    from reactive_pb_nn_md_tpu_torch.md import graphs, integrators
+    from reactive_pb_nn_md_tpu_torch.run import presets
+    system, cbw, cfg, ms = presets.equilibrated(
+        presets.build_water(3332, 64, "fp32", 32, device="cuda"), EQ_10K)
+    check(not integrators.overflowed(ms), "14b: the state's set-up "
+                                          "overflows")
+    sg = graphs.StepGraphs()
+    rates, flags = [], set()
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms, diag = integrators.md_scan(ms, system, cbw, cfg.delta_t, "NVE",
+                                       TENK_STEADY_STEPS, step_graphs=sg)
+        pot = float(diag.potential[-1])
+        rates.append(TENK_STEADY_STEPS / (time.perf_counter() - t0))
+        flags |= set(diag.capacities())
+        check(math.isfinite(pot), f"14b: potential {pot}")
+    check(not flags, f"14b: capacities did not hold: {sorted(flags)}")
+    check(len(sg.captures) == 1, f"14b: {len(sg.captures)} captures")
+    log(f"  14b {EQ_10K.name}: {system.n_atoms} atoms, capacity "
+        f"{ms.nlist.capacity}, cells {ms.nlist.cells}, rs_cells "
+        f"{system.rs_cells}, pme_scap {system.pme_scap}; first chunk "
+        f"(the capture) {rates[0]:.2f} steps/s, steady {rates[1]:.2f} "
+        f"steps/s ({1e3 / rates[1]:.2f} ms/step), 1 capture, no capacity "
+        f"flag, KE {float(diag.kinetic[-1]):.1f} kJ/mol")
+    return rates[1]
+
+
+def phase_equilibrate(tmp):
+    """14c: run/equilibrate.py's protocol on the flagship at reduced
+    counts (EQ_SMOKE): it ends clean, and its file reads back."""
+    import torch
+    from reactive_pb_nn_md_tpu_torch.convert import (load_equilibrated_npz,
+                                                     save_state_npz)
+    from reactive_pb_nn_md_tpu_torch.run import equilibrate
+    res = equilibrate.equilibrate(equilibrate.build("flagship", "cuda"),
+                                  log=lambda m: log("  14c " + m),
+                                  **EQ_SMOKE)
+    start = res["start"]
+    path = tmp / "eq_flagship.npz"
+    save_state_npz(path, start, res["system"])
+    state, _, meta = load_equilibrated_npz(path, "cuda", torch.float32)
+    check(torch.equal(state.x, start.state.x)
+          and meta["capacity"] == start.nlist.capacity,
+          "14c: the saved state does not read back")
+    T = equilibrate.temperature(start, res["system"])
+    check(abs(T - 300.0) < 30.0, f"14c: the window starts at {T} K")
+    log(f"  14c flagship {res['steps']}: clean, {res['wall_s']:.1f} s, "
+        f"{res['captures']} captures, {len(res['regrows'])} regrows, max "
+        f"n_states {res['max_states']}, window start {T:.3f} K, potential "
+        f"{float(start.potential):.1f} kJ/mol")
+
+
+def phase_parity():
+    """14d: run/parity_reference.py's dump of the flagship deck in fp64 on
+    the card (A, B1, B2, C1, C2, E) against the CPU's (plain versions);
+    the port's diff must pass."""
+    import numpy as np
+    from reactive_pb_nn_md_tpu_torch.run import parity_reference as par
+    files = [DECK / n for n in ("in.gro", "ff.pmt", "top.top", "sim.pmt")]
+    got = par.engine_dump(*files, device="cuda")
+    ref = par.engine_dump(*files, device="cpu")
+    ok, rep = par.diff_dumps(got, ref, verbose=False)
+    df = float(np.abs(np.asarray(got["force_kjmol_per_A"])
+                      - np.asarray(ref["force_kjmol_per_A"])).max())
+    de = abs(got["ground_energy_kjmol"] - ref["ground_energy_kjmol"])
+    log(f"  14d flagship dump fp64, card against CPU: {got['n_states']} "
+        f"diabats, max |dF| {df:.3e} kJ/mol/A, |dE| {de:.3e} kJ/mol; "
+        f"diff {'passes' if ok else 'fails'}")
+    check(ok, "14d: " + "; ".join(r for r in rep if r.startswith("FAIL")))
+
+
+def phase_scripts(tmp, measured):
+    """Phase 14: the run scripts (run/scale_run.py, run/equilibrate.py,
+    run/parity_reference.py) on the card; returns the 100k path's launch
+    counts and its numbers."""
+    t14 = time.perf_counter()
+    build = scale_box()
+    scale_kernels(build, measured)
+    res = {}
+    res["launches"] = main_path(
+        "14a 100k box", lambda: res.update(md=scale_md(build)),
+        SCALE_KERNELS, ("A", "A'", "D1", "D2"))
+    del build
+    import torch
+    torch.cuda.empty_cache()
+    log(f"  14a: {time.perf_counter() - t14:.1f} s")
+    main_path("14b equilibrated 10k",
+              lambda: res.update(tenk_steady=phase_tenk_steady()),
+              TENK_KERNELS, ("A", "A'", "B1", "B2"))
+    phase_equilibrate(tmp)
+    phase_parity()
+    log(f"  phase 14: {time.perf_counter() - t14:.1f} s")
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2868,7 +3123,7 @@ def main():
             for ens in ("NVE", "NVT"):
                 sim = eq_sim(tmp / f"8c_{tag}_{ens}", dtype,
                              NVT_DECK if ens == "NVT" else "")
-                graphed_vs_eager("8c flagship", sim, ens, 64,
+                graphed_vs_eager("8c flagship", sim, ens, EAGER_STEPS,
                                  FLAGSHIP_KERNELS)
         graphed_vs_eager("8d 10k", lattice_sim(tmp / "8d", torch.float32),
                          "NVE", 20, TENK_KERNELS)
@@ -2899,6 +3154,12 @@ def main():
         "range launches batched")
     shard_batch = phase_batch_shard()
 
+    log("[14 scripts] the run scripts: the 100k box (its kernels against "
+        "their plain versions, graphed steps), the committed 10k state, "
+        "equilibrate, the parity dump")
+    with tempfile.TemporaryDirectory() as tmp:
+        scripts = phase_scripts(pathlib.Path(tmp), measured)
+
     k64, k32 = measured["fp64"], measured["fp32"]
     kernels = []
     for k, (src, rep) in KERNELS.items():
@@ -2921,11 +3182,18 @@ def main():
             fp32_library_ms=m32["library_ms"],
             **{f"w16_{tag}_{f}": v
                for tag, res in measured["batch16"].items() if k in res
-               for f, v in res[k].items()}))
+               for f, v in res[k].items()},
+            **({} if k not in SCALE_KERNELS else {"at_100k": dict(
+                launches=scripts["launches"].get(k, 0),
+                **{tag: {f: measured[tag][k + "@100k"][f] for f in (
+                    "max_abs_err", "ms", "device_ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms")}
+                   for tag in ("fp64", "fp32")})})))
     extra = {f"{tag}_{k}": {f: r[f] for f in ("ms", "device_ms", "plain_ms",
                                                "bound_ms", "library_ms")}
              for tag, res in measured.items() if tag != "batch16"
-             for k, r in res.items() if k not in KERNELS}
+             for k, r in res.items()
+             if k not in KERNELS and not k.endswith("@100k")}
     log(f"  other shapes: {json.dumps(extra)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -5,7 +5,7 @@ by container and field name -- the layout ``topology.build_numpy_tree``
 produces, and the one a test gets by flattening the JAX package's
 ``System`` / ``Topology`` -- so this module never imports jax.
 ``load_equilibrated_npz`` reads the flattened ``(State, Topology)`` pytree
-files under ``benchdata/``.
+files under ``benchdata/``, and ``save_state_npz`` writes them.
 
 Every entry point places its tensors on the card unless the caller asks
 for another device; without a card, ``device="cuda"`` raises.
@@ -27,6 +27,16 @@ def resolve_device(device):
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "on the CPU")
     return device
+
+
+def cli_device(device):
+    """resolve_device for a command line's --device: without a card, exit
+    with the flag to pass."""
+    try:
+        return resolve_device(device)
+    except RuntimeError:
+        raise SystemExit("CUDA is not available; pass --device cpu to run "
+                         "on the CPU") from None
 
 
 def _tensor(v, device, dtype):
@@ -139,3 +149,35 @@ def load_equilibrated_npz(path, device="cuda", dtype=torch.float64):
         if k in meta:
             meta[k] = tuple(int(c) for c in meta[k])
     return state, topo, meta
+
+
+def save_state_npz(path, ms, system=None, seed=0):
+    """Write the MDState `ms`'s (State, Topology) as the JAX package's
+    flattened pytree: leaves l0..l12 (x, v, box; the PRNG key as the JAX
+    shape, jax.random.PRNGKey(seed)'s (0, seed) uint32 pair, which an NVE
+    state never reads; the step as int32; the Topology with ints as
+    int32), and with `system` the capacities the state was run at
+    (meta_capacity, meta_cells, meta_react_cap, meta_react_cells,
+    meta_rs_cells, meta_pme_scap).  Without `system` the file holds the
+    13 leaves only, the layout the JAX drift study's loader asserts."""
+    st, topo = ms.state, ms.topo
+
+    def host(t):
+        a = t.detach().cpu().numpy()
+        return a.astype(np.int32) if np.issubdtype(a.dtype, np.integer) \
+            else a
+
+    leaves = [host(st.x), host(st.v), host(st.box),
+              np.array([0, seed], np.uint32), np.asarray(st.step, np.int32)]
+    leaves += [host(getattr(topo, k)) for k in _TOPO_LEAVES]
+    payload = {f"l{i}": v for i, v in enumerate(leaves)}
+    if system is not None:
+        nl = ms.nlist
+        payload.update(
+            meta_capacity=np.asarray(nl.capacity, np.int64),
+            meta_cells=np.asarray(nl.cells or (), np.int64),
+            meta_react_cap=np.asarray(nl.react_cap or 0, np.int64),
+            meta_react_cells=np.asarray(nl.react_cells or (), np.int64),
+            meta_rs_cells=np.asarray(system.rs_cells or (), np.int64),
+            meta_pme_scap=np.asarray(system.pme_scap, np.int64))
+    np.savez(path, **payload)

@@ -20,9 +20,10 @@ per-step rows and the host reads once a chunk.  On the card md_scan
 replays the step captured as a CUDA graph (md/graphs.py); on the CPU it
 runs the same step eagerly.  A capacity that did not hold (neighbor rows,
 cells, on-demand rows, kernel A's cells, the PME slab cap, the EVB state
-cap) makes the step's result not valid, and the simulation loop
-(md/simulation.py) regrows the capacities by the JAX package's factors
-(grow_capacities) and replays the chunk.
+cap) makes the step's result not valid: regrown_chunk grows the
+capacities by the JAX package's factors (grow_capacities) and replays
+the chunk, for the simulation loop (md/simulation.py) and the run
+scripts.
 
 An umbrella restraint (md/bias.py), when given as `bias`, adds its force
 to the physical force before the second half kick; MDState.force,
@@ -55,8 +56,8 @@ from . import graphs, velocities
 
 
 class CapacityOverflow(RuntimeError):
-    """A capacity still overflowing after the regrow rounds of
-    md/simulation.py."""
+    """A capacity still overflowing after MAX_REGROWS regrow rounds
+    (settle, regrown_chunk)."""
 
 
 class GroundStateError(RuntimeError):
@@ -635,6 +636,113 @@ def md_scan(ms: MDState, system, cbw, dt: float, ensemble="NVE",
         out, diag = _scan(ms, *args, "full", step_graphs, eager, bias, shard)
         diag = dataclasses.replace(diag, small_overflow=first)
     return out, diag
+
+
+# ---- the regrow rule of a run (md/simulation.py, the run scripts): a
+# capacity that did not hold is grown (grow_capacities) and the state set
+# up again at the new size, or the chunk replayed from its start
+
+# regrow rounds before a capacity that still overflows is an error
+MAX_REGROWS = 16
+
+
+def capacities_of(ms):
+    """The sizes grow_capacities takes besides the System's, as `ms`'s
+    neighbor lists hold them: (capacity, cells, react_cap, react_cells)."""
+    nl = ms.nlist
+    return (nl.capacity, nl.cells, nl.react_cap or None,
+            nl.react_cells or None)
+
+
+def to_grow(names, system, hard_max_states, tolerate=()):
+    """The CAPACITIES of `names` to regrow: those not in `tolerate`, and
+    the EVB state cap only below its ceiling hard_max_states (it cannot
+    grow there).  A flag not grown is the caller's to judge."""
+    return tuple(n for n in names if n not in tolerate
+                 and (n != EVB_STATE_CAP
+                      or system.evb_max_states < hard_max_states))
+
+
+def settle(state, topo, system, cbw, caps, hard_max_states, step,
+           comp=None, tolerate=(), log=None):
+    """initial_md_state at `state` under `caps` (capacities_of's tuple),
+    the capacities to grow (to_grow) grown until they hold, each regrow's
+    lines, naming `step`, passed to `log`: (MDState, System, caps).  A
+    flag not grown stays in MDState.overflow.  Raises GroundStateError
+    where kernel E did not converge."""
+    for _ in range(MAX_REGROWS + 1):
+        capacity, cells, react_cap, react_cells = caps
+        ms = initial_md_state(state, topo, system, cbw, capacity, cells,
+                              react_cap=react_cap, react_cells=react_cells,
+                              comp=comp)
+        caps = (capacity, cells, ms.nlist.react_cap or None,
+                ms.nlist.react_cells or None)
+        if bool(ms.gs_failed):
+            raise GroundStateError(
+                f"step {step}: the EVB ground state did not converge")
+        over = to_grow(overflowed(ms), system, hard_max_states, tolerate)
+        if not over:
+            return ms, system, caps
+        system, caps, lines = grow_capacities(
+            over, system, *caps, hard_max_states, step, "step redone")
+        if log is not None:
+            log(lines)
+    raise CapacityOverflow(f"step {step}: {', '.join(over)} still "
+                           f"exceeded after {MAX_REGROWS} regrows")
+
+
+@dataclass
+class Regrown:
+    """A chunk of regrown_chunk: the MDState after it and its
+    ChunkDiagnostics, the MDState it started from (after the last regrow,
+    the state set up again at the new sizes), the System and caps it ran
+    under and its regrow rounds."""
+    ms: MDState
+    diag: ChunkDiagnostics
+    start: MDState
+    system: object
+    caps: tuple
+    regrows: int
+
+
+def regrown_chunk(ms, system, cbw, caps, hard_max_states, dt, ensemble,
+                  n_steps, friction=0.1, temperature=300.0, generator=None,
+                  step_graphs=None, eager=False, tolerate=(), log=None,
+                  step=None):
+    """n_steps of md_scan from `ms` (the step number `step`, by default
+    ms.state.step) under `caps`; each capacity to grow (to_grow) that did
+    not hold is grown (its lines passed to `log`), the chunk's start set
+    up again by settle, `generator` restored and the chunk replayed, the
+    Kahan carries kept: a Regrown.  Its diagnostics may hold the flags
+    not grown.  A chunk whose kinetic energy went non-finite is returned
+    as it is (past a blow-up the flags mean nothing).  Raises
+    GroundStateError where kernel E did not converge."""
+    step = ms.state.step if step is None else step
+    gen0 = generator.get_state() if generator is not None else None
+    for k in range(MAX_REGROWS + 1):
+        out, diag = md_scan(ms, system, cbw, dt, ensemble, n_steps,
+                            friction, temperature, generator=generator,
+                            step_graphs=step_graphs, eager=eager)
+        if bool(diag.gs_failed.any()):
+            bad = step + int(torch.nonzero(diag.gs_failed)[0, 0]) + 1
+            raise GroundStateError(
+                f"step {bad}: the EVB ground state (kernel E) did not "
+                f"converge")
+        over = to_grow(diag.capacities(), system, hard_max_states, tolerate)
+        if not over or not bool(torch.isfinite(diag.kinetic).all()):
+            return Regrown(out, diag, ms, system, caps, k)
+        bad = step + diag.first(over) + 1
+        system, caps, lines = grow_capacities(
+            over, system, *caps, hard_max_states, bad, "chunk replayed")
+        if log is not None:
+            log(lines)
+        if gen0 is not None:
+            generator.set_state(gen0)
+        ms, system, caps = settle(ms.state, ms.topo, system, cbw, caps,
+                                  hard_max_states, bad, comp=ms.comp,
+                                  tolerate=tolerate, log=log)
+    raise CapacityOverflow(f"step {step}: {', '.join(over)} still "
+                           f"exceeded after {MAX_REGROWS} regrows")
 
 
 # ---- a replica batch: the counterpart of the JAX package's

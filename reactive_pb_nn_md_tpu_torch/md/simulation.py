@@ -76,8 +76,6 @@ def load_deck(gro_file, ff_file, top_file, sim_file, device,
     return cfg, frame, system, topo
 
 
-# regrow rounds before a capacity that still overflows is an error
-_MAX_REGROWS = 16
 # the JAX driver's default checkpoint; its text sibling drops ".npz"
 CHECKPOINT_FILE = "velocity_checkpoint.npz"
 # the .npz keys of the topology (the JAX driver's) and of the generator
@@ -236,31 +234,22 @@ class Simulation:
 
     def _settle(self, state, topo, step, cbw=None, comp=None):
         """MDState at `state` (under `cbw`, default self.cbw) with the
-        current capacities, regrown until they hold (regrow lines name
-        `step`).  An EVB state-cap overflow at the ceiling is left in the
-        state: the next step reports it and ends the run, as the JAX
-        driver's first chunk does."""
-        cbw = self.cbw if cbw is None else cbw
-        for _ in range(_MAX_REGROWS + 1):
-            ms = integrators.initial_md_state(
-                state, topo, self.system, cbw, self.capacity, self.cells,
-                react_cap=self.react_cap, react_cells=self.react_cells,
-                comp=comp)
-            self.react_cap = ms.nlist.react_cap or None
-            self.react_cells = ms.nlist.react_cells or None
-            if bool(ms.gs_failed):
-                raise integrators.GroundStateError(
-                    f"step {step}: the EVB ground state did not converge")
-            names = integrators.overflowed(ms)
-            over = tuple(n for n in names
-                         if n != integrators.EVB_STATE_CAP
-                         or not self._states_at_ceiling())
-            if not over:
-                return ms
-            self._grow(over, step, "step redone")
-        raise integrators.CapacityOverflow(
-            f"{', '.join(names)} still exceeded after {_MAX_REGROWS} "
-            f"regrows")
+        current capacities, regrown until they hold (integrators.settle;
+        regrow lines name `step`).  An EVB state-cap overflow at the
+        ceiling is left in the state: the next step reports it and ends
+        the run, as the JAX driver's first chunk does."""
+        ms, self.system, caps = integrators.settle(
+            state, topo, self.system, self.cbw if cbw is None else cbw,
+            self._caps(), self.cfg.evb_hard_max_states, step, comp=comp,
+            log=self._log)
+        self._set_caps(caps)
+        return ms
+
+    def _caps(self):
+        return self.capacity, self.cells, self.react_cap, self.react_cells
+
+    def _set_caps(self, caps):
+        self.capacity, self.cells, self.react_cap, self.react_cells = caps
 
     def _init_state(self, state, topo, step=0, comp=None):
         """self.ms at `state`, every capacity held (_settle)."""
@@ -303,18 +292,14 @@ class Simulation:
             self.react_cells = new or None
         return lines
 
-    def _states_at_ceiling(self):
-        return self.system.evb_max_states >= self.cfg.evb_hard_max_states
-
     def _grow(self, names, step, redo):
-        """Grow the capacities that did not hold by the JAX package's
-        factors (integrators.grow_capacities, which the replica scan of
-        parallel/ensemble.py shares) and log one line each for the state
+        """Grow the capacities of `names` by the JAX package's factors
+        (integrators.grow_capacities) and log one line each for the state
         cap and the others, ending with `redo`."""
         self.system, caps, lines = integrators.grow_capacities(
-            names, self.system, self.capacity, self.cells, self.react_cap,
-            self.react_cells, self.cfg.evb_hard_max_states, step, redo)
-        self.capacity, self.cells, self.react_cap, self.react_cells = caps
+            names, self.system, *self._caps(),
+            self.cfg.evb_hard_max_states, step, redo)
+        self._set_caps(caps)
         self._log(lines)
 
     def _log(self, lines):
@@ -348,49 +333,37 @@ class Simulation:
             step_graphs=self.step_graphs, eager=self.eager)
 
     def _chunk(self, step, n):
-        """n steps from self.ms at `step` through md_scan: (diag, steps
-        done, end of run).  A capacity that did not hold is regrown and
-        the chunk replayed from its start state and generator state (the
-        Kahan carries kept).  An EVB state-cap overflow at
+        """n steps from self.ms at `step`: (diag, steps done, end of run).
+        A capacity that did not hold is regrown and the chunk replayed
+        (integrators.regrown_chunk).  An EVB state-cap overflow at
         evb_hard_max_states or a force above 1e4 kJ/mol/A ends the run at
         the first step that had it: the chunk is replayed up to that step
         and its "aborting" line logged."""
         cfg = self.cfg
-        ms0, gen0 = self.ms, self.gen.get_state()
-        for _ in range(_MAX_REGROWS):
-            ms, diag = self._scan(n)
-            if bool(diag.gs_failed.any()):
-                bad = step + int(torch.nonzero(diag.gs_failed)[0, 0]) + 1
-                raise integrators.GroundStateError(
-                    f"step {bad}: the EVB ground state (kernel E) did not "
-                    f"converge")
-            over = diag.capacities()
-            if not over:
-                break
-            if integrators.EVB_STATE_CAP in over \
-                    and self._states_at_ceiling():
-                k = diag.first((integrators.EVB_STATE_CAP,))
-                line = (f"step {step + k + 1}: diabat enumeration exceeded "
-                        f"evb_hard_max_states={cfg.evb_hard_max_states} -- "
-                        f"aborting (reference behavior, "
-                        f"ms_evb.f90:3107-3123)\n")
-                return self._replay_to(ms0, gen0, k, line)
-            bad = step + diag.first(over) + 1
-            self._grow(over, bad, "chunk replayed")
-            self.gen.set_state(gen0)
-            self._init_state(ms0.state, ms0.topo, bad, comp=ms0.comp)
-            ms0 = self.ms
-        else:
-            raise integrators.CapacityOverflow(
-                f"step {step}: {', '.join(over)} still exceeded after "
-                f"{_MAX_REGROWS} regrows")
+        gen0 = self.gen.get_state()
+        r = integrators.regrown_chunk(
+            self.ms, self.system, self.cbw, self._caps(),
+            cfg.evb_hard_max_states, cfg.delta_t, cfg.ensemble, n,
+            cfg.friction_coeff, cfg.temperature, generator=self.gen,
+            step_graphs=self.step_graphs, eager=self.eager, log=self._log,
+            step=step)
+        self.system, diag = r.system, r.diag
+        self._set_caps(r.caps)
+        if integrators.EVB_STATE_CAP in diag.capacities() and \
+                self.system.evb_max_states >= cfg.evb_hard_max_states:
+            k = diag.first((integrators.EVB_STATE_CAP,))
+            line = (f"step {step + k + 1}: diabat enumeration exceeded "
+                    f"evb_hard_max_states={cfg.evb_hard_max_states} -- "
+                    f"aborting (reference behavior, "
+                    f"ms_evb.f90:3107-3123)\n")
+            return self._replay_to(r.start, gen0, k, line)
         if bool(diag.force_overflow.any()):
             k = int(torch.nonzero(diag.force_overflow)[0, 0])
             line = (f"step {step + k + 1}: force magnitude exceeded 1e4 "
                     f"kJ/mol/A -- aborting (reference behavior, "
                     f"md_integration.f90:523-526)\n")
-            return self._replay_to(ms0, gen0, k, line)
-        self.ms = ms
+            return self._replay_to(r.start, gen0, k, line)
+        self.ms = r.ms
         return diag, n, False
 
     def _replay_to(self, ms0, gen0, k, line):

@@ -32,7 +32,6 @@ numbers; the exit code is 0 when every check held.
 
 import argparse
 import json
-import math
 import os
 import pathlib
 import sys
@@ -43,12 +42,12 @@ import torch
 import torch.distributed as dist
 
 from ..io.ffpmt import read_ffpmt
-from ..io.gro import GroFrame
 from ..io.simpmt import read_sim_params
 from ..io.topfile import read_top
 from ..md import integrators, velocities
 from ..models import pme
 from ..ops import neighbors
+from ..run.presets import water_box
 from ..topology import State, build_system
 from . import ensemble, mesh as mesh_mod
 from .shard import STEP_COLLECTIVES
@@ -64,43 +63,6 @@ REPLICA_X_ATOL = 1e-12
 # NVT steps of part 1
 N_NVT = 3
 TERMS = ("elec", "vdw", "bond", "angle", "dihedral")
-
-
-def water_box(n_water, seed=0, spacing=3.1, jitter=0.05):
-    """n_water waters and one hydronium on a jittered cubic lattice, the
-    hydronium in the middle of the list (the tests' fixture box)."""
-    rng = np.random.default_rng(seed)
-    n_mol = n_water + 1
-    n_side = math.ceil(n_mol ** (1.0 / 3.0))
-    r, th = 1.012, math.radians(113.24)
-    water = np.array([[0.0, 0.0, 0.0],
-                      [r * math.sin(th / 2), r * math.cos(th / 2), 0.0],
-                      [-r * math.sin(th / 2), r * math.cos(th / 2), 0.0]])
-    h3o = np.array([[0.0, 0.0, 0.0]] + [
-        [0.94 * math.cos(2 * math.pi * k / 3),
-         0.94 * math.sin(2 * math.pi * k / 3), 0.35] for k in range(3)])
-    sites = [(i, j, k) for i in range(n_side) for j in range(n_side)
-             for k in range(n_side)][:n_mol]
-    names, atoms, first, natom, xyz = [], [], [], [], []
-    for m, site in enumerate(sites):
-        origin = (np.array(site) + 0.5) * spacing
-        origin += rng.uniform(-jitter, jitter, size=3)
-        if m == n_mol // 2:
-            geom, name, an = h3o, "h3o", ["O_h3o", "H_h3o", "H_h3o",
-                                          "H_h3o"]
-        else:
-            geom, name, an = water, "h2o", ["OW", "HW", "HW"]
-        pos = geom + rng.normal(scale=jitter, size=geom.shape) + origin
-        names.append(name)
-        atoms.extend(an)
-        first.append(sum(natom))
-        natom.append(len(pos))
-        xyz.append(pos)
-    return GroFrame(title="fixture water box", mol_names=names,
-                    mol_first_atom=np.array(first, dtype=np.int32),
-                    mol_natom=np.array(natom, dtype=np.int32),
-                    atom_names=atoms, xyz=np.concatenate(xyz),
-                    box=np.eye(3) * n_side * spacing)
 
 
 def fixture(device, seed=0):

@@ -78,9 +78,6 @@ from ..md import graphs, integrators
 from .mesh import make_mesh  # noqa: F401
 from .shard import collective_summary  # noqa: F401
 
-# regrow rounds before a capacity that still overflows is an error
-MAX_REGROWS = 16
-
 
 @dataclass
 class ReplicaBatch:
@@ -245,10 +242,10 @@ class ReplicaScan:
             raise integrators.CapacityOverflow(
                 f"a replica's diabat enumeration exceeded the state cap at "
                 f"its ceiling {self.hard_max_states}")
-        if self.n_regrows >= MAX_REGROWS:
+        if self.n_regrows >= integrators.MAX_REGROWS:
             raise integrators.CapacityOverflow(
-                f"{', '.join(names)} still exceeded after {MAX_REGROWS} "
-                f"regrows")
+                f"{', '.join(names)} still exceeded after "
+                f"{integrators.MAX_REGROWS} regrows")
         self.n_regrows += 1
         self.system, self.caps, lines = integrators.grow_capacities(
             names, self.system, *self.caps, self.hard_max_states,
@@ -290,9 +287,7 @@ class ReplicaScan:
         biases = [window_bias(ladder, first + w) for w in range(W)]
         states, gens = list(batch.states), list(batch.generators)
         if self.caps is None:
-            nl = states[0].nlist
-            self.caps = (nl.capacity, nl.cells, nl.react_cap or None,
-                         nl.react_cells or None)
+            self.caps = integrators.capacities_of(states[0])
 
         def start_flags():
             # a replica set up under a capacity that did not hold has

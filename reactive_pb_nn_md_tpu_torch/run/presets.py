@@ -1,5 +1,17 @@
-"""Presets (counterpart of reactive_pb_nn_md_tpu/run/presets.py).
+"""Presets (counterpart of reactive_pb_nn_md_tpu/run/presets.py, and of
+the water box the JAX package's run scripts build).
 
+  * the water box: water_box (waters and one hydronium on a jittered
+    cubic lattice, the tests' fixture frame), water_deck (its four input
+    files: the MS-EVB3 water force field and topology of
+    examples/water_msevb/, a sim.pmt with cutoff 4.5, Verlet 5.5, alpha
+    0.7) and build_water, the (system, cbw, cfg, ms) of such a box with
+    300 K velocities from a seeded generator.  The JAX run scripts' boxes:
+    the flagship build_water(215, 32, "fp32", 80), the 10k box
+    build_water(3332, 64, "fp32", 32) (the deck of examples/water_10k/),
+    the 100k box build_water(33332, 128, "fp32", 32); equilibrated() puts
+    a saved state (convert.load_equilibrated_npz) with its capacities on
+    such a build;
   * the acid box geometry: so3h_geometry, so3_geometry, water_geometry,
     _TEMPLATES and make_acid_frame, a jittered-lattice box of 1 CH3SO3H,
     n_so3 CH3SO3- and n_water H2O as a GroFrame (io/gro.py).  Numpy and
@@ -13,10 +25,192 @@
 
 import dataclasses
 import math
+import pathlib
+import tempfile
+import time
 
 import numpy as np
+import torch
 
-from ..io.gro import GroFrame
+from ..convert import load_equilibrated_npz, resolve_device
+from ..io.ffpmt import read_ffpmt
+from ..io.gro import GroFrame, format_gro_frame
+from ..io.simpmt import read_sim_params
+from ..io.topfile import read_top
+from ..md import integrators, velocities
+from ..models import pme
+from ..ops import neighbors
+from ..topology import State, build_system
+from ..utils.dtypes import float_dtype
+
+# the MS-EVB3 water force field and topology (the tests' fixture files)
+WATER_DECK = pathlib.Path(__file__).resolve().parents[2] / "examples" / \
+    "water_msevb"
+SIM_PMT = """Simulation Methodology
+ensemble           NVE
+lj_comb_rule       opls
+ms_evb_simulation  {msevb}
+Simulation Parameters
+n_step             10
+n_output           100
+n_exclusions       2
+temperature        300.0
+pressure           1.0
+barofreq           3
+delta_t            0.0005
+real_space_cutoff  4.5
+verlet_cutoff      5.5
+alpha_sqrt         0.7
+pme_grid           {pme_grid}
+spline_order       6
+n_threads          1
+precision          {precision}
+{extra}"""
+TEMPERATURE = 300.0         # K, build_water's velocities
+
+
+def water_box(n_water, seed=0, spacing=3.1, jitter=0.05, include_h3o=True):
+    """n_water waters and (include_h3o) one hydronium on a jittered cubic
+    lattice of `spacing` A, the hydronium in the middle of the list: the
+    tests' fixture frame (tests/fixtures.py make_water_box), numpy-seeded,
+    equal to it bit for bit."""
+    rng = np.random.default_rng(seed)
+    n_mol = n_water + (1 if include_h3o else 0)
+    n_side = math.ceil(n_mol ** (1.0 / 3.0))
+    r, th = 1.012, math.radians(113.24)
+    water = np.array([[0.0, 0.0, 0.0],
+                      [r * math.sin(th / 2), r * math.cos(th / 2), 0.0],
+                      [-r * math.sin(th / 2), r * math.cos(th / 2), 0.0]])
+    h3o = np.array([[0.0, 0.0, 0.0]] + [
+        [0.94 * math.cos(2 * math.pi * k / 3),
+         0.94 * math.sin(2 * math.pi * k / 3), 0.35] for k in range(3)])
+    h3o_index = n_mol // 2 if include_h3o else -1
+    sites = [(i, j, k) for i in range(n_side) for j in range(n_side)
+             for k in range(n_side)][:n_mol]
+    names, atoms, first, natom, xyz = [], [], [], [], []
+    for m, site in enumerate(sites):
+        origin = (np.array(site) + 0.5) * spacing
+        origin += rng.uniform(-jitter, jitter, size=3)
+        if m == h3o_index:
+            geom, name, an = h3o, "h3o", ["O_h3o", "H_h3o", "H_h3o",
+                                          "H_h3o"]
+        else:
+            geom, name, an = water, "h2o", ["OW", "HW", "HW"]
+        if jitter:
+            geom = geom + rng.normal(scale=jitter, size=geom.shape)
+        names.append(name)
+        atoms.extend(an)
+        first.append(sum(natom))
+        natom.append(len(geom))
+        xyz.append(geom + origin)
+    return GroFrame(title="fixture water box", mol_names=names,
+                    mol_first_atom=np.array(first, dtype=np.int32),
+                    mol_natom=np.array(natom, dtype=np.int32),
+                    atom_names=atoms, xyz=np.concatenate(xyz),
+                    box=np.eye(3) * n_side * spacing)
+
+
+def _write_params(directory, pme_grid, precision, evb_max_states=None,
+                  compensated=False, msevb=True):
+    """(ff.pmt, top.top, sim.pmt) of the water deck written to
+    `directory`."""
+    d = pathlib.Path(directory)
+    d.mkdir(parents=True, exist_ok=True)
+    for name in ("ff.pmt", "top.top"):
+        (d / name).write_text((WATER_DECK / name).read_text())
+    extra = ""
+    if evb_max_states:
+        extra += f"evb_max_states   {evb_max_states}\n"
+    if compensated:
+        extra += "compensated_sum   yes\n"
+    (d / "sim.pmt").write_text(SIM_PMT.format(
+        msevb="yes" if msevb else "no", pme_grid=pme_grid,
+        precision=precision, extra=extra))
+    return tuple(str(d / n) for n in ("ff.pmt", "top.top", "sim.pmt"))
+
+
+def water_deck(directory, n_water, pme_grid, precision, evb_max_states=None,
+               compensated=False, msevb=True, seed=0, spacing=3.1):
+    """Write the four input files of the 8-file contract for a water box
+    to `directory`: in.gro (water_box, with one hydronium when `msevb`),
+    ff.pmt and top.top (the MS-EVB3 water deck), sim.pmt (NVE, cutoff 4.5,
+    Verlet 5.5, alpha 0.7, PME `pme_grid`, order 6, `precision`, the
+    state cap and Kahan sums when given).  Returns the (gro, ff, top,
+    sim) paths.  The .gro keeps 0.001 nm: build_water builds from the
+    frame itself."""
+    ff, top, sim = _write_params(directory, pme_grid, precision,
+                                 evb_max_states, compensated, msevb)
+    f = water_box(n_water, seed=seed, spacing=spacing, include_h3o=msevb)
+    gro = pathlib.Path(directory) / "in.gro"
+    gro.write_text(format_gro_frame(f.title, f.mol_names, f.mol_natom,
+                                    f.atom_names, f.xyz, f.box))
+    return str(gro), ff, top, sim
+
+
+def build_water(n_water=26, pme_grid=16, precision="fp32",
+                evb_max_states=None, compensated=False, msevb=True, seed=0,
+                spacing=3.1, device="cuda", times=None):
+    """(system, cbw, cfg, ms) of water_deck's box on `device` (the card
+    unless asked otherwise): the system built from the frame itself, 300 K
+    velocities (COM momentum removed, rescaled to exactly 300 K) from a
+    CPU generator seeded with `seed`, the neighbor capacity suggested for
+    the box and the state set up (integrators.initial_md_state).  The
+    JAX package's __graft_entry__._build but for the velocities' draws.
+    `times`, a dict when given, gets the host seconds of the system's
+    build ("system_s") and of the state's set-up ("setup_s")."""
+    device = resolve_device(device)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ff, top, sim = _write_params(tmp, pme_grid, precision,
+                                     evb_max_states, compensated, msevb)
+        cfg = read_sim_params(sim)
+        frame = water_box(n_water, seed=seed, spacing=spacing,
+                          include_h3o=msevb)
+        system, topo = build_system(frame, read_ffpmt(ff), read_top(top),
+                                    cfg, device=device)
+    f = float_dtype(cfg.precision)
+    gen = torch.Generator().manual_seed(seed)
+    v = velocities.sample_velocities(gen, system.mass, TEMPERATURE,
+                                     velocities.freeze_mask(system, topo))
+    box = torch.as_tensor(frame.box, dtype=f, device=device)
+    state = State(x=torch.as_tensor(frame.xyz, dtype=f, device=device), v=v,
+                  box=box)
+    cbw = pme.cb_half(box, system.pme_grid, system.spline_order,
+                      system.alpha_sqrt, dtype=f)
+    cap = neighbors.suggest_capacity(
+        system.n_atoms, float(np.prod(np.diag(frame.box))),
+        system.verlet_cutoff)
+    t1 = time.perf_counter()
+    ms = integrators.initial_md_state(state, topo, system, cbw, cap)
+    if times is not None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        times.update(system_s=t1 - t0, setup_s=time.perf_counter() - t1)
+    return system, cbw, cfg, ms
+
+
+def equilibrated(build, path):
+    """`build` = (system, cbw, cfg, ms) at the saved state of `path`
+    (convert.load_equilibrated_npz's layout, cast to the build's dtype):
+    the capacities and grids saved beside it replace the build's, and
+    the state is set up again (the JAX package's bench.load_equilibrated).
+    Returns the new (system, cbw, cfg, ms)."""
+    system, cbw, cfg, ms = build
+    state, topo, meta = load_equilibrated_npz(path, ms.state.x.device,
+                                              ms.state.x.dtype)
+    nl = ms.nlist
+    capacity, cells = nl.capacity, nl.cells or None
+    react_cap, react_cells = nl.react_cap or None, None
+    if "capacity" in meta:
+        capacity, cells = meta["capacity"], meta["cells"] or None
+        react_cap = meta["react_cap"] or None
+        react_cells = meta["react_cells"] or None
+        system = system.replace(rs_cells=meta["rs_cells"],
+                                pme_scap=meta["pme_scap"])
+    ms = integrators.initial_md_state(state, topo, system, cbw, capacity,
+                                      cells=cells, react_cap=react_cap,
+                                      react_cells=react_cells)
+    return system, cbw, cfg, ms
 
 
 def so3h_geometry():

@@ -225,9 +225,11 @@ def generate_exclusions(n_atom, bonds, n_exclusions, explicit=()):
 def suggest_rs_cells(n_atoms, box, cutoff, safety=1.5, min_atoms=192):
     """Static cell grid (nc1, nc2, nc3, ccap) for kernel A, or () when the
     grid degenerates (tiny or non-orthorhombic boxes, < 3 cells an axis).
-    Sized by the real-space cutoff; ccap is a multiple of 8.  The cap on
-    n_cells * ccap is the reference's, kept so both packages pick the
-    same path for the same deck."""
+    Sized by the real-space cutoff; ccap is a multiple of 8.  The JAX
+    package also returns () past n_cells * ccap = 80,000, its kernel's
+    scoped-VMEM ceiling on the TPU; the port's kernels take their shared
+    memory by ccap alone (ops/kernels/realspace_pair.check_half_smem), so
+    a larger box (the 100,000-atom box's 22^3 cells) keeps kernel A''."""
     if n_atoms < min_atoms:
         return ()
     b = np.asarray(box, dtype=np.float64)
@@ -239,8 +241,6 @@ def suggest_rs_cells(n_atoms, box, cutoff, safety=1.5, min_atoms=192):
     per_cell = n_atoms / (nc[0] * nc[1] * nc[2])
     cap = max(per_cell * safety, per_cell + 4.0 * np.sqrt(per_cell))
     ccap = max(int(-(-int(np.ceil(cap)) // 8) * 8), 8)
-    if nc[0] * nc[1] * nc[2] * ccap > 80_000:
-        return ()
     return (nc[0], nc[1], nc[2], ccap)
 
 

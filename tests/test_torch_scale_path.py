@@ -65,10 +65,21 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             bad += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
                     for n in names
                     if n.split(".")[0] in ("jax", "jaxlib", "flax",
-                                           "reactive_pb_nn_md_tpu")]
+                                           "reactive_pb_nn_md_tpu",
+                                           # the JAX package's tests and
+                                           # run scripts' helpers
+                                           "tests", "fixtures",
+                                           "torch_bridge", "conftest",
+                                           "bench", "__graft_entry__")]
     assert len(_port_sources()) > 30
     assert {"nn", "md", "ops", "run", "parallel", "analysis"} <= {
         p.parent.name for p in _port_sources()}
+    # the run scripts' counterparts are walked
+    assert {f"run/{m}.py" for m in (
+        "presets", "equilibrate", "scale_run", "drift_study",
+        "spontaneous_hops", "parity_reference", "cell_occupancy")} <= {
+        p.relative_to(ROOT / "reactive_pb_nn_md_tpu_torch").as_posix()
+        for p in _port_sources()[:-1]}
     assert not bad, bad
 
 
