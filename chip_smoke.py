@@ -244,6 +244,30 @@ Phases, in order, one line each (any failure raises, exit code != 0):
      d. run/parity_reference.py's dump of the flagship deck in fp64 on
         the card against the CPU's: the port's diff passes; the largest
         force difference printed.
+  15. the PB-NN run scripts (run/pbnn_production.py,
+     run/pbnn_transfer.py):
+     a. pbnn_production.run_one on both surfaces (the analytic MS-EVB3
+        couplings, and the (OW, O_h3o, H_h3o) triple switched to an MLP
+        pretrained in-process, fp32, 1,500 steps), PBNN_STEPS (256) fp32
+        steps each of the flagship deck from its lattice through the
+        Simulation, launch counts from 0: A, B1, B2, C1, C2, E launch,
+        A', A'', D1, D2 do not; the run fails on a non-finite Etot at an
+        output step, a step not done, an aborting line or a kernel E
+        failure; hop events (the hop file's lines) equal the hopped rows;
+        steps/s, hops, distinct molecules, regrows and captures printed;
+     b. the transfer boxes (26 H2O + H3O+ at K = 16, 63 H2O + H3O+ at
+        K = 24, fp64 and fp32): B1, B2, C1, C2 at the box's shapes
+        (C at S = 80 over the path's U = min(S, molecules) x 4 superset
+        atoms) against their plain versions at phase 3's tolerances, E on
+        the first Hamiltonian of the box's eval path at 8b's, device ms
+        from CUDA graphs as 14a's (the at_k16 and at_k24 keys of the
+        kernels line); then the labels and the
+        MLP's energies of 2 rattled frames of each box (eval_system's
+        numbers), card against CPU, fp64, within 1e-10 relative, launch
+        counts from 0 (B1, C1, E launch; A, A', A'', D1, D2 do not);
+     c. one finetune_heldout step (split 0.75) on the 26-water box's 2
+        frames, card against CPU: the report's rmses and the MLP after
+        within 1e-8 relative (9e's bound).
 The line before the last is nvidia-smi's name and power limit, the one
 before it the per-kernel JSON (times, errors and bounds in fp64; fp32 in
 the fp32_ keys); the last line is the result JSON.
@@ -365,6 +389,16 @@ EQ_10K = ROOT / "reactive_pb_nn_md_tpu_torch" / "data" / "eq_10k_s32.npz"
 TENK_STEADY_STEPS = 64
 EQ_SMOKE = dict(equil_steps=80, quench_divs=(40, 5), quench_chunks=1,
                 validate_chunks=2)
+# phase 15: the PB-NN scripts: 15a's fp32 steps a surface (the production
+# script's 1,536 cut in depth); run/pbnn_transfer.py's boxes, name ->
+# (waters, K, seed, frame seed), their frames (15b, 15c), the kernels the
+# eval path launches, the kernels held at the boxes' shapes, the shared
+# MLP's pretraining steps and the plain versions' timing samples
+PBNN_STEPS, PBNN_FRAMES = 256, 2
+TRANSFER_BOXES = {"k16": (26, 16, 9, 3), "k24": (63, 24, 4, 5)}
+TRANSFER_KERNELS = ("B1", "C1", "E")
+TRANSFER_AT = ("B1", "B2", "C1", "C2", "E")
+TRANSFER_PRETRAIN, TRANSFER_PLAIN_REPS = 200, 5
 
 # Tolerances (|got - ref| <= atol + rtol |ref|, atol relative to max|ref|):
 #  fp64: 1e-10 relative for every kernel.
@@ -626,9 +660,10 @@ def pair_kernels(out, tag, system, x, box, topo, names, plain_reps=25,
             rsp.set_stencil_impl("auto")
 
 
-def perstate_inputs(x, box, topo, system, cbw, S, rng):
-    """Kernel C's eight arguments at S states, U = 4 S, on the real
-    spectra of `x` (perstate_kernels' inputs)."""
+def perstate_inputs(x, box, topo, system, cbw, S, rng, ua=None):
+    """Kernel C's eight arguments at S states, on the real spectra of
+    `x` (perstate_kernels' inputs): U = 4 S atoms x[:U], or the atoms
+    `ua` (the superset rows the path gives, any U)."""
     import torch
     from reactive_pb_nn_md_tpu_torch.models import pme
     dtype, dev = x.dtype, x.device
@@ -636,9 +671,10 @@ def perstate_inputs(x, box, topo, system, cbw, S, rng):
     Q0, _ = pme.charge_grid(x, topo.charge.contiguous(), box, K, order,
                             scap=system.pme_scap)
     F0 = torch.fft.rfftn(Q0)
-    Mh, U = K * (K // 2 + 1), 4 * S
+    xu = x[:4 * S] if ua is None else x[ua]
+    Mh, U = K * (K // 2 + 1), xu.shape[0]
     (Ar, Ai), (Br, Bi), (Cr, Ci) = pme.structure_axis_factors(
-        x[:U], box, K, order)
+        xu, box, K, order)
     BCr = (Br[:, :, None] * Cr[:, None, :]
            - Bi[:, :, None] * Ci[:, None, :]).reshape(U, Mh)
     BCi = (Br[:, :, None] * Ci[:, None, :]
@@ -651,15 +687,16 @@ def perstate_inputs(x, box, topo, system, cbw, S, rng):
 
 
 def perstate_kernels(out, tag, x, box, topo, system, cbw, S, rng, key,
-                     plain_reps=25, graphed=False):
-    """C1 / C2 at S states, U = 4 S, on the real spectra of `x`."""
+                     plain_reps=25, graphed=False, ua=None):
+    """C1 / C2 at S states on the real spectra of `x`: U = 4 S, or the
+    atoms `ua` (perstate_inputs)."""
     import torch
     from reactive_pb_nn_md_tpu_torch.ops.kernels import recip_perstate as rp
     fp64 = tag == "fp64"
     dtype, dev = x.dtype, x.device
     K = system.pme_grid
-    Mh, U = K * (K // 2 + 1), 4 * S
-    ins = perstate_inputs(x, box, topo, system, cbw, S, rng)
+    ins = perstate_inputs(x, box, topo, system, cbw, S, rng, ua)
+    Mh, U = K * (K // 2 + 1), ins[1].shape[1]
     dq, BCr, BCi = ins[0], ins[3], ins[4]
     gbar = torch.tensor(rng.standard_normal(S), dtype=dtype, device=dev)
     e_k = rp.perstate_fwd_cuda(*ins)
@@ -3015,6 +3052,203 @@ def phase_scripts(tmp, measured):
     return res
 
 
+
+def phase_pbnn_production(tmp):
+    """15a: run/pbnn_production.run_one on both surfaces, PBNN_STEPS fp32
+    steps each through the Simulation: no failure (every output Etot
+    finite, every step done, no aborting line, kernel E converged), hop
+    events equal to the hopped rows."""
+    from reactive_pb_nn_md_tpu_torch.run import pbnn_production as pp
+    res = {}
+    for tag, nn_attach in (("analytic", False), ("pbnn", True)):
+        t0 = time.perf_counter()
+        r = pp.run_one(tag, PBNN_STEPS, nn_attach, tmp, device="cuda",
+                       log=lambda m: log("  15a " + m))
+        log(f"  15a {tag}: {r['steps_done']} fp32 steps, "
+            f"{r['steps_per_s']:.2f} steps/s (chunks of {r['chunk']}, "
+            f"captures included), hop events {r['hop_events']}, hopped "
+            f"rows {r['hopped_rows']}, distinct molecules "
+            f"{r['distinct_mols']}, JAX-style line count "
+            f"{r['jax_style_line_count']}, Etot {r['etot_first']} -> "
+            f"{r['etot_last']}, {len(r['regrows'])} regrows, "
+            f"{r['captures']} captures, pretrain rmse "
+            f"{r['pretrain_rmse']}; {time.perf_counter() - t0:.1f} s")
+        for ln in r["regrows"]:
+            log("    " + ln)
+        check(not r["failed"], f"15a {tag}: {r['failed']}")
+        res[tag] = r
+    return res
+
+
+def transfer_box(name, device):
+    """A pbnn_transfer box (TRANSFER_BOXES) on `device`, fp64: (system,
+    topo, box, frames, cbw) of its PBNN_FRAMES rattled frames."""
+    from reactive_pb_nn_md_tpu_torch.run import pbnn_transfer as pt
+    n_water, K, seed, frame_seed = TRANSFER_BOXES[name]
+    system, topo, x0, box = pt.build_water(n_water, K, seed, device)
+    *frames, cbw = pt.make_frames(system, topo, x0, box, PBNN_FRAMES, 0.05,
+                                  frame_seed)
+    return system, topo, box, frames, cbw
+
+
+def path_hamiltonians(fn):
+    """fn() run with nn/train.py's ground state watched: the Hamiltonians
+    it was given."""
+    from reactive_pb_nn_md_tpu_torch.nn import train
+    real, seen = train.ground_state, []
+
+    def watch(H):
+        seen.append(H.detach().clone())
+        return real(H)
+
+    train.ground_state = watch
+    try:
+        fn()
+    finally:
+        train.ground_state = real
+    return seen
+
+
+def transfer_kernels(measured, nn):
+    """15b: B1, B2, C1, C2 at each transfer box's shapes (its first
+    rattled frame; C at the box's state cap and the superset atoms its
+    path gives, U = min(S, molecules) x 4) and E on the first
+    Hamiltonian of its eval path, fp64 and fp32, against their plain
+    versions at phase 3's (E: 8b's) tolerances, device ms from a CUDA
+    graph of back-to-back launches as 14a's (the profiler's records of
+    such short calls come back incomplete in the full script): the
+    "@k16" / "@k24" entries of `measured`."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from reactive_pb_nn_md_tpu_torch.models import pme
+    from reactive_pb_nn_md_tpu_torch.run import pbnn_transfer as pt
+    rng = np.random.default_rng(2027)
+    for name in TRANSFER_BOXES:
+        key = "@" + name
+        system, topo, box, frames, cbw = transfer_box(name, "cuda")
+        H = path_hamiltonians(lambda: pt.frame_energies(
+            system, topo, box, cbw, frames, mlp_as(nn, "cuda",
+                                                   torch.float64)))[0]
+        S, K, order = system.evb_max_states, system.pme_grid, \
+            system.spline_order
+        UM = min(S, system.n_mole)
+        ua = topo.mol_atoms[:UM].clamp(min=0).reshape(-1)
+        log(f"  15b {name}: {system.n_atoms} atoms, K = {K}, S = {S}, U = "
+            f"{ua.numel()}, rs_cells {system.rs_cells or '() (no grid)'}, "
+            f"pme_scap {system.pme_scap}")
+        for dtype in (torch.float64, torch.float32):
+            tag = "fp64" if dtype == torch.float64 else "fp32"
+            out = measured[tag]
+            x, bx = frames[0][0].to(dtype), box.to(dtype)
+            tp = dataclasses.replace(topo, charge=topo.charge.to(dtype))
+            cb = pme.cb_half(bx, K, order, system.alpha_sqrt, dtype=dtype)
+            spread_kernels(out, tag, x, bx, tp, K, order, rng, key,
+                           TRANSFER_PLAIN_REPS, graphed=True)
+            perstate_kernels(out, tag, x, bx, tp, system, cb, S, rng, key,
+                             TRANSFER_PLAIN_REPS, graphed=True, ua=ua)
+            out["E" + key] = ground_state_row(f"15b {name} S={S}", H, dtype)
+            for k in ("B1", "B2", "C1", "C2"):
+                r = out[k + key]
+                lib = ("" if r["library_ms"] is None
+                       else f"  library {r['library_ms']:.4f} ms")
+                log(f"  15b {tag} {k + key:7s} max_abs_err "
+                    f"{r['max_abs_err']:.3e} ok {r['ok']}  kernel "
+                    f"{r['ms']:.4f} ms  device {fmt(r['device_ms'])} ms  "
+                    f"plain {r['plain_ms']:.4f} ms  bound "
+                    f"{r['bound_ms']:.2e} ms ({r['bound_by']}){lib}")
+                check(r["ok"], f"kernel {k} ({tag}) at the {name} transfer "
+                               f"box disagrees with its plain version: max "
+                               f"abs error {r['max_abs_err']:.3e}")
+
+
+def transfer_eval(nn):
+    """15b: pbnn_transfer.frame_energies (the labels and the MLP's
+    energies) on PBNN_FRAMES frames of each box, card against CPU, fp64:
+    within 1e-10 relative."""
+    import torch
+    from reactive_pb_nn_md_tpu_torch.run import pbnn_transfer as pt
+    for name in TRANSFER_BOXES:
+        res = {}
+        for dev in ("cuda", "cpu"):
+            system, topo, box, frames, cbw = transfer_box(name, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e = pt.frame_energies(system, topo, box, cbw, frames,
+                                  mlp_as(nn, dev, torch.float64))
+            torch.cuda.synchronize()
+            res[dev] = (torch.cat(e).cpu(), time.perf_counter() - t0)
+        (g, tg), (c, tc) = res["cuda"], res["cpu"]
+        rel = float(((g - c).abs() / c.abs()).max())
+        log(f"  15b {name} eval, {PBNN_FRAMES} frames, labels and MLP "
+            f"energies: card vs CPU {rel:.3e} relative; {tg:.2f} s card, "
+            f"{tc:.2f} s cpu")
+        check(rel <= 1e-10, f"15b {name}: card and CPU frame energies "
+                            f"differ by {rel:.3e} relative")
+
+
+def transfer_finetune(nn):
+    """15c: one finetune_heldout step (split 0.75) on the 26-water box's
+    frames, card against CPU: the report's rmses and the MLP after within
+    1e-8 relative (9e's bound)."""
+    import torch
+    from reactive_pb_nn_md_tpu_torch.nn import coupling_mlp, train
+    from reactive_pb_nn_md_tpu_torch.run import pbnn_transfer as pt
+    out = {}
+    for dev in ("cuda", "cpu"):
+        system, topo, box, frames, cbw = transfer_box("k16", dev)
+        nn0 = mlp_as(nn, dev, torch.float64)
+        e_ref, _ = pt.frame_energies(system, topo, box, cbw, frames, nn0)
+        sys_nn = coupling_mlp.attach(system, nn0, pt.TRIPLE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[dev] = train.finetune_heldout(nn0, sys_nn, topo, box, cbw,
+                                          *frames, e_ref, split=0.75,
+                                          steps=1) + (
+            time.perf_counter() - t0,)
+    (ng, rg, tg), (nc, rc, tc) = out["cuda"], out["cpu"]
+    keys = [k for k in rc if k.endswith(("before", "after"))]
+    d_rmse = max(abs(rg[k] - rc[k]) / abs(rc[k]) for k in keys)
+    d_mlp = mlp_rel(ng, nc)
+    log(f"  15c finetune_heldout, 1 step, {rc['n_train']} train / "
+        f"{rc['n_test']} test frames: train rmse "
+        f"{rc['train_rmse_before']:.6f} -> {rc['train_rmse_after']:.6f}, "
+        f"test {rc['test_rmse_before']:.6f} -> {rc['test_rmse_after']:.6f} "
+        f"kJ/mol (cpu); card vs cpu: rmses {d_rmse:.3e}, MLP after "
+        f"{d_mlp:.3e} relative; {tg:.2f} s card, {tc:.2f} s cpu")
+    check(d_rmse <= 1e-8 and d_mlp <= 1e-8, "15c: the finetuning step "
+                                            "differs between card and CPU")
+
+
+def phase_pbnn_scripts(tmp, measured):
+    """Phase 15: the PB-NN run scripts (run/pbnn_production.py,
+    run/pbnn_transfer.py); returns the launch counts of each path."""
+    import torch
+    from reactive_pb_nn_md_tpu_torch.nn import train
+    from reactive_pb_nn_md_tpu_torch.run import pbnn_transfer as pt
+    t15 = time.perf_counter()
+    res = {}
+    res["production"] = main_path(
+        "15a pbnn_production", lambda: res.update(
+            runs=phase_pbnn_production(tmp)),
+        FLAGSHIP_KERNELS, ("A'", "A''", "D1", "D2"))
+    log(f"  15a: {time.perf_counter() - t15:.1f} s")
+    # one MLP for 15b and 15c, pretrained on the CPU (the transfer boxes
+    # are fp64)
+    system = pt.build_water(26, 16, 9, "cpu")[0]
+    nn, _ = train.pretrain_geometric(
+        system.evb.cpl_params[pt.water_triple(system)],
+        torch.Generator().manual_seed(1), steps=TRANSFER_PRETRAIN,
+        dtype=torch.float64, device="cpu")
+    transfer_kernels(measured, nn)
+    res["transfer"] = main_path("15b pbnn_transfer eval",
+                                lambda: transfer_eval(nn), TRANSFER_KERNELS,
+                                ("A", "A'", "A''", "D1", "D2"))
+    transfer_finetune(nn)
+    log(f"  phase 15: {time.perf_counter() - t15:.1f} s")
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3160,6 +3394,12 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         scripts = phase_scripts(pathlib.Path(tmp), measured)
 
+    log("[15 pb-nn scripts] pbnn_production's two surfaces through the "
+        "Simulation, the kernels at the transfer boxes' shapes, their "
+        "eval and a finetuning step, card against CPU")
+    with tempfile.TemporaryDirectory() as tmp:
+        pbnn = phase_pbnn_scripts(pathlib.Path(tmp), measured)
+
     k64, k32 = measured["fp64"], measured["fp32"]
     kernels = []
     for k, (src, rep) in KERNELS.items():
@@ -3170,6 +3410,8 @@ def main():
             ladder_launches=ladder.get(k, 0),
             sharded_launches=sharded.get(k, 0),
             sharded_batch_launches=shard_batch.get(k, 0),
+            pbnn_production_launches=pbnn["production"].get(k, 0),
+            pbnn_transfer_launches=pbnn["transfer"].get(k, 0),
             max_abs_err=m64["max_abs_err"],
             ms=m64["ms"], device_ms=m64["device_ms"],
             plain_ms=m64["plain_ms"],
@@ -3188,12 +3430,19 @@ def main():
                 **{tag: {f: measured[tag][k + "@100k"][f] for f in (
                     "max_abs_err", "ms", "device_ms", "plain_ms",
                     "bound_ms", "bound_by", "library_ms")}
-                   for tag in ("fp64", "fp32")})})))
+                   for tag in ("fp64", "fp32")})}),
+            **{f"at_{box}": {
+                tag: {f: measured[tag][f"{k}@{box}"][f] for f in (
+                    "max_abs_err", "ms", "device_ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms")}
+                for tag in ("fp64", "fp32")}
+               for box in TRANSFER_BOXES if k in TRANSFER_AT}))
     extra = {f"{tag}_{k}": {f: r[f] for f in ("ms", "device_ms", "plain_ms",
                                                "bound_ms", "library_ms")}
              for tag, res in measured.items() if tag != "batch16"
              for k, r in res.items()
-             if k not in KERNELS and not k.endswith("@100k")}
+             if k not in KERNELS and not k.endswith(
+                 ("@100k",) + tuple("@" + b for b in TRANSFER_BOXES))}
     log(f"  other shapes: {json.dumps(extra)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

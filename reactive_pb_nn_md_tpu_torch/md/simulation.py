@@ -112,6 +112,8 @@ class Simulation:
                          else checkpoint_file + ".vel")
         self._log_lines = []            # written to the log when it opens
         self.log_f = None
+        # hop events of the run: the chunks' hopped rows (one a hop line)
+        self.hopped_rows = 0
 
         # restart auto-detect, the JAX driver's conditions and precedence
         self.restart = (os.path.exists(traj_file)
@@ -560,6 +562,8 @@ class Simulation:
                     if self.system.ms_evb else -1
                 diag, done, last = self._chunk(
                     step, self._next_chunk(step, end))
+                # the rows are on the host already: no read of the card
+                self.hopped_rows += int(diag.hopped.sum())
                 if self.system.ms_evb and bool(diag.hopped.any()):
                     hyds = diag.hydronium.tolist()
                     for k in torch.nonzero(diag.hopped)[:, 0].tolist():

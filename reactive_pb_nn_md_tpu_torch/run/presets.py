@@ -5,8 +5,9 @@ the water box the JAX package's run scripts build).
     cubic lattice, the tests' fixture frame), water_deck (its four input
     files: the MS-EVB3 water force field and topology of
     examples/water_msevb/, a sim.pmt with cutoff 4.5, Verlet 5.5, alpha
-    0.7) and build_water, the (system, cbw, cfg, ms) of such a box with
-    300 K velocities from a seeded generator.  The JAX run scripts' boxes:
+    0.7), water_system (its system, topology, frame and parameters) and
+    build_water, the (system, cbw, cfg, ms) of such a box with 300 K
+    velocities from a seeded generator.  The JAX run scripts' boxes:
     the flagship build_water(215, 32, "fp32", 80), the 10k box
     build_water(3332, 64, "fp32", 32) (the deck of examples/water_10k/),
     the 100k box build_water(33332, 128, "fp32", 32); equilibrated() puts
@@ -147,19 +148,14 @@ def water_deck(directory, n_water, pme_grid, precision, evb_max_states=None,
     return str(gro), ff, top, sim
 
 
-def build_water(n_water=26, pme_grid=16, precision="fp32",
-                evb_max_states=None, compensated=False, msevb=True, seed=0,
-                spacing=3.1, device="cuda", times=None):
-    """(system, cbw, cfg, ms) of water_deck's box on `device` (the card
-    unless asked otherwise): the system built from the frame itself, 300 K
-    velocities (COM momentum removed, rescaled to exactly 300 K) from a
-    CPU generator seeded with `seed`, the neighbor capacity suggested for
-    the box and the state set up (integrators.initial_md_state).  The
-    JAX package's __graft_entry__._build but for the velocities' draws.
-    `times`, a dict when given, gets the host seconds of the system's
-    build ("system_s") and of the state's set-up ("setup_s")."""
+def water_system(n_water=26, pme_grid=16, precision="fp32",
+                 evb_max_states=None, compensated=False, msevb=True, seed=0,
+                 spacing=3.1, device="cuda"):
+    """(system, topo, frame, cfg) of water_deck's box on `device` (the
+    card unless asked otherwise), the system built from the frame itself
+    (not from the .gro's 0.001 nm): the JAX package's fixture deck
+    (tests/fixtures.py write_fixture_files and make_water_box)."""
     device = resolve_device(device)
-    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         ff, top, sim = _write_params(tmp, pme_grid, precision,
                                      evb_max_states, compensated, msevb)
@@ -168,6 +164,25 @@ def build_water(n_water=26, pme_grid=16, precision="fp32",
                           include_h3o=msevb)
         system, topo = build_system(frame, read_ffpmt(ff), read_top(top),
                                     cfg, device=device)
+    return system, topo, frame, cfg
+
+
+def build_water(n_water=26, pme_grid=16, precision="fp32",
+                evb_max_states=None, compensated=False, msevb=True, seed=0,
+                spacing=3.1, device="cuda", times=None):
+    """(system, cbw, cfg, ms) of water_system's box on `device` (the card
+    unless asked otherwise): 300 K velocities (COM momentum removed,
+    rescaled to exactly 300 K) from a CPU generator seeded with `seed`,
+    the neighbor capacity suggested for the box and the state set up
+    (integrators.initial_md_state).  The JAX package's
+    __graft_entry__._build but for the velocities' draws.  `times`, a
+    dict when given, gets the host seconds of the system's build
+    ("system_s") and of the state's set-up ("setup_s")."""
+    device = resolve_device(device)
+    t0 = time.perf_counter()
+    system, topo, frame, cfg = water_system(
+        n_water, pme_grid, precision, evb_max_states, compensated, msevb,
+        seed, spacing, device)
     f = float_dtype(cfg.precision)
     gen = torch.Generator().manual_seed(seed)
     v = velocities.sample_velocities(gen, system.mass, TEMPERATURE,

@@ -77,7 +77,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     # the run scripts' counterparts are walked
     assert {f"run/{m}.py" for m in (
         "presets", "equilibrate", "scale_run", "drift_study",
-        "spontaneous_hops", "parity_reference", "cell_occupancy")} <= {
+        "spontaneous_hops", "parity_reference", "cell_occupancy",
+        "pbnn_transfer", "pbnn_production", "pbnn_training",
+        "make_acid_box")} <= {
         p.relative_to(ROOT / "reactive_pb_nn_md_tpu_torch").as_posix()
         for p in _port_sources()[:-1]}
     assert not bad, bad
