@@ -46,8 +46,11 @@ Phases, in order, one line each (any failure raises, exit code != 0):
         C1, C2 launch, A', A'', D1, D2 do not;
      b. fp64 NVT through the CLI with checkpoint_velocity 10: 20 steps
         against 10 and an auto-detected restart of 10, positions within
-        1e-9 A and Etot within 1e-8 kJ/mol, the same generator state at
-        step 10 (so the same step-11 draws);
+        1e-12 A (the JAX package's restart bound, tests/test_md.py:
+        150-151) and Etot within 1e-8 kJ/mol, whether x and v match bit
+        for bit, the same generator state at step 10 (so the same
+        step-11 draws); the step-10 forces of the restart's set-up
+        against the unbroken run's;
      c. the first three barostat trials from the equilibrated state on
         the card and on the CPU (plain path), one numpy seed: the same dE
         and decisions; then 30 NPT steps through the CLI, barofreq 3;
@@ -142,7 +145,7 @@ Phases, in order, one line each (any failure raises, exit code != 0):
         of the lattice deck (examples/water_msevb/in.gro), fp32, cap 48 with no
         tier, 40 steps: the trajectories pairwise apart (max |dx| > 1e-3
         A), replica 15 given replica 0's generator state within 1e-4 A of
-        it (the card's accumulating ops), one capture when nothing
+        it (the distance printed), one capture when nothing
         regrew.
   11. one replica's step shared over ranks (parallel/shard.py) at world
      size 1 over nccl (a store in a temporary file): 64 graphed fp64 NVE
@@ -268,6 +271,24 @@ Phases, in order, one line each (any failure raises, exit code != 0):
      c. one finetune_heldout step (split 0.75) on the 26-water box's 2
         frames, card against CPU: the report's rmses and the MLP after
         within 1e-8 relative (9e's bound).
+  16. the step is reproducible: two runs of one deck from one state,
+     each with a capture of its own, every step's x, v and Etot equal bit
+     for bit (tools/two_runs.py's configurations): the equilibrated
+     flagship, 100 graphed steps NVE fp64 and fp32 and NVT fp32 (one
+     generator seed); the committed 10k state, 64 fp32 NVE; 4 flagship
+     windows batched, 32 fp64 NVT; the flagship with phase 9's type-3
+     coupling, 64 fp32 NVE; then an eager step of
+     the flagship (fp64) and of the 10k lattice (fp32) under the
+     accumulation audit (ops/accumulation_audit.py: no floating-point
+     accumulation with two nonzero terms on one target; the exact sites
+     listed), and the torch accumulate kernels of one profiled replay of
+     each captured step, printed.
+  Phase 3 also holds kernel F (the fixed-order segment sum,
+  csrc/segment_sum.cu) at the calls of one flagship and one 10k force
+  evaluation against its plain version (SEGMENT_TOL of max |ref|; the
+  CPU's index_add adds in the same order, so the bits are printed too),
+  two calls bit-identical and a batched launch of 4 equal to 4 single
+  launches; F launches on every main path with a force.
 The line before the last is nvidia-smi's name and power limit, the one
 before it the per-kernel JSON (times, errors and bounds in fp64; fp32 in
 the fp32_ keys); the last line is the result JSON.
@@ -325,6 +346,11 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
     # no TPU kernel: the JAX package's ground state is jnp.linalg.eigh
     "E": ("reactive_pb_nn_md_tpu_torch/csrc/ground_state.cu",
           "reactive_pb_nn_md_tpu/ops/ground_state.py:157"),
+    # no TPU kernel: XLA's scatter-add, the transpose of the JAX step's
+    # gathers on positions (the pair rows' packed[j] here), which the TPU
+    # runs in its compiled order
+    "F": ("reactive_pb_nn_md_tpu_torch/csrc/segment_sum.cu",
+          "reactive_pb_nn_md_tpu/evb/hamiltonian.py:229"),
 }
 # the shapes each kernel's JSON numbers are taken at (its main path's)
 AT_10K = ("A'", "A''", "D1", "D2")
@@ -342,9 +368,16 @@ NVT_STEPS = 256                 # phase 7a
 # a rate cell (printed only; 128 before phase 14)
 EAGER_STEPS, RATE_STEPS = 64, 64
 NVT_DECK = "ensemble           NVT\nfriction_coeff     1.0\n"
-# kernels of each main path (E: the EVB ground state of every reactive one)
+# phase 7b: the restart against the unbroken run, max |dx| (A): the JAX
+# package's own bound (tests/test_md.py:150-151)
+RESTART_DX = 1e-12
+# kernels of each main path (E: the EVB ground state of every reactive
+# one), each launched once a step; F, the fixed-order segment sum, takes
+# every gradient of a gather on positions: several launches a step
 FLAGSHIP_KERNELS = ("A", "B1", "B2", "C1", "C2", "E")
 TENK_KERNELS = ("A''", "D1", "D2", "C1", "C2", "E")
+FLAGSHIP_PATH = FLAGSHIP_KERNELS + ("F",)
+TENK_PATH = TENK_KERNELS + ("F",)
 # phase 8c / 8d: graphed against eager, (max |dx| A, |dEtot| kJ/mol)
 GRAPH_TOL = {"fp64": (1e-9, 1e-8), "fp32": (1e-3, 0.05)}
 # phase 9: bench.py run_bench_nn's MLP (the triple, 5 inputs, 400 steps)
@@ -399,6 +432,9 @@ TRANSFER_BOXES = {"k16": (26, 16, 9, 3), "k24": (63, 24, 4, 5)}
 TRANSFER_KERNELS = ("B1", "C1", "E")
 TRANSFER_AT = ("B1", "B2", "C1", "C2", "E")
 TRANSFER_PRETRAIN, TRANSFER_PLAIN_REPS = 200, 5
+# kernel F against its plain version (of max |ref|; the plain version on
+# the CPU adds in the same order, so the bits agree in both types)
+SEGMENT_TOL = {"fp64": 1e-13, "fp32": 1e-6}
 
 # Tolerances (|got - ref| <= atol + rtol |ref|, atol relative to max|ref|):
 #  fp64: 1e-10 relative for every kernel.
@@ -522,6 +558,16 @@ def graphed_device_ms(fn, n=64, reps=15):
             ts.append(t0.elapsed_time(t1))
     med = [sorted(ts[1:])[reps // 2] for ts in times]
     return (med[0] - med[1]) / n
+
+
+def tool(name):
+    """tools/<name>.py as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def launch_floor_ms():
@@ -787,15 +833,141 @@ def spread_kernels(out, tag, x, box, topo, K, order, rng, key,
            graphed=graphed)
 
 
+def segment_calls(system, state, topo, cbw, kw):
+    """(src, idx, n) of every kernel F launch of one eager force
+    evaluation of `state` (the neighbor plan kw) at the tier the main
+    path's steps take (the small one where the system has it), in launch
+    order."""
+    from reactive_pb_nn_md_tpu_torch.evb import hamiltonian as ham
+    from reactive_pb_nn_md_tpu_torch.md import integrators
+    from reactive_pb_nn_md_tpu_torch.ops import neighbors
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import segment_sum as ss
+    calls = []
+    launch = ss.segment_sum_cuda
+
+    def recorded(src, idx, n, nb=None):
+        calls.append((src.clone(), idx.clone(), n))
+        return launch(src, idx, n, nb)
+
+    ss.segment_sum_cuda = recorded
+    try:
+        nl = neighbors.build_neighbors(state.x, state.box, **kw)
+        integrators.evaluate_forces(
+            state.x, state.box, topo, system, nl, cbw,
+            tier="small" if ham.small_state_tier(system) else "full")
+    finally:
+        ss.segment_sum_cuda = launch
+    return calls
+
+
+def device_ms_by_name(fn, calls=5):
+    """{kernel name: device ms of one fn() call} (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / calls / 1e3
+            for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
+def segment_kernels(out, tag, calls, key, W=BATCH_W):
+    """Kernel F at the shapes of `calls` (segment_calls'): each call
+    against the plain version on the CPU (index_add, which adds in the
+    same order) within SEGMENT_TOL of max |ref|, and bit for bit; two
+    calls bit-identical; a batched launch of W replicas (the call's src
+    scaled per replica, the index shared and rolled per replica) equal to
+    W single launches bit for bit.  Records the largest call (most
+    entries) as F{key}, its library call torch's indexing backward
+    (index_put_ with accumulate) on the same inputs, and the whole
+    evaluation's calls as F{key}_step (device ms of all of them against
+    the indexing backward's, and F's own kernel's share)."""
+    import torch
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import segment_sum as ss
+    worst, same_cpu = 0.0, True
+    for src, idx, n in calls:
+        got = ss.segment_sum_cuda(src, idx, n)
+        ref = ss.segment_sum_plain(src.cpu(), idx.cpu(), n)
+        err = close(got, ref, 0.0, scale_atol=SEGMENT_TOL[tag])
+        check(err[2], f"kernel F ({tag}{key}) disagrees with its plain "
+                      f"version: {err[0]:.3e} at M = {idx.numel()}")
+        worst = max(worst, err[1])
+        same_cpu &= torch.equal(got.cpu(), ref)
+        check(torch.equal(got, ss.segment_sum_cuda(src, idx, n)),
+              f"kernel F ({tag}{key}) differs between two calls")
+        srcs = torch.stack([src * (1.0 + 0.25 * w) for w in range(W)])
+        idxs = torch.stack([idx.roll(w) for w in range(W)])
+        for ii in (idx, idxs):
+            singles = torch.stack([ss.segment_sum_cuda(
+                srcs[w], ii if ii.ndim == 1 else ii[w], n)
+                for w in range(W)])
+            check(torch.equal(ss.segment_sum_cuda(srcs, ii, n, nb=W),
+                              singles),
+                  f"kernel F ({tag}{key}): a batched launch differs from "
+                  f"{W} single launches")
+    src, idx, n = max(calls, key=lambda c: c[1].numel())
+    ref = ss.segment_sum_plain(src.cpu(), idx.cpu(), n)
+    err = close(ss.segment_sum_cuda(src, idx, n), ref, 0.0,
+                scale_atol=SEGMENT_TOL[tag])
+
+    def library(s, i, m):
+        # torch's indexing backward as the step gave it its inputs before
+        # kernel F: a padding entry on row 0 with a zero cotangent
+        pad = (i < 0).reshape((-1,) + (1,) * (s.ndim - 1))
+        return torch.zeros((m,) + tuple(s.shape[1:]), dtype=s.dtype,
+                           device=s.device).index_put_(
+            (i.clamp(min=0),), torch.where(pad, 0.0, s), accumulate=True)
+
+    record(out, "F" + key, err[:2], err[2],
+           lambda: ss.segment_sum_cuda(src, idx, n),
+           lambda: ss.segment_sum_plain(src, idx, n),
+           nbytes(src, idx) + n * src[0].numel() * src.element_size(), 0,
+           tag, lib=lambda: library(src, idx, n))
+    out["F" + key]["shape"] = [int(idx.numel()), n,
+                               int(src[0].numel())]
+
+    def every():
+        return [ss.segment_sum_cuda(*c) for c in calls]
+
+    by_name = device_ms_by_name(every)
+    step = dict(calls=len(calls), entries=sum(c[1].numel() for c in calls),
+                device_ms=sum(by_name.values()),
+                kernel_device_ms=sum(v for k, v in by_name.items()
+                                     if "segment_sum_kernel" in k),
+                library_device_ms=device_ms(
+                    lambda: [library(*c) for c in calls]),
+                bound_ms=sum(bound(nbytes(s, i) + m * s[0].numel()
+                                   * s.element_size(), 0, tag)[0]
+                             for s, i, m in calls),
+                worst_rel_err=worst, equal_to_cpu_plain=same_cpu)
+    out["F" + key + "_step"] = step
+    log(f"  {tag} F{key}: {len(calls)} launches an evaluation, "
+        f"{step['entries']} entries; every call within "
+        f"{SEGMENT_TOL[tag]:g} of max|ref| (worst {worst:.3e}), equal to "
+        f"the CPU plain version bit for bit {same_cpu}, two calls and "
+        f"batched (W = {W}) launches bit-identical; the evaluation's "
+        f"calls {step['device_ms']:.4f} device ms (kernel F itself "
+        f"{step['kernel_device_ms']:.4f}, the rest the order's integer "
+        f"sort and search) against torch's indexing backward "
+        f"{fmt(step['library_device_ms'])} on the same inputs; bound "
+        f"{step['bound_ms']:.5f} ms (bytes)")
+
+
 def phase_kernels(results):
     """Phase 3: every kernel against its plain version, at the flagship
-    shapes (A, B, C) and at the 10,000-atom shapes (A, A', A'', B, D,
-    C)."""
+    shapes (A, B, C, F) and at the 10,000-atom shapes (A, A', A'', B, D,
+    C, F)."""
     import numpy as np
     import torch
+    from reactive_pb_nn_md_tpu_torch.md import integrators
+    from reactive_pb_nn_md_tpu_torch.ops import neighbors
     from reactive_pb_nn_md_tpu_torch.ops.kernels import (
         pme_spread as sp, pme_slab as sl)
     from reactive_pb_nn_md_tpu_torch.models import pme
+    from reactive_pb_nn_md_tpu_torch.topology import State
     dev = torch.device("cuda")
     rng = np.random.default_rng(2024)
     for dtype in (torch.float64, torch.float32):
@@ -816,6 +988,13 @@ def phase_kernels(results):
         for S in (48, 80):
             perstate_kernels(out, tag, x, box, topo, system, cbw, S, rng,
                              "" if S == 80 else f"_S{S}")
+
+        # ---- F at the calls of one force evaluation
+        meta = flagship(dev, dtype)[3]
+        segment_kernels(out, tag, segment_calls(
+            system, state, topo, cbw, integrators.neighbor_plan(
+                system, box, meta["capacity"], react_cap=meta["react_cap"])),
+            "")
 
         # ---- the 10,000-atom lattice: A, A', A'' on one state; D; C
         system, x, box, topo, _ = lattice_10k(dev, dtype)
@@ -857,6 +1036,12 @@ def phase_kernels(results):
         cbw = pme.cb_half(box, K, order, system.alpha_sqrt, dtype=dtype)
         perstate_kernels(out, tag, x, box, topo, system, cbw,
                          system.evb_max_states, rng, "@10k")
+        cap = neighbors.suggest_capacity(system.n_atoms,
+                                         float(torch.det(box)),
+                                         system.verlet_cutoff)
+        segment_kernels(out, tag, segment_calls(
+            system, State(x=x, v=torch.zeros_like(x), box=box), topo, cbw,
+            integrators.neighbor_plan(system, box, cap)), "@10k")
         torch.cuda.synchronize()
         log(f"  {tag}: empty kernel device_ms (launch floor) "
             f"{fmt(launch_floor_ms())}")
@@ -865,6 +1050,8 @@ def phase_kernels(results):
                         f"{fmt(out[k]['device_ms'])}" for k in ten)
         log(f"  {tag}: on the 10k lattice, cuda_ms / device_ms: {row}")
         for name, r in out.items():
+            if name.endswith("_step"):
+                continue
             lib = ("" if r["library_ms"] is None
                    else f"  library {r['library_ms']:.4f} ms")
             log(f"  {tag} {name:7s} max_abs_err {r['max_abs_err']:.3e} "
@@ -1123,19 +1310,27 @@ def flagship_copy(tmp, name, extra):
 def phase_restart(tmp):
     """Phase 7b: fp64 NVT through the CLI, checkpoint_velocity 10: 20
     steps against 10 and an auto-detected restart of 10.  Positions at
-    step 20 within 1e-9 A, Etot within 1e-8 kJ/mol; the restored
-    generator's state at step 10 is the unbroken run's, so step 11 draws
-    what it drew (the card's accumulating index ops are not
-    deterministic, PERF.md)."""
+    step 20 within RESTART_DX (the JAX package's restart bound,
+    tests/test_md.py:150-151), Etot within 1e-8 kJ/mol; whether they
+    match bit for bit is printed; the restored generator's state at step
+    10 is the unbroken run's, so step 11 draws what it drew."""
     import numpy as np
     import torch
     from reactive_pb_nn_md_tpu_torch.md.simulation import Simulation
     extra = NVT_DECK + "checkpoint_velocity 10\n"
     chunk = Simulation._chunk
-    starts = []                     # (Simulation, step, generator state)
+    from reactive_pb_nn_md_tpu_torch.md import graphs
+    # (Simulation, step, generator state, MDState, its forces and its
+    # neighbor list) at each chunk's start (copied: a graphed chunk's
+    # outputs are the graph's buffers, which the next chunk's replays
+    # overwrite)
+    starts = []
 
     def recorded(self, step, n):
-        starts.append((self, step, self.gen.get_state()))
+        nl = self.ms.nlist
+        starts.append((self, step, self.gen.get_state(), self.ms,
+                       self.ms.force.clone(), graphs.with_leaves(
+                           nl, iter([t.clone() for t in graphs.leaves(nl)]))))
         return chunk(self, step, n)
 
     Simulation._chunk = recorded
@@ -1148,20 +1343,47 @@ def phase_restart(tmp):
         Simulation._chunk = chunk
     check(broken.restart and broken.start_step == 10,
           "7b: the second run did not restart from step 10")
-    at10 = [g for sim, step, g in starts if step == 10 and sim in (whole,
-                                                                   broken)]
-    same = len(at10) == 2 and torch.equal(at10[0], at10[1])
+    at10 = [(g, ms, f, nl) for sim, step, g, ms, f, nl in starts
+            if step == 10 and sim in (whole, broken)]
+    same = len(at10) == 2 and torch.equal(at10[0][0], at10[1][0])
     check(same, "7b: the restored generator's state at step 10 differs")
     dx = float((broken.ms.state.x - whole.ms.state.x).abs().max())
     de = abs(float(broken.ms.kinetic + broken.ms.potential)
              - float(whole.ms.kinetic + whole.ms.potential))
+    exact = (torch.equal(broken.ms.state.x, whole.ms.state.x)
+             and torch.equal(broken.ms.state.v, whole.ms.state.v))
     chk = np.load(pathlib.Path(files[0]).parent / "velocity_checkpoint.npz")
     log(f"  7b: 20 steps vs 10 + restart 10 (fp64 NVT): max|dx| {dx:.3e} A,"
         f" |dEtot| {de:.3e} kJ/mol, step-10 generator equal {same}, "
         f"checkpoint step {int(chk['step'])}, generator on "
-        f"{broken.gen.device}")
-    check(dx <= 1e-9 and de <= 1e-8, "7b: the restart does not continue the "
-                                     "unbroken run")
+        f"{broken.gen.device}; x and v equal bit for bit {exact}")
+    # the step-10 forces: the unbroken run's from its graphed step 10, the
+    # restart's from its set-up (an eager evaluation at the full state
+    # cap, on a neighbor list built there); beside them eager
+    # evaluations of the restart's state at the tier the graphed step
+    # took, on the restart's neighbor list and on the unbroken run's
+    from reactive_pb_nn_md_tpu_torch.evb import hamiltonian as ham
+    from reactive_pb_nn_md_tpu_torch.md import integrators
+    (_, _, f_w, nl_w), (_, mb, f_b, _) = at10
+    tier = "small" if ham.small_state_tier(broken.system) else "full"
+
+    def force(nl):
+        return integrators.evaluate_forces(
+            mb.state.x, mb.state.box, mb.topo, broken.system, nl,
+            broken.cbw, tier=tier).force
+
+    def vs(f):
+        return (f"equal {torch.equal(f, f_w)}, max|dF| "
+                f"{float((f - f_w).abs().max()):.3e}")
+
+    log(f"  7b: step-10 forces against the unbroken run's graphed step: "
+        f"the restart's set-up (full tier, its own neighbor list) "
+        f"{vs(f_b)} kJ/mol/A; eager, {tier} tier, its own neighbor list "
+        f"{vs(force(mb.nlist))}; eager, {tier} tier, the unbroken run's "
+        f"neighbor list {vs(force(nl_w))}; the two lists' rows equal "
+        f"{torch.equal(mb.nlist.full_idx, nl_w.full_idx)}")
+    check(dx <= RESTART_DX and de <= 1e-8,
+          "7b: the restart does not continue the unbroken run")
 
 
 def phase_npt(tmp):
@@ -1529,11 +1751,7 @@ def phase_rates(tmp):
     """Phase 8f: tools/profile_step.py's measure, eager against graphed,
     in four cells; the eager cells profile 2 steps (the graphed ones
     profile.PROFILED), a quarter of their profiler's cost at 8."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "profile_step", ROOT / "tools" / "profile_step.py")
-    prof = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(prof)
+    prof = tool("profile_step")
     prof._instrument()
     out = []
     for deck, ens, tag in (("flagship", "NVE", "fp64"),
@@ -1706,7 +1924,6 @@ def mlp_device_ms(nn, sim):
 
 def phase_pbnn(tmp):
     """Phase 9 (see the module docstring)."""
-    import importlib.util
     import torch
     from reactive_pb_nn_md_tpu_torch.md import integrators
     from reactive_pb_nn_md_tpu_torch.nn import coupling_mlp
@@ -1743,7 +1960,7 @@ def phase_pbnn(tmp):
         return d, sim
 
     main_path("9c flagship type 3 NVE fp32",
-              lambda: nve(torch.float32, NN_STEPS), FLAGSHIP_KERNELS,
+              lambda: nve(torch.float32, NN_STEPS), FLAGSHIP_PATH,
               ("A'", "A''", "D1", "D2"))
     d64, _ = nve(torch.float64, 200)
     check(abs(d64[200]) <= 5.0,
@@ -1761,10 +1978,7 @@ def phase_pbnn(tmp):
 
     phase_pbnn_finetune(nn)
 
-    spec = importlib.util.spec_from_file_location(
-        "profile_step", ROOT / "tools" / "profile_step.py")
-    prof = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(prof)
+    prof = tool("profile_step")
     prof._instrument()
     for dtype in (torch.float32, torch.float64):
         tag = "fp64" if dtype == torch.float64 else "fp32"
@@ -1778,6 +1992,7 @@ def phase_pbnn(tmp):
     log(f"  9f the MLP and environment features, forward and backward, S "
         f"= 48, fp32: {ms:.4f} device ms (alone, a CUDA graph of 64)")
     log(f"  phase 9: {time.perf_counter() - t9:.1f} s")
+    return nn
 
 
 def window_cv(x, box, atoms):
@@ -1902,7 +2117,7 @@ def phase_ladder_pmf():
             on_chunk=lambda batch, diag: ke.append(diag.kinetic), **LADDER))
 
     res, mem = [], []
-    counts = main_path("10c ladder", run, FLAGSHIP_KERNELS,
+    counts = main_path("10c ladder", run, FLAGSHIP_PATH,
                        ("A'", "A''", "D1", "D2"))
     out, batch, extra = res[0]
     cv, scan, atoms = extra["cv"], extra["scan"], extra["atoms"]
@@ -2082,7 +2297,7 @@ def phase_sharded(tmp):
             return r, (time.perf_counter() - t0) / SHARD_STEPS * 1e3
 
         counts = main_path("11 sharded flagship scan, world size 1",
-                           sharded, FLAGSHIP_KERNELS,
+                           sharded, FLAGSHIP_PATH,
                            ("A'", "A''", "D1", "D2"))
         (g, gd), ref_ms = timed(lambda: integrators.md_scan(
             sim.ms, system, cbw, dt, "NVE", SHARD_STEPS, fr, temp,
@@ -2421,12 +2636,8 @@ def phase_batch_rates():
     1; tools/profile_step.py's profiled_chunk), the graph pool MiB and
     the peak memory.  Printed, not gated."""
     import torch
-    import importlib.util
     from reactive_pb_nn_md_tpu_torch.parallel import ensemble
-    spec = importlib.util.spec_from_file_location(
-        "profile_step", ROOT / "tools" / "profile_step.py")
-    prof = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(prof)
+    prof = tool("profile_step")
     n = BATCH_RATE_STEPS
     res = {}
     for W in BATCH_RATE_W:
@@ -2591,12 +2802,8 @@ def phase_batch_rates_10k(tmp):
     window that holds one is not a steady rate: it says so).  Printed,
     not gated; a W whose batch does not fit the card's memory says so."""
     import torch
-    import importlib.util
     from reactive_pb_nn_md_tpu_torch.parallel import ensemble
-    spec = importlib.util.spec_from_file_location(
-        "profile_step", ROOT / "tools" / "profile_step.py")
-    prof = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(prof)
+    prof = tool("profile_step")
     n = TENK_BATCH_STEPS
     system, cbw, cfg, ms = batch_lattice(tmp / "12f", torch.float32)
     res = {}
@@ -2693,7 +2900,7 @@ def phase_batch_shard_graphed(tmp):
                                     dict(_build.collectives))
 
             counts = main_path(f"13a {W} windows x {n} fp64 NVT steps "
-                               f"batched, shard {sh}", run, FLAGSHIP_KERNELS,
+                               f"batched, shard {sh}", run, FLAGSHIP_PATH,
                                ("A'", "A''", "D1", "D2"))
             if sh is not None:
                 sharded_counts = counts
@@ -3038,14 +3245,14 @@ def phase_scripts(tmp, measured):
     res = {}
     res["launches"] = main_path(
         "14a 100k box", lambda: res.update(md=scale_md(build)),
-        SCALE_KERNELS, ("A", "A'", "D1", "D2"))
+        SCALE_KERNELS + ("F",), ("A", "A'", "D1", "D2"))
     del build
     import torch
     torch.cuda.empty_cache()
     log(f"  14a: {time.perf_counter() - t14:.1f} s")
     main_path("14b equilibrated 10k",
               lambda: res.update(tenk_steady=phase_tenk_steady()),
-              TENK_KERNELS, ("A", "A'", "B1", "B2"))
+              TENK_PATH, ("A", "A'", "B1", "B2"))
     phase_equilibrate(tmp)
     phase_parity()
     log(f"  phase 14: {time.perf_counter() - t14:.1f} s")
@@ -3231,7 +3438,7 @@ def phase_pbnn_scripts(tmp, measured):
     res["production"] = main_path(
         "15a pbnn_production", lambda: res.update(
             runs=phase_pbnn_production(tmp)),
-        FLAGSHIP_KERNELS, ("A'", "A''", "D1", "D2"))
+        FLAGSHIP_PATH, ("A'", "A''", "D1", "D2"))
     log(f"  15a: {time.perf_counter() - t15:.1f} s")
     # one MLP for 15b and 15c, pretrained on the CPU (the transfer boxes
     # are fp64)
@@ -3247,6 +3454,80 @@ def phase_pbnn_scripts(tmp, measured):
     transfer_finetune(nn)
     log(f"  phase 15: {time.perf_counter() - t15:.1f} s")
     return res
+
+
+# ---- phase 16: the step is reproducible bit for bit
+
+
+def audit_step(name, sim, ens):
+    """One eager step of sim's state under the accumulation audit
+    (ops/accumulation_audit.py): no floating-point accumulation whose
+    bits can depend on the order of its terms; the exact sites (one
+    nonzero term a target) counted."""
+    import warnings
+    import torch
+    from reactive_pb_nn_md_tpu_torch.evb import hamiltonian as ham
+    from reactive_pb_nn_md_tpu_torch.md import integrators
+    from reactive_pb_nn_md_tpu_torch.ops.accumulation_audit import \
+        FloatAccumulations
+    system, cbw, dt, _, fr, temp = scan_args(sim, ens)
+    tier = "small" if ham.small_state_tier(system) else "full"
+    audit = FloatAccumulations()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with torch.autograd.detect_anomaly(check_nan=False), audit:
+            integrators.scan_step(sim.ms, system, cbw, dt, ens, fr, temp,
+                                  sim.gen, tier)
+    log(f"  16 {name}: an eager {tier}-tier step under the accumulation "
+        f"audit: order-dependent sites {dict(audit.summary())}, exact "
+        f"sites {len(audit.exact)} ({sum(audit.exact.values())} calls)")
+    for (op, where), n in sorted(audit.exact.items()):
+        log(f"    exact: {op} x{n} at {where}")
+    check(not audit.order_dependent,
+          f"16 {name}: order-dependent accumulations {audit.summary()}")
+
+
+def replay_accumulations(name, sim):
+    """The device kernels of one replay of sim's captured step whose
+    names are torch's accumulating kernels (profile_step.ACCUMULATE: the
+    indexing backward, index_add, scatter-add; over floats or integers),
+    by name and count; printed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    step = sim.ms.state.step
+    sim._chunk(step, 2)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sim._chunk(step + 2, 1)
+        torch.cuda.synchronize()
+    hits = {e.key[:140]: e.count for e in prof.key_averages()
+            if e.device_type.name == "CUDA"
+            and tool("profile_step").ACCUMULATE.search(e.key)}
+    log(f"  16 {name}: torch accumulate kernels in one replay: "
+        f"{hits or 'none'}")
+    return hits
+
+
+def phase_determinism(tmp, nn):
+    """Phase 16 (see the module docstring)."""
+    import torch
+    t16 = time.perf_counter()
+    two = tool("two_runs")
+    for name, run in two.configurations(sys.modules[__name__], tmp, nn):
+        t0 = time.perf_counter()
+        a = run()
+        first, dx, dv, de = two.compare(a, run())
+        log(f"  16 {name}: {len(a)} steps twice, max|dx| {dx:.3e} A, "
+            f"max|dv| {dv:.3e}, max|dEtot| {de:.3e} kJ/mol, first step "
+            f"apart {first}; {time.perf_counter() - t0:.1f} s")
+        check(first is None,
+              f"16 {name}: two runs from one state part at step {first}")
+    audit_step("flagship fp64", eq_sim(tmp / "16a", torch.float64), "NVE")
+    tenk = lattice_sim(tmp / "16b", torch.float32)
+    audit_step("10k fp32", tenk, "NVE")
+    replay_accumulations("flagship fp64", eq_sim(tmp / "16c",
+                                                 torch.float64))
+    replay_accumulations("10k fp32", tenk)
+    log(f"  phase 16: {time.perf_counter() - t16:.1f} s")
 
 
 def main():
@@ -3290,12 +3571,12 @@ def main():
         flag = main_path(
             "5a water_msevb",
             lambda: [run_cli(tmp, DECK, p, 30, 4) for p in ("fp64", "fp32")],
-            FLAGSHIP_KERNELS, ("A'", "A''", "D1", "D2"))
+            FLAGSHIP_PATH, ("A'", "A''", "D1", "D2"))
         big = main_path(
             "5b water_10k",
             lambda: [run_cli(tmp, DECK_10K, p, 20, 3)
                      for p in ("fp32", "fp64")],
-            TENK_KERNELS, ("A", "A'", "B1", "B2"))
+            TENK_PATH, ("A", "A'", "B1", "B2"))
 
         def half():
             rsp.set_stencil_impl("half")
@@ -3316,7 +3597,7 @@ def main():
                   "the state cap 8 was not regrown")
 
         main_path("5d water_msevb at evb_max_states 8", regrow,
-                  FLAGSHIP_KERNELS, ("A'", "A''", "D1", "D2"))
+                  FLAGSHIP_PATH, ("A'", "A''", "D1", "D2"))
 
         def ensembles_10k():
             for name, extra in (("nvt", NVT_DECK),
@@ -3325,9 +3606,9 @@ def main():
                 run_cli(tmp / f"10k_{name}", DECK_10K, "fp32", 12, 2,
                         extra=extra)
 
-        main_path("5e water_10k NVT and NPT", ensembles_10k, TENK_KERNELS,
+        main_path("5e water_10k NVT and NPT", ensembles_10k, TENK_PATH,
                   ("A", "A'", "B1", "B2"))
-    for k in FLAGSHIP_KERNELS:
+    for k in FLAGSHIP_PATH:
         launches[k] = flag[k]
     for k in ("A''", "D1", "D2"):
         launches[k] = big[k]
@@ -3341,7 +3622,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
         nvt = main_path("7a flagship NVT", lambda: phase_nvt(tmp),
-                        FLAGSHIP_KERNELS, ("A'", "A''", "D1", "D2"))
+                        FLAGSHIP_PATH, ("A'", "A''", "D1", "D2"))
         phase_restart(tmp)
         _, npt = phase_npt(tmp)
         phase_debug(tmp)
@@ -3367,7 +3648,7 @@ def main():
 
         log("[9 pb-nn] coupling type 3: pretraining, forces, graphed NVE, "
             "finetuning, card against CPU")
-        phase_pbnn(tmp)
+        nn = phase_pbnn(tmp)
 
         log("[10 umbrella] the restraint, graphed vs eager windows, the "
             "full-width ladder through run_pmf, replicas")
@@ -3399,6 +3680,12 @@ def main():
         "eval and a finetuning step, card against CPU")
     with tempfile.TemporaryDirectory() as tmp:
         pbnn = phase_pbnn_scripts(pathlib.Path(tmp), measured)
+
+    log("[16 determinism] two runs of one deck from one state, every "
+        "step's x, v and Etot bit for bit; the accumulation audit of an "
+        "eager step; torch accumulate kernels in a replay")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_determinism(pathlib.Path(tmp), nn)
 
     k64, k32 = measured["fp64"], measured["fp32"]
     kernels = []
@@ -3436,13 +3723,25 @@ def main():
                     "max_abs_err", "ms", "device_ms", "plain_ms",
                     "bound_ms", "bound_by", "library_ms")}
                 for tag in ("fp64", "fp32")}
-               for box in TRANSFER_BOXES if k in TRANSFER_AT}))
+               for box in TRANSFER_BOXES if k in TRANSFER_AT},
+            **({} if k != "F" else {
+                "shape": m64["shape"], "at_10k": {
+                    tag: {f: measured[tag]["F@10k"][f] for f in (
+                        "max_abs_err", "ms", "device_ms", "plain_ms",
+                        "bound_ms", "bound_by", "library_ms", "shape")}
+                    for tag in ("fp64", "fp32")},
+                "per_evaluation": {
+                    tag: {box: measured[tag][f"F{key}_step"]
+                          for box, key in (("flagship", ""),
+                                           ("10k", "@10k"))}
+                    for tag in ("fp64", "fp32")}})))
     extra = {f"{tag}_{k}": {f: r[f] for f in ("ms", "device_ms", "plain_ms",
                                                "bound_ms", "library_ms")}
              for tag, res in measured.items() if tag != "batch16"
              for k, r in res.items()
              if k not in KERNELS and not k.endswith(
-                 ("@100k",) + tuple("@" + b for b in TRANSFER_BOXES))}
+                 ("@100k", "_step") + tuple("@" + b for b in
+                                            TRANSFER_BOXES))}
     log(f"  other shapes: {json.dumps(extra)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

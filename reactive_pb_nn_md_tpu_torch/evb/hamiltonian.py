@@ -32,6 +32,7 @@ from ..models import total as total_mod
 from ..models import bonded, coupling, nonbonded, pme, repulsion
 from ..md.graphs import leaves, with_leaves
 from ..ops.ground_state import ground_state
+from ..ops.kernels.segment_sum import take_rows
 from ..ops.neighbors import CellTable, rows_on_demand
 from ..topology import Topology
 from ..utils import pbc
@@ -173,7 +174,10 @@ def diabat_diagonal_energies(x, box, batch: DiabatBatch, system, pairs, cbw,
     xu = x[ua]
     qj0, t0j = base_charge[j], topo0.atom_type[j]
     jU = pos_in_U[j]
-    dr = pbc.min_image(xu[:, None, :] - x[j], box)
+    # the entries rmask leaves out (empty slots, the rows of U's padded
+    # atoms) are padding to take_rows: no gradient reaches them
+    dr = pbc.min_image(xu[:, None, :] - take_rows(x, torch.where(rmask, j,
+                                                                -1)), box)
     r2 = (dr * dr).sum(-1)
     within = rmask & (r2 < system.real_space_cutoff ** 2)
     r2s = torch.where(within, r2, torch.ones_like(r2))
@@ -302,7 +306,9 @@ def coupling_elements(x, box, batch: DiabatBatch, system, com0, xa_pc0,
     com_chain = molecule_com(x, _rows_of(batch.topo.mol_atoms,
                                          mols.clamp(min=0)),
                              system.mass, box)                  # (S, 2C, 3)
-    mol_pack = (xa_pc0[..., 0:3], xa_pc0[..., 3], topo0.mol_atoms >= 0)
+    # the charges are topology data: no gradient to carry back
+    mol_pack = (xa_pc0[..., 0:3], xa_pc0[..., 3].detach(),
+                topo0.mol_atoms >= 0)
     return coupling.coupling_elements(x, box, batch.topo, system, com0,
                                       mol_pack, (mols, mvalid, com_chain,
                                                  last), hop_last, active)

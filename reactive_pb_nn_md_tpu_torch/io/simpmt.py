@@ -72,8 +72,10 @@ class SimConfig:
     evb_reactive_pair_distance: float = 2.5
     seed: int = 0
     # "eigh" = dense eigendecomposition of the padded H; "iterative" =
-    # shift-and-invert Krylov ground state (the JAX package only; the
-    # port's build_system refuses it)
+    # the JAX package's shift-and-invert Krylov ground state, a TPU
+    # workaround for large caps: the port runs either deck with its one
+    # ground state (ops/ground_state.py: kernel E on the card, eigh on
+    # the CPU)
     eigensolver: str = "eigh"
 
     def validate(self):

@@ -13,6 +13,7 @@ import math
 
 import torch
 
+from ..ops.kernels.segment_sum import take_rows
 from ..utils import pbc
 
 
@@ -32,9 +33,12 @@ def _gather_terms(xa, mtype, mmask, idx_table, par_table):
     A = xa.shape[-2]
     lead = table.shape[:-2]
     S, ar = table.shape[-2:]
-    safe = table.clamp(min=0).reshape(-1, S * ar, 1).expand(-1, -1, 3)
-    pos = torch.gather(xa.reshape(-1, A, 3), 1, safe)
-    pos = pos.reshape(*lead, S, ar, 3)
+    # molecule b's slot k is row b A + k of the flattened sites; a padded
+    # term (-1) is padding to take_rows
+    mol = torch.arange(mtype.numel(), device=xa.device)
+    idx = table.reshape(-1, S * ar)
+    rows = torch.where(idx >= 0, mol[:, None] * A + idx, -1)
+    pos = take_rows(xa.reshape(-1, 3), rows).reshape(*lead, S, ar, 3)
     func = torch.round(par[..., 0]).to(torch.int64)
     return pos, func, par[..., 1:], mask
 

@@ -22,6 +22,7 @@ import math
 import torch
 
 from ..nn.coupling_mlp import apply_mlp
+from ..ops.kernels.segment_sum import take_rows
 from ..utils.constants import CONV_E2A_KJMOL
 from ..utils import pbc
 
@@ -129,9 +130,9 @@ def coupling_elements(x, box, topo_b, system, com0, mol_pack, chain,
     a_mtype = topo_b.mol_mtype[s_idx, a]
 
     # ---- geometric factor, positions min-imaged against O_donor
-    r_O1 = x[d_heavy]
-    r_O2 = r_O1 + pbc.min_image(x[a_heavy] - r_O1, box)
-    r_H = r_O1 + pbc.min_image(x[proton] - r_O1, box)
+    r_O1 = take_rows(x, d_heavy)
+    r_O2 = r_O1 + pbc.min_image(take_rows(x, a_heavy) - r_O1, box)
+    r_H = r_O1 + pbc.min_image(take_rows(x, proton) - r_O1, box)
     q_vec = (r_O1 + r_O2) / 2.0 - r_H
     t1 = topo_b.atom_type[s_idx, d_heavy]
     t2 = topo_b.atom_type[s_idx, a_heavy]
@@ -181,7 +182,7 @@ def coupling_elements(x, box, topo_b, system, com0, mol_pack, chain,
     qx_a = torch.where(a_atoms == proton[:, None], q_transfer[:, None], qx_a)
 
     def whole(ai):
-        xa = x[ai]
+        xa = take_rows(x, ai)
         return xa[:, :1] + pbc.min_image(xa - xa[:, :1], box)
 
     zx = torch.cat([whole(d_ai), whole(a_ai) - shift_a[:, None]], dim=1)
@@ -192,14 +193,17 @@ def coupling_elements(x, box, topo_b, system, com0, mol_pack, chain,
                     amask0[None])
     cm = mols.clamp(min=0)                                      # (S, 2C)
     sub = _vex_sum(zx, zq,
-                   xm0[cm] - shift_mol[s_idx[:, None], cm][:, :, None, :],
+                   take_rows(xm0, cm)
+                   - shift_mol[s_idx[:, None], cm][:, :, None, :],
                    qm0[cm], amask0[cm] & mvalid[:, :, None])
     atoms_c = topo_b.mol_atoms[s_idx[:, None], cm]              # (S, 2C, A)
     av = ((atoms_c >= 0) & mvalid[:, :, None]
           & ((cm != d[:, None]) & (cm != a[:, None]))[:, :, None])
     ai = atoms_c.clamp(min=0)
     q_c = torch.gather(topo_b.charge, 1, ai.reshape(S, -1)).reshape(ai.shape)
-    add = _vex_sum(zx, zq, x[ai] - shift_chain[:, :, None, :], q_c, av)
+    # the entries av masks out are padding to take_rows (no gradient)
+    add = _vex_sum(zx, zq, take_rows(x, torch.where(av, ai, -1))
+                   - shift_chain[:, :, None, :], q_c, av)
     vex = (full - sub + add) * CONV_E2A_KJMOL
 
     return torch.where(active, (vconst + vex) * a_fac,

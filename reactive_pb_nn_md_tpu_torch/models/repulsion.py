@@ -17,6 +17,7 @@ superset's neighbor rows instead (ms_evb_repulsion_batched_domain).
 
 import torch
 
+from ..ops.kernels.segment_sum import take_rows
 from ..utils import pbc
 
 
@@ -54,7 +55,7 @@ def ms_evb_repulsion(x, box, topo, system):
     hp1 = proton_t.clamp(min=0)[:, None]
     da_p = evb.da_params[t_j, hp0, hp1].to(x.dtype)             # (S, N, 6)
     da_m = evb.da_mask[t_j, hp0, hp1] & solvent
-    r_heavy = x[heavy_atom]                                     # (S, 3)
+    r_heavy = take_rows(x, heavy_atom)                          # (S, 3)
     d_jO = pbc.min_image(r_heavy[:, None, :] - x[None], box)    # (S, N, 3)
     one = torch.ones_like(d_jO[..., 0])
     r_OO = torch.sqrt(torch.where(da_m, (d_jO * d_jO).sum(-1), one))
@@ -63,7 +64,7 @@ def ms_evb_repulsion(x, box, topo, system):
     fac_OO = B * torch.exp(-bl * (r_OO - d0))
     shift_jO = ((r_heavy[:, None, :] - x[None]) - d_jO).detach()
     is_proton = (types == proton_t[:, None]) & amask            # (S, A)
-    xa = x[atoms_s]                                             # (S, A, 3)
+    xa = take_rows(x, atoms_s)                                  # (S, A, 3)
     r_H = r_heavy[:, None, :] + pbc.min_image(xa - r_heavy[:, None, :], box)
     xj = x[None, :, None, :]
     d_jH = (r_H[:, None, :, :] - shift_jO[:, :, None, :]) - xj  # (S, N, A, 3)
@@ -143,7 +144,8 @@ def ms_evb_repulsion_batched_domain(x, box, topo, system, xu, pos_in_U, j,
     slotU = torch.where(amask, pos_in_U[a_safe], torch.full_like(atoms, -1))
     row_ok = amask & (slotU >= 0)
     su = slotU.clamp(min=0)
-    xa = torch.where(row_ok[..., None], xu[su], torch.zeros_like(xu[su]))
+    xa_s = take_rows(xu, su)
+    xa = torch.where(row_ok[..., None], xa_s, torch.zeros_like(xa_s))
     jA = j[su]                                                  # (S, A, Kf)
     maskA = rmask[su] & row_ok[..., None]
     jU = pos_in_U[jA]
@@ -164,7 +166,8 @@ def ms_evb_repulsion_batched_domain(x, box, topo, system, xu, pos_in_U, j,
                         jA.reshape(S, -1)).reshape(jA.shape)
     t_j = torch.where(inU_j, t_in, atom_type0[jA])
     solvent = maskA & ~in_acid
-    xj = x[jA]                                                  # (S, A, Kf, 3)
+    # the candidates maskA leaves out are padding to take_rows
+    xj = take_rows(x, torch.where(maskA, jA, -1))               # (S, A, Kf, 3)
 
     # ----- three-atom O-O repulsion on the heavy atom's row
     hslot = torch.argmax((types == heavy_tr[:, None]).to(torch.int64), 1)

@@ -19,6 +19,7 @@ import torch
 from ..utils import pbc
 from . import nonbonded, bonded, pme
 from ..ops.kernels import realspace_pair
+from ..ops.kernels.segment_sum import take_rows
 
 
 @dataclass
@@ -65,7 +66,7 @@ def _realspace_inter_pairs(x, box, topo, system, pairs):
         raise ValueError("the half neighbor list was not built, but the "
                          "pair sweep needs it")
     inter = mask & (topo.atom_mol[i] != topo.atom_mol[j])
-    dr = pbc.min_image(x[i] - x[j], box)
+    dr = pbc.min_image(x[i] - take_rows(x, torch.where(mask, j, -1)), box)
     r2 = torch.sum(dr * dr, dim=-1)
     within = inter & (r2 < system.real_space_cutoff ** 2)
     r2s = torch.where(within, r2, torch.ones_like(r2))
@@ -87,13 +88,17 @@ def _realspace_inter_pairs(x, box, topo, system, pairs):
 def mol_sites_packed(x, charge, mol_atoms):
     """(*B, A, 4) [position | charge] of the molecules' template slots
     (padded slots read atom 0; callers mask).  charge may carry a leading
-    state axis matching mol_atoms' (S, ...)."""
+    state axis matching mol_atoms' (S, ...).  Without one, mol_atoms are
+    distinct molecules' rows, so each atom is read once and x[g]'s
+    backward adds one term an atom (exact in any order); the states'
+    rows read an atom many times and take take_rows' fixed-order sum,
+    their padded slots (-1) its padding."""
     g = mol_atoms.clamp(min=0)
     if charge.ndim == 1:
         return torch.cat([x[g], charge[g][..., None]], dim=-1)
     S = charge.shape[0]
     q = torch.gather(charge, 1, g.reshape(S, -1)).reshape(g.shape)
-    return torch.cat([x[g], q[..., None]], dim=-1)
+    return torch.cat([take_rows(x, mol_atoms), q[..., None]], dim=-1)
 
 
 def intra_terms(xa_pc, mtype, box, system, mmask=None):
@@ -110,12 +115,18 @@ def intra_terms(xa_pc, mtype, box, system, mmask=None):
         valid = valid & mmask[..., None]
     code = system.mt.excl_code[:, iu, ju][mtype]                 # (*B, P2)
     itab = system.mt.intra_tab[mtype].to(xa_pc.dtype)            # (*B, P2, 13)
-    pci, pcj = xa_pc[..., iu, :], xa_pc[..., ju, :]
-    dr = pbc.min_image(pci[..., 0:3] - pcj[..., 0:3], box)
+    # the pairs (i < j) read from the slots' full difference and charge
+    # product matrices: each (i, j) is read once, so the pair gather's
+    # gradient adds one term a target, and the slots' gradients are the
+    # broadcasts' sums (a gather of slots i and j would sum each slot's
+    # pairs with an accumulating index op)
+    dr = pbc.min_image((xa_pc[..., :, None, 0:3]
+                        - xa_pc[..., None, :, 0:3])[..., iu, ju, :], box)
     r2 = torch.where(valid, torch.sum(dr * dr, -1),
                      torch.ones_like(dr[..., 0]))
     r = torch.sqrt(r2)
-    qq = pci[..., 3] * pcj[..., 3]
+    q = xa_pc[..., 3].detach()          # charges: no gradient to carry
+    qq = (q[..., :, None] * q[..., None, :])[..., iu, ju]
     excluded = valid & (code == 1)
     nonexcl = valid & (code != 1)
     e_corr = nonbonded.ewald_exclusion_correction(qq, r, system.alpha_sqrt)

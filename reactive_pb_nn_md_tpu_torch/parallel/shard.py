@@ -51,10 +51,9 @@ its one batched launch, and each collective is issued once a step for
 the stacked (W, ...) tensor (_AllReduce's vmap rule), whatever W is.
 
 A shared term recomputed on every rank takes the same bits on every rank
-from the same inputs on the CPU (gloo); on the cards an op with atomics
-may differ in its last bits between ranks, which reaches the trajectory
-only through rank 0's share of the force (the force sum gives every rank
-the same force) and the principal state's index.
+from the same inputs, on the CPU (gloo) and on the cards: the step sums
+in a fixed order there too (the kernels, and kernel F for the gradients
+of its gathers on positions, ops/kernels/segment_sum.py).
 """
 
 from collections import Counter

@@ -2,14 +2,17 @@
 
     python -m reactive_pb_nn_md_tpu_torch.run.cli \\
         in.gro ff.pmt topology.top sim.pmt traj.out log.out hop.out A.out \\
-        [--device cuda|cpu] [--steps N] [--dump-forces PATH]
+        [--device cuda|cpu] [--steps N] [--dump-forces PATH] [--profile DIR]
 
 ``--device`` defaults to ``cuda`` and fails when CUDA is absent; the CPU
 runs only when asked for.  The deck's ``precision fp64|fp32`` key picks
 the tensor dtype, its ``ensemble`` key NVE, NVT or NPT.  A run restarts
 by itself when ``velocity_checkpoint.npz`` (in the working directory)
 lies beside an existing trajectory; ``checkpoint_velocity N`` writes it
-every N steps.
+every N steps.  ``--profile DIR`` writes a torch.profiler trace of the
+run (host and, on the card, device activity) into DIR, a Chrome trace
+``*.pt.trace.json`` that TensorBoard's profiler plugin or
+chrome://tracing opens.
 """
 
 import argparse
@@ -39,6 +42,10 @@ def main(argv=None):
                    help="write the per-atom forces to PATH (a fresh file "
                         "each run) at every output step (print_forces, "
                         "general_routines.f90:950-991)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the run into DIR "
+                        "(per-op and, on the card, per-kernel times: the "
+                        "JAX CLI's --profile with jax.profiler.trace)")
     args = p.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -52,10 +59,26 @@ def main(argv=None):
         sim.dump_forces_path = args.dump_forces
         open(args.dump_forces, "w").close()
     n = args.steps if args.steps is not None else sim.cfg.n_step
-    elapsed = sim.run(n)
+    if args.profile:
+        with profiled(args.profile, device):
+            elapsed = sim.run(n)
+    else:
+        elapsed = sim.run(n)
     print(f"completed {n} steps in {elapsed:.2f} s "
           f"({n / max(elapsed, 1e-9):.2f} steps/s)")
     return sim
+
+
+def profiled(out_dir, device):
+    """A torch.profiler context writing its trace into out_dir when it
+    ends (CPU activity, and CUDA activity on a CUDA device)."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts,
+                   on_trace_ready=tensorboard_trace_handler(str(out_dir)))
 
 
 if __name__ == "__main__":

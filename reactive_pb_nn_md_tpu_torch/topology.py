@@ -252,8 +252,6 @@ def build_numpy_tree(gro: GroFrame, ff_raw: RawForceField,
                      top_raw: TopologyFileRaw, cfg: SimConfig) -> dict:
     """The system as nested dicts of numpy arrays, keyed like the
     containers above (the format ``convert.from_numpy_tree`` reads)."""
-    if getattr(cfg, "eigensolver", "eigh") != "eigh":
-        raise ValueError("only the 'eigh' eigensolver is ported")
     T = ff_raw.n_types
     names = ff_raw.names
 

@@ -1,8 +1,11 @@
 """The port's reactive NVE slice against the JAX package, fp64 on the CPU:
 an 8-water + H3O+ fixture with PME 12 (as tests/test_tier_production.py)
 through adiabatic_energy_force and 5 md_steps from identical numpy
-velocities, and the CLI in a subprocess that must not import jax."""
+velocities, and the CLI in a subprocess that must not import jax; the
+same runs held tighter through the fixed-order sums (energy 1e-12,
+forces 1e-13, 3 steps 1e-9 A), and the CLI's --profile trace."""
 
+import json
 import os
 import pathlib
 import subprocess
@@ -198,3 +201,32 @@ def test_sample_velocities_exact_temperature(tmp_path):
     v2 = velocities.sample_velocities(torch.Generator().manual_seed(3),
                                       tsys.mass, 300.0, mobile)
     assert torch.equal(v, v2)
+
+
+def test_fixed_order_sums_hold_jax_parity(slice_runs):
+    """The step's gathers on positions go through take_rows, whose
+    backward is the fixed-order segment sum (ops/kernels/segment_sum.py):
+    the adiabatic energy within 1e-12 relative of the JAX package's, the
+    forces within 1e-13 of their largest, the first 3 steps' positions
+    within 1e-9 A."""
+    j, p = slice_runs["jax_res"], slice_runs["port_res"]
+    assert abs(float(p.energy) - float(j.energy)) \
+        <= 1e-12 * abs(float(j.energy))
+    F_j = np.asarray(j.force)
+    assert np.abs(p.force.numpy() - F_j).max() <= 1e-13 * np.abs(F_j).max()
+    for (xj, _), (xp, _) in zip(slice_runs["jax_traj"][:3],
+                                slice_runs["port_traj"][:3]):
+        assert np.abs(xp - xj).max() <= 1e-9
+
+
+def test_cli_profile_writes_a_trace(tmp_path):
+    """--profile DIR (the JAX CLI's jax.profiler.trace) writes a
+    torch.profiler Chrome trace of the run into DIR."""
+    from reactive_pb_nn_md_tpu_torch.run import cli
+    prof = tmp_path / "prof"
+    cli.main(_write_deck(tmp_path) + ["--device", "cpu", "--steps", "2",
+                                      "--profile", str(prof)])
+    traces = list(prof.glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)

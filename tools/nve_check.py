@@ -8,8 +8,10 @@ where and why the total energy jumps:
 Each run goes through the simulation loop from benchdata/
 eq_flagship_s80.npz as chip_smoke's phase 6 does, in chunks of one step
 (chip_smoke.eq_sim's set-up), recording every step's Etot, diabat count, hydronium molecule
-and max |F|.  The fp32 step is not reproducible (B1 and torch's
-index_put backward add with atomics), so the runs differ.  For every
+and max |F|.  The step is reproducible bit for bit (every sum in a
+fixed order: the kernels' and kernel F's for the gradients of the
+gathers on positions), so runs from one state agree; --root runs an
+older checkout, whose runs differ.  For every
 step whose |Etot change| exceeds --jump kJ/mol (default 5), the
 positions before and after it are evaluated again in fp64
 (evaluate_forces on the positions in fp64, with the fp64 system and the

@@ -2,7 +2,7 @@
 """Profile the port's MD step on one card, eager against graphed:
 
     python3 tools/profile_step.py [--deck flagship|10k] [--ensemble NVE|NVT]
-        [--dtype fp64|fp32|both] [--steps N] [--out DIR]
+        [--dtype fp64|fp32|both] [--steps N] [--graphed-only] [--out DIR]
 
 --deck flagship (default): the equilibrated flagship box
 (benchdata/eq_flagship_s80.npz with examples/water_msevb/); --deck 10k:
@@ -11,8 +11,8 @@ velocities.  Both run through the simulation loop (md/simulation.py: a
 capacity that does not hold is regrown and the chunk replayed).
 
 For each precision, from the same start, eager (md_step on the card, no
-graph: Simulation.eager) and graphed (the chunked loop's replays of the
-captured step):
+graph: Simulation.eager; left out with --graphed-only) and graphed (the
+chunked loop's replays of the captured step):
   1. steps/s from the log's "completed" line of a run of --steps steps
      (the graphed run includes its warm-up step and capture; eager runs
      a sixth as many steps, at most 20);
@@ -22,7 +22,9 @@ captured step):
   3. torch.profiler (CUDA activity) over PROFILED further steps: device
      ms per step (every device op's self time), device ops per step
      (kernels, copies and sets: per replay when graphed), kernel E's
-     device ms, the wall ms per step of those same steps (perf_counter
+     and kernel F's device ms, the device ms and count of torch's
+     accumulating kernels (ACCUMULATE), the wall ms per step of those
+     same steps (perf_counter
      between two synchronizations) and the device busy share, device ms
      over that wall ms: one window for both, so the share is at most 1
      (the profiler's own cost is the profiled wall ms against the
@@ -49,6 +51,12 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PROFILED = 8                   # steps under the profiler
+# device kernels of torch's accumulating ops (the indexing backward, which
+# index_put with accumulate also runs; index_add; the scatter-add of
+# gather's backward) and of the port's fixed-order segment sum (kernel F)
+ACCUMULATE = re.compile(r"indexing_backward|indexFunc|ReduceAdd|"
+                        r"embedding_backward")
+SEGMENT = "segment_sum_kernel"
 NVT_LINES = "ensemble           NVT\nfriction_coeff     1.0\n"
 # record_function ranges of the eager step: (module, function) -> label
 RANGES = (("ops.neighbors", "needs_rebuild", "rebuild"),
@@ -174,6 +182,14 @@ def measure(deck, ensemble, tag, out_dir, steps, eager, mutate=None,
                E_device_ms=sum(e.self_device_time_total for e in dev
                                if "ground_state_kernel" in e.key)
                / 1e3 / profiled,
+               F_device_ms=sum(e.self_device_time_total for e in dev
+                               if SEGMENT in e.key) / 1e3 / profiled,
+               F_per_step=sum(e.count for e in dev if SEGMENT in e.key)
+               / profiled,
+               accumulate={e.key[:90]: dict(
+                   ms=e.self_device_time_total / 1e3 / profiled,
+                   per_step=e.count / profiled)
+                   for e in dev if ACCUMULATE.search(e.key)},
                regrows=[ln for ln in text.splitlines() if "regrow" in ln],
                top=[dict(op=e.key[:70], ms=e.self_device_time_total / 1e3
                          / profiled, per_step=e.count / profiled)
@@ -225,7 +241,11 @@ def line(r):
             f"log's line), steady {r['steady_ms_per_step']:.2f} ms/step, "
             f"profiled {r['profiled_ms_per_step']:.2f} ms/step, "
             f"device {r['device_ms_per_step']:.2f} ms/step (E "
-            f"{r['E_device_ms']:.3f}), busy {r['device_busy_share']:.3f}, "
+            f"{r['E_device_ms']:.3f}, F {r['F_device_ms']:.3f} in "
+            f"{r['F_per_step']:.0f}, torch accumulate kernels "
+            f"{sum(a['ms'] for a in r['accumulate'].values()):.3f} in "
+            f"{sum(a['per_step'] for a in r['accumulate'].values()):.0f}), "
+            f"busy {r['device_busy_share']:.3f}, "
             f"{r['device_ops_per_step']:.0f} device ops/step, SM clock "
             f"{r['sm_clock_mhz']} of {r['sm_clock_max_mhz']} MHz; {extra}")
 
@@ -240,6 +260,8 @@ def main(argv=None):
                                                        "both"))
     p.add_argument("--steps", type=int, default=128,
                    help="steps of the graphed run (a chunk at most 128)")
+    p.add_argument("--graphed-only", action="store_true",
+                   help="measure the graphed step only")
     args = p.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -253,7 +275,7 @@ def main(argv=None):
     res = dict(card=nvidia_smi(), runs=[])
     tags = ("fp64", "fp32") if args.dtype == "both" else (args.dtype,)
     for tag in tags:
-        for eager in (True, False):
+        for eager in (False,) if args.graphed_only else (True, False):
             r = measure(args.deck, args.ensemble, tag, out_dir, args.steps,
                         eager)
             res["runs"].append(r)
