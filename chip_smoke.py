@@ -229,7 +229,9 @@ Phases, in order, one line each (any failure raises, exit code != 0):
         133 > 128), S = 32 and K = 128; A'', B1, B2, C1, C2 and E
         against their plain versions at the box's shapes, fp64 and fp32,
         at phase 3's (E: 8b's) tolerances (the at_100k keys of the
-        kernels line); then one capture chunk and 64 graphed fp32 NVE
+        kernels line), and F at the calls of one evaluation of the box,
+        each equal to the CPU's index_add bit for bit, their device ms
+        (order and sum) printed; then one capture chunk and 64 graphed fp32 NVE
         steps through scale_run.run, launch counts from 0 (the path:
         A'', B1, B2, C1, C2, E launch; A, A', D1, D2 do not): the
         potential finite, no capacity flag in any chunk (the steps/s of
@@ -284,11 +286,16 @@ Phases, in order, one line each (any failure raises, exit code != 0):
      listed), and the torch accumulate kernels of one profiled replay of
      each captured step, printed.
   Phase 3 also holds kernel F (the fixed-order segment sum,
-  csrc/segment_sum.cu) at the calls of one flagship and one 10k force
-  evaluation against its plain version (SEGMENT_TOL of max |ref|; the
-  CPU's index_add adds in the same order, so the bits are printed too),
-  two calls bit-identical and a batched launch of 4 equal to 4 single
-  launches; F launches on every main path with a force.
+  csrc/segment_sum.cu: two order kernels and the sum) at the calls of
+  one flagship and one 10k force evaluation: its order (perm, off)
+  equal to segment_order's, its sum equal to the CPU's index_add bit
+  for bit (which adds in the same order; within SEGMENT_TOL of max
+  |ref| printed too), two calls bit-identical and a batched launch of 4
+  equal to 4 single launches (an index shared and batched); one call
+  profiles as F's own kernels and nothing else, at most 3 launches; the
+  evaluation's calls' device ms, the order's apart from the sum's, and
+  each call's longest row are printed.  F launches on every main path
+  with a force.
 The line before the last is nvidia-smi's name and power limit, the one
 before it the per-kernel JSON (times, errors and bounds in fp64; fp32 in
 the fp32_ keys); the last line is the result JSON.
@@ -435,6 +442,9 @@ TRANSFER_PRETRAIN, TRANSFER_PLAIN_REPS = 200, 5
 # kernel F against its plain version (of max |ref|; the plain version on
 # the CPU adds in the same order, so the bits agree in both types)
 SEGMENT_TOL = {"fp64": 1e-13, "fp32": 1e-6}
+# kernel F's kernels by name (csrc/segment_sum.cu): its order, its sum
+F_ORDER_KERNELS = ("segment_tile_sort_kernel", "segment_bucket_order_kernel")
+F_SUM_KERNEL = "segment_sum_kernel"
 
 # Tolerances (|got - ref| <= atol + rtol |ref|, atol relative to max|ref|):
 #  fp64: 1e-10 relative for every kernel.
@@ -860,8 +870,9 @@ def segment_calls(system, state, topo, cbw, kw):
     return calls
 
 
-def device_ms_by_name(fn, calls=5):
-    """{kernel name: device ms of one fn() call} (torch.profiler)."""
+def device_ms_by_name(fn, calls=5, counts=False):
+    """{kernel name: device ms of one fn() call} (torch.profiler); with
+    `counts`, {name: (ms, launches)} of one call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -870,36 +881,100 @@ def device_ms_by_name(fn, calls=5):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / calls / 1e3
+    return {e.key: (e.self_device_time_total / calls / 1e3, e.count / calls)
+            if counts else e.self_device_time_total / calls / 1e3
             for e in prof.key_averages() if e.self_device_time_total > 0}
 
 
+def segment_split(by_name):
+    """(sum, order, foreign) device ms of a device_ms_by_name profile of
+    kernel F calls: the sum kernel's, the rest (F's two order kernels;
+    in a checkout before them, torch's sort and search), and what is
+    neither F's sum nor its order kernels."""
+    total = sum(by_name.values())
+    s = sum(v for k, v in by_name.items() if F_SUM_KERNEL in k)
+    own = sum(v for k, v in by_name.items() if any(
+        n in k for n in F_ORDER_KERNELS + (F_SUM_KERNEL,)))
+    return s, total - s, total - own
+
+
+def longest_row(idx, n):
+    """The most entries of idx (any shape) on one row t < n."""
+    import torch
+    i = idx.reshape(-1)
+    i = i[(i >= 0) & (i < n)]
+    return int(torch.bincount(i, minlength=n).max()) if i.numel() else 0
+
+
+def segment_step(calls, tag, library=None):
+    """Device ms of the F calls `calls` one after another (one force
+    evaluation's), split into the order's and the sum's, with their
+    bound, entries and each call's longest row; with `library`, the
+    library call's device ms on the same inputs."""
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import segment_sum as ss
+    by_name = device_ms_by_name(lambda: [ss.segment_sum_cuda(*c)
+                                         for c in calls])
+    s, o, foreign = segment_split(by_name)
+    return dict(calls=len(calls), entries=sum(c[1].numel() for c in calls),
+                device_ms=sum(by_name.values()), kernel_device_ms=s,
+                order_device_ms=o, foreign_device_ms=foreign,
+                library_device_ms=None if library is None else device_ms(
+                    lambda: [library(*c) for c in calls]),
+                bound_ms=sum(bound(nbytes(src, i) + m * src[0].numel()
+                                   * src.element_size(), 0, tag)[0]
+                             for src, i, m in calls),
+                longest_rows=[longest_row(i, m) for _, i, m in calls],
+                shapes=[[int(i.numel()), m, int(src[0].numel())]
+                        for src, i, m in calls])
+
+
 def segment_kernels(out, tag, calls, key, W=BATCH_W):
-    """Kernel F at the shapes of `calls` (segment_calls'): each call
-    against the plain version on the CPU (index_add, which adds in the
-    same order) within SEGMENT_TOL of max |ref|, and bit for bit; two
-    calls bit-identical; a batched launch of W replicas (the call's src
-    scaled per replica, the index shared and rolled per replica) equal to
-    W single launches bit for bit.  Records the largest call (most
+    """Kernel F at the shapes of `calls` (segment_calls'): each call's
+    order (perm, off) equal to segment_order's on the CPU (off, and every
+    row's entries), its sum equal to the plain version on the CPU
+    (index_add, which adds in the same order) bit for bit, two calls
+    bit-identical; a batched launch of W replicas (the call's src scaled
+    per replica, the index shared and rolled per replica) equal to W
+    single launches bit for bit, and the rolled indices' orders to
+    segment_order's.  One call of the largest profiles as F's own
+    kernels only, at most 3 launches.  Records the largest call (most
     entries) as F{key}, its library call torch's indexing backward
     (index_put_ with accumulate) on the same inputs, and the whole
-    evaluation's calls as F{key}_step (device ms of all of them against
-    the indexing backward's, and F's own kernel's share)."""
+    evaluation's calls as F{key}_step (segment_step: device ms of the
+    order kernels and of the sum, each call's longest row)."""
     import torch
     from reactive_pb_nn_md_tpu_torch.ops.kernels import segment_sum as ss
-    worst, same_cpu = 0.0, True
+
+    def same_order(ii, n):
+        perm, off = ss.segment_order_kernels(ii, n)
+        perm, off = perm.cpu().reshape(-1, ii.shape[-1]), off.cpu()
+        for i, p, o in zip(ii.cpu().reshape(-1, ii.shape[-1]), perm,
+                           off.reshape(-1, n + 1)):
+            ref_perm, ref_off = ss.segment_order(i, n)
+            a, b = int(ref_off[0]), int(ref_off[n])
+            check(torch.equal(o.long(), ref_off)
+                  and torch.equal(p[a:b].long(), ref_perm[a:b]),
+                  f"kernel F ({tag}{key}): the order kernels' (perm, off) "
+                  f"differ from segment_order's at M = {i.numel()}, n = "
+                  f"{n}")
+
+    worst = 0.0
     for src, idx, n in calls:
+        same_order(idx, n)
         got = ss.segment_sum_cuda(src, idx, n)
         ref = ss.segment_sum_plain(src.cpu(), idx.cpu(), n)
         err = close(got, ref, 0.0, scale_atol=SEGMENT_TOL[tag])
         check(err[2], f"kernel F ({tag}{key}) disagrees with its plain "
                       f"version: {err[0]:.3e} at M = {idx.numel()}")
         worst = max(worst, err[1])
-        same_cpu &= torch.equal(got.cpu(), ref)
+        check(torch.equal(got.cpu(), ref),
+              f"kernel F ({tag}{key}) differs from index_add on the CPU "
+              f"at M = {idx.numel()}, n = {n}: max |d| {err[0]:.3e}")
         check(torch.equal(got, ss.segment_sum_cuda(src, idx, n)),
               f"kernel F ({tag}{key}) differs between two calls")
         srcs = torch.stack([src * (1.0 + 0.25 * w) for w in range(W)])
         idxs = torch.stack([idx.roll(w) for w in range(W)])
+        same_order(idxs, n)
         for ii in (idx, idxs):
             singles = torch.stack([ss.segment_sum_cuda(
                 srcs[w], ii if ii.ndim == 1 else ii[w], n)
@@ -912,6 +987,12 @@ def segment_kernels(out, tag, calls, key, W=BATCH_W):
     ref = ss.segment_sum_plain(src.cpu(), idx.cpu(), n)
     err = close(ss.segment_sum_cuda(src, idx, n), ref, 0.0,
                 scale_atol=SEGMENT_TOL[tag])
+    one = device_ms_by_name(lambda: ss.segment_sum_cuda(src, idx, n),
+                            counts=True)
+    check(all(any(f in k for f in F_ORDER_KERNELS + (F_SUM_KERNEL,))
+              for k in one) and sum(c for _, c in one.values()) <= 3,
+          f"one kernel F call ({tag}{key}) runs other device work or more "
+          f"than 3 launches: {one}")
 
     def library(s, i, m):
         # torch's indexing backward as the step gave it its inputs before
@@ -928,32 +1009,22 @@ def segment_kernels(out, tag, calls, key, W=BATCH_W):
            tag, lib=lambda: library(src, idx, n))
     out["F" + key]["shape"] = [int(idx.numel()), n,
                                int(src[0].numel())]
-
-    def every():
-        return [ss.segment_sum_cuda(*c) for c in calls]
-
-    by_name = device_ms_by_name(every)
-    step = dict(calls=len(calls), entries=sum(c[1].numel() for c in calls),
-                device_ms=sum(by_name.values()),
-                kernel_device_ms=sum(v for k, v in by_name.items()
-                                     if "segment_sum_kernel" in k),
-                library_device_ms=device_ms(
-                    lambda: [library(*c) for c in calls]),
-                bound_ms=sum(bound(nbytes(s, i) + m * s[0].numel()
-                                   * s.element_size(), 0, tag)[0]
-                             for s, i, m in calls),
-                worst_rel_err=worst, equal_to_cpu_plain=same_cpu)
+    out["F" + key]["kernels"] = {k: v for k, v in one.items()}
+    step = segment_step(calls, tag, library)
+    step.update(worst_rel_err=worst, equal_to_cpu_plain=True)
     out["F" + key + "_step"] = step
     log(f"  {tag} F{key}: {len(calls)} launches an evaluation, "
-        f"{step['entries']} entries; every call within "
-        f"{SEGMENT_TOL[tag]:g} of max|ref| (worst {worst:.3e}), equal to "
-        f"the CPU plain version bit for bit {same_cpu}, two calls and "
-        f"batched (W = {W}) launches bit-identical; the evaluation's "
-        f"calls {step['device_ms']:.4f} device ms (kernel F itself "
-        f"{step['kernel_device_ms']:.4f}, the rest the order's integer "
-        f"sort and search) against torch's indexing backward "
-        f"{fmt(step['library_device_ms'])} on the same inputs; bound "
-        f"{step['bound_ms']:.5f} ms (bytes)")
+        f"{step['entries']} entries; every call's order equal to "
+        f"segment_order's, its sum to the CPU's index_add bit for bit "
+        f"(within {SEGMENT_TOL[tag]:g} of max|ref|: worst {worst:.3e}), "
+        f"two calls and batched (W = {W}) launches bit-identical; one "
+        f"call: {one}; the evaluation's calls {step['device_ms']:.4f} "
+        f"device ms (the order kernels {step['order_device_ms']:.4f}, the "
+        f"sum {step['kernel_device_ms']:.4f}, other "
+        f"{step['foreign_device_ms']:.4f}) against torch's indexing "
+        f"backward {fmt(step['library_device_ms'])} on the same inputs; "
+        f"bound {step['bound_ms']:.5f} ms (bytes); longest rows "
+        f"{step['longest_rows']}")
 
 
 def phase_kernels(results):
@@ -3121,6 +3192,7 @@ def scale_kernels(build, measured):
                          system.evb_max_states, rng, "@100k",
                          SCALE_PLAIN_REPS, graphed=True)
         out["E@100k"] = ground_state_row("14a 100k S=32", H, dtype)
+        scale_segments(out, tag, build, x, box, topo, cbw)
         for name in SCALE_KERNELS:
             r = out[name + "@100k"]
             lib = ("" if r["library_ms"] is None
@@ -3133,6 +3205,38 @@ def scale_kernels(build, measured):
             check(r["ok"], f"kernel {name} ({tag}) at the 100k shapes "
                            f"disagrees with its plain version: max abs "
                            f"error {r['max_abs_err']:.3e}")
+
+
+def scale_segments(out, tag, build, x, box, topo, cbw):
+    """14a: kernel F at the calls of one force evaluation of the 100k box
+    (its state's neighbor plan): each call equal to the CPU's index_add
+    bit for bit; the calls' device ms, the order's and the sum's, and
+    each call's longest row (segment_step) as F@100k_step."""
+    import types
+    import torch
+    from reactive_pb_nn_md_tpu_torch.md import integrators
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import segment_sum as ss
+    system, _, _, ms = build
+    nl = ms.nlist
+    calls = segment_calls(system, types.SimpleNamespace(x=x, box=box), topo,
+                          cbw, integrators.neighbor_plan(
+                              system, box, nl.capacity, nl.cells,
+                              nl.react_cap, nl.react_cells))
+    for src, idx, n in calls:
+        check(torch.equal(ss.segment_sum_cuda(src, idx, n).cpu(),
+                          ss.segment_sum_plain(src.cpu(), idx.cpu(), n)),
+              f"14a kernel F ({tag}) differs from index_add on the CPU at "
+              f"M = {idx.numel()}, n = {n}")
+    step = segment_step(calls, tag)
+    out["F@100k_step"] = step
+    log(f"  14a {tag} F@100k: {step['calls']} calls, {step['entries']} "
+        f"entries, each equal to the CPU's index_add bit for bit; "
+        f"{step['device_ms']:.4f} device ms (the order kernels "
+        f"{step['order_device_ms']:.4f}, the sum "
+        f"{step['kernel_device_ms']:.4f}, other "
+        f"{step['foreign_device_ms']:.4f}); bound {step['bound_ms']:.5f} "
+        f"ms (bytes); longest rows {step['longest_rows']}; shapes "
+        f"{step['shapes']}")
 
 
 def scale_md(build):
@@ -3733,7 +3837,8 @@ def main():
                 "per_evaluation": {
                     tag: {box: measured[tag][f"F{key}_step"]
                           for box, key in (("flagship", ""),
-                                           ("10k", "@10k"))}
+                                           ("10k", "@10k"),
+                                           ("100k", "@100k"))}
                     for tag in ("fp64", "fp32")}})))
     extra = {f"{tag}_{k}": {f: r[f] for f in ("ms", "device_ms", "plain_ms",
                                                "bound_ms", "library_ms")}

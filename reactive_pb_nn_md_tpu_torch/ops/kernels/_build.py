@@ -10,8 +10,9 @@ it is given, allocates nothing, does not synchronize, and returns
 ``cudaGetLastError()``; ``check`` raises on anything but 0.
 
 ``launches`` counts kernel launches by kernel name (A, A', A'', B1, B2,
-C1, C2, D1, D2, E); each wrapper adds one where it launches its kernel,
-and nowhere else (a CUDA graph's replay adds what its capture counted:
+C1, C2, D1, D2, E, and F: one a call of its three kernels; "F order"
+for its order alone); each wrapper adds one where it launches its
+kernel, and nowhere else (a CUDA graph's replay adds what its capture counted:
 md/graphs.py).  A batched launch (a replica batch of the vmapped step:
 the kernels' ops' batching rules, `stride` / `front` below) counts once
 for all its replicas.

@@ -10,14 +10,30 @@ step from one state part after a few dozen steps.  Source
 
 ``segment_sum(src, idx, n)`` is ``out[t] = sum of src[m] over idx[m] = t``
 taken in ascending m: on a CUDA tensor kernel F, on a CPU tensor the
-plain version, ``index_add``, which adds in that order there.  The order
-is found on the card from integers alone (``segment_order``: a sort of
-the keys idx * M + m, unique, so any sort gives the one order, and a
-search for each row's first entry); every index of the step is
+plain version, ``index_add``, which adds in that order there.  Kernel F
+is at most three launches and nothing else: every index of the step is
 recomputed each step (the pair rows, the states' atoms, the changed
-molecules), so the order is made where the sum is, in the backward, and
-needs no host read and no allocation that depends on the data: a CUDA
-graph captures it.
+molecules), so the order is made where the sum is, in the backward, by
+F's own kernels, from the int64 index as it comes:
+
+  1. a block sorts a tile of TILE entries by bucket (a run of
+     2 ** bucket_shift(n, M) rows; padding first, rows past n last),
+     stably, in shared memory, and counts each bucket's entries in it;
+  2. a block a bucket gathers its entries from the tiles in tile order
+     (ascending m), sorts them by row CHUNK at a time, and writes the
+     rows' offsets and their entries: (perm, offsets), equal to
+     ``segment_order``'s on every row;
+  3. a thread an element of out adds its row's entries in ascending m.
+
+An index of one tile (M <= TILE) into at most DIRECT_ROWS rows skips the
+second launch: the first sorts it by row, which is the order itself.
+
+No host read, no allocation whose size depends on the data (the scratch
+is sized by M, n and the batch), no atomic operation: a CUDA graph
+captures the call.  ``segment_order`` (a torch sort of the unique keys
+idx M + m and a search of the row starts) is the plain version of the
+order, and ``segment_sum_plain`` of the sum; on the card nothing on the
+main path calls them.
 
 ``take_rows(x, idx)`` is ``x[idx]`` whose backward is segment_sum, and
 ``add_rows(out, idx, src)`` is ``out.index_add(0, idx, src)`` through
@@ -25,15 +41,37 @@ segment_sum.  An index entry < 0 is padding: take_rows reads row 0 for
 it and the sums leave it out.  The launch is the torch.library op
 ``segment_sum_op``, whose batching rule launches F once for a replica
 batch (torch.func.vmap over the MD step), the replica on a grid axis of
-the kernel; ``segment_sum`` (differentiable: a force-matching loss
-differentiates the forces) and ``take_rows`` are autograd Functions in
-setup_context form with generated vmap rules, so autograd inside vmap
-(the batched step's torch.func.grad) goes through them too.
+the kernels (an index shared by the batch is ordered once);
+``segment_sum`` (differentiable: a force-matching loss differentiates
+the forces) and ``take_rows`` are autograd Functions in setup_context
+form with generated vmap rules, so autograd inside vmap (the batched
+step's torch.func.grad) goes through them too.
 """
 
 import torch
 
 from . import _build
+
+# entries a tile of the first kernel, and a bucket's entries the second
+# sorts at once (csrc/segment_sum.cu kTile, kChunk)
+TILE = 2048
+CHUNK = 4096
+# the most rows an index of one tile is ordered for by the first kernel
+# alone (kDirectRows)
+DIRECT_ROWS = 16384
+# the most shared memory a block takes (H100): the second kernel's holds
+# two CHUNK arrays, four a bucket's rows and two a tile
+_SMEM = 227 * 1024
+
+
+def bucket_shift(n, m):
+    """log2 of the rows a bucket of kernel F's order takes for an index
+    of m entries into n rows: the most (at most 256) with about 512
+    entries a bucket on average, at least 1."""
+    s = 0
+    while s < 8 and m * (2 << s) <= 512 * n:
+        s += 1
+    return s
 
 
 def segment_order(idx, n):
@@ -43,7 +81,8 @@ def segment_order(idx, n):
     offsets[t + 1]] (the padding sorts before row 0 and belongs to no
     row).  The keys idx M + m are unique, so any sort gives this one
     order; integer ops only (exact), no host read; the keys are int32
-    where (n + 1) M fits (half the sort's passes)."""
+    where (n + 1) M fits (half the sort's passes).  The plain version of
+    kernel F's order (segment_order_kernels)."""
     m = max(idx.numel(), 1)
     dt = torch.int32 if (n + 1) * m < 2 ** 31 else torch.int64
     pos = torch.arange(idx.numel(), device=idx.device, dtype=dt)
@@ -61,12 +100,61 @@ def segment_sum_plain(src, idx, n):
         0, pad, src)[:n]
 
 
+def _order_buffers(idx, n):
+    """(scratch, perm, off, sizes) of kernel F's order for idx (M,) or
+    (nbi, M): int32 perm (nbi, M) and off (nbi, n + 1), the tiles'
+    entries (int64) and their bucket counts (int32) as scratch, all
+    sized by M, n and nbi; sizes (m, nbi, shift) are the launch's."""
+    m = idx.shape[-1]
+    nbi = idx.shape[0] if idx.ndim == 2 else 1
+    shift = bucket_shift(n, m)
+    nt = -(-m // TILE)
+    nbk = -(-n // (1 << shift))
+    tiles = ((_SMEM - 1024) // 4 - 2 * CHUNK - 4 * (1 << shift)) // 2
+    if n >= 2 ** 31 or (nbk + 2) * TILE >= 2 ** 32 or nt > tiles:
+        raise ValueError(f"kernel F's order takes at most {tiles * TILE} "
+                         f"entries and 2**31 rows a replica: M = {m}, n = "
+                         f"{n}")
+    dev = idx.device
+    ent = torch.empty(nbi * nt * TILE, dtype=torch.int64, device=dev)
+    ints = torch.empty(nbi * ((nbk + 1) * nt + m + n + 1),
+                       dtype=torch.int32, device=dev)
+    start = ints[:nbi * (nbk + 1) * nt]
+    perm = ints[start.numel():start.numel() + nbi * m].view(nbi, m)
+    off = ints[start.numel() + perm.numel():].view(nbi, n + 1)
+    return (ent, start), perm, off, (m, nbi, shift)
+
+
+def segment_order_kernels(idx, n):
+    """Kernel F's order of idx (M,) or (nbi, M) (each replica's rows its
+    own) on the card: int32 (perm, off) of shapes (M,), (n + 1,) (or
+    (nbi, M), (nbi, n + 1)), equal to segment_order's on every row,
+    perm[off[0]:off[n]], and in off; the padding's places perm[:off[0]]
+    are not written.  On a CPU tensor, segment_order."""
+    if not idx.is_cuda:
+        if idx.ndim == 2:
+            pairs = [segment_order(i, n) for i in idx]
+            return (torch.stack([p for p, _ in pairs]),
+                    torch.stack([o for _, o in pairs]))
+        return segment_order(idx, n)
+    _build.require(idx, torch.int64, None, "idx")
+    if n < 1:
+        raise ValueError("kernel F's order takes n >= 1 rows")
+    fn = _build.function("segment_order", 6, 4)
+    (ent, start), perm, off, (m, nbi, shift) = _order_buffers(idx, n)
+    _build.check(fn(idx.data_ptr(), ent.data_ptr(), start.data_ptr(),
+                    perm.data_ptr(), off.data_ptr(), _build.stream_ptr(idx),
+                    m, n, nbi, shift), "F order")
+    _build.launches["F order"] += 1
+    return (perm, off) if idx.ndim == 2 else (perm[0], off[0])
+
+
 def segment_sum_cuda(src, idx, n, nb=None):
-    """Launch kernel F: (n, *rest); with nb, a batched launch of nb
-    replicas, src (nb, M, *rest) and idx (M,) shared or (nb, M), giving
-    (nb, n, *rest)."""
+    """Launch kernel F (its order, then its sum): (n, *rest); with nb, a
+    batched launch of nb replicas, src (nb, M, *rest) and idx (M,)
+    shared (ordered once) or (nb, M), giving (nb, n, *rest)."""
     f = src.dtype
-    fn = _build.function("segment_sum_" + _build.suffix(f), 5, 6)
+    fn = _build.function("segment_sum_" + _build.suffix(f), 8, 6)
     _build.require(src, f, None, "src")
     _build.require(idx, torch.int64, None, "idx")
     lead = 1 if nb else 0
@@ -81,19 +169,11 @@ def segment_sum_cuda(src, idx, n, nb=None):
         raise ValueError(f"idx of shape {tuple(idx.shape)} does not index "
                          f"src of shape {tuple(src.shape)}")
     out = torch.empty((R, n) + rest, dtype=f, device=src.device)
-    if idx.ndim == 2:
-        # each replica's rows offset by r n (padding kept below 0): one
-        # order for the whole batch
-        glob = torch.where(idx < 0, -1, idx + n * torch.arange(
-            R, device=idx.device)[:, None])
-        perm, off = segment_order(glob.reshape(-1), R * n)
-        strides = (0, n, n * d)
-    else:
-        perm, off = segment_order(idx, n)
-        strides = (m * d, 0, n * d)
-    _build.check(fn(src.data_ptr(), perm.data_ptr(), off.data_ptr(),
-                    out.data_ptr(), _build.stream_ptr(src), n, d, R,
-                    *strides), "F")
+    (ent, start), perm, off, (_, nbi, shift) = _order_buffers(idx, n)
+    _build.check(fn(src.data_ptr(), idx.data_ptr(), ent.data_ptr(),
+                    start.data_ptr(), perm.data_ptr(), off.data_ptr(),
+                    out.data_ptr(), _build.stream_ptr(src), m, n, d, R, nbi,
+                    shift), "F")
     _build.launches["F"] += 1
     return out if nb else out[0]
 

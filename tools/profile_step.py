@@ -22,7 +22,8 @@ chunked loop's replays of the captured step):
   3. torch.profiler (CUDA activity) over PROFILED further steps: device
      ms per step (every device op's self time), device ops per step
      (kernels, copies and sets: per replay when graphed), kernel E's
-     and kernel F's device ms, the device ms and count of torch's
+     and kernel F's device ms (its order kernels and its sum; the order
+     alone too), the device ms and count of torch's
      accumulating kernels (ACCUMULATE), the wall ms per step of those
      same steps (perf_counter
      between two synchronizations) and the device busy share, device ms
@@ -56,7 +57,8 @@ PROFILED = 8                   # steps under the profiler
 # gather's backward) and of the port's fixed-order segment sum (kernel F)
 ACCUMULATE = re.compile(r"indexing_backward|indexFunc|ReduceAdd|"
                         r"embedding_backward")
-SEGMENT = "segment_sum_kernel"
+SEGMENT = re.compile(r"segment_(sum|tile_sort|bucket_order)_kernel")
+SEGMENT_ORDER = re.compile(r"segment_(tile_sort|bucket_order)_kernel")
 NVT_LINES = "ensemble           NVT\nfriction_coeff     1.0\n"
 # record_function ranges of the eager step: (module, function) -> label
 RANGES = (("ops.neighbors", "needs_rebuild", "rebuild"),
@@ -183,9 +185,12 @@ def measure(deck, ensemble, tag, out_dir, steps, eager, mutate=None,
                                if "ground_state_kernel" in e.key)
                / 1e3 / profiled,
                F_device_ms=sum(e.self_device_time_total for e in dev
-                               if SEGMENT in e.key) / 1e3 / profiled,
-               F_per_step=sum(e.count for e in dev if SEGMENT in e.key)
-               / profiled,
+                               if SEGMENT.search(e.key)) / 1e3 / profiled,
+               F_order_device_ms=sum(
+                   e.self_device_time_total for e in dev
+                   if SEGMENT_ORDER.search(e.key)) / 1e3 / profiled,
+               F_per_step=sum(e.count for e in dev
+                              if SEGMENT.search(e.key)) / profiled,
                accumulate={e.key[:90]: dict(
                    ms=e.self_device_time_total / 1e3 / profiled,
                    per_step=e.count / profiled)
@@ -242,7 +247,9 @@ def line(r):
             f"profiled {r['profiled_ms_per_step']:.2f} ms/step, "
             f"device {r['device_ms_per_step']:.2f} ms/step (E "
             f"{r['E_device_ms']:.3f}, F {r['F_device_ms']:.3f} in "
-            f"{r['F_per_step']:.0f}, torch accumulate kernels "
+            f"{r['F_per_step']:.0f} (its order "
+            f"{r['F_order_device_ms']:.3f}), torch accumulate "
+            f"kernels "
             f"{sum(a['ms'] for a in r['accumulate'].values()):.3f} in "
             f"{sum(a['per_step'] for a in r['accumulate'].values()):.0f}), "
             f"busy {r['device_busy_share']:.3f}, "

@@ -2,7 +2,7 @@
 """Two runs of one deck from one state on one card, every step's x, v and
 Etot compared bit for bit:
 
-    python3 tools/two_runs.py [--root DIR]
+    python3 tools/two_runs.py [--root DIR] [--against DIR]
 
 Configurations (chip_smoke.py phase 16 runs the same ones and fails
 where two runs part): the equilibrated flagship (benchdata/
@@ -19,10 +19,17 @@ repo; an older one, unpacked with `git archive`, shows where its runs
 parted).  Prints one line a configuration: the first step where the two
 runs differ (None: equal at every step) and the largest differences;
 then nvidia-smi's name and power limit.
+
+--against DIR: instead, one run of each configuration in the checkout
+--root and one in the checkout at DIR (an older one, unpacked with `git
+archive`), each checkout in its own process (`--dump FILE` saves a
+process's runs), every step's x, v and Etot compared bit for bit across
+the two: a change that keeps the step's bits shows None everywhere.
 """
 
 import argparse
 import pathlib
+import subprocess
 import sys
 import tempfile
 
@@ -135,16 +142,65 @@ def seeded_mlp(cs):
                                  device="cpu", n_env=cs.NN_ENV)
 
 
+def run_once(root, path):
+    """Each configuration of the checkout at `root` run once, its
+    stepwise() rows saved to `path` (torch.save: {name: rows on the
+    CPU})."""
+    import torch
+    sys.path.insert(0, str(root))
+    import chip_smoke as cs
+    from reactive_pb_nn_md_tpu_torch.ops.kernels import _build
+    _build.library()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, run in configurations(cs, pathlib.Path(tmp),
+                                        seeded_mlp(cs)):
+            runs[name] = [tuple(t.cpu() for t in row) for row in run()]
+    torch.save(runs, path)
+
+
+def against(root, other):
+    """--against: one process a checkout (this script's --dump), their
+    runs compared configuration by configuration."""
+    import torch
+    with tempfile.TemporaryDirectory() as tmp:
+        files = []
+        for tree in (root, other):
+            path = pathlib.Path(tmp) / f"{len(files)}.pt"
+            subprocess.run([sys.executable, __file__, "--root", str(tree),
+                            "--dump", str(path)], check=True)
+            files.append(torch.load(path, weights_only=True))
+        mine, theirs = files
+        for name, rows in mine.items():
+            first, dx, dv, de = compare(rows, theirs[name])
+            print(f"{root.name} against {other.name}, {name}: first step "
+                  f"apart {first}, max|dx| {dx:.3e} A, max|dv| {dv:.3e}, "
+                  f"max|dEtot| {de:.3e} kJ/mol", flush=True)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--root", default=str(ROOT),
                    help="the checkout to run (default: this repo)")
+    p.add_argument("--against", default=None,
+                   help="a checkout to compare --root's runs with")
+    p.add_argument("--dump", default=None,
+                   help="run each configuration once and save the runs")
     args = p.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("two_runs: no CUDA device", file=sys.stderr)
         return 1
     root = pathlib.Path(args.root).resolve()
+    if args.dump:
+        run_once(root, args.dump)
+        return 0
+    if args.against:
+        against(root, pathlib.Path(args.against).resolve())
+        sys.path.insert(0, str(root))
+        import chip_smoke as cs
+        print(cs.nvidia_smi())
+        return 0
     sys.path.insert(0, str(root))
     import chip_smoke as cs
     from reactive_pb_nn_md_tpu_torch.ops.kernels import _build
